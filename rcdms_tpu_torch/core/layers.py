@@ -1,0 +1,184 @@
+"""Core layers of the port — the counterpart of `rcdms_tpu/core/layers.py`.
+
+Public tensors keep the JAX package's channels-last layouts: images and
+feature maps (..., h, w, c), tokens (..., n, c). A per-frame conv runs on
+the folded (N, h, w, c) batch viewed as NCHW, which in memory is exactly
+PyTorch's channels_last format, so no copy is made around the conv.
+
+Not ported: `PaddedDense`, `DenseNT`/`DenseTN`, `_taps9_conv`, the `cm_*`
+formulations and their gates. They exist only for Mosaic's lane tiling and
+GSPMD and have no job on a GPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
+
+# flax's lecun_normal: a normal truncated at 2 sigma, rescaled to keep the
+# variance 1 / fan_in (stddev of the unit normal truncated at +-2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def sinusoidal_time_embedding(timesteps: torch.Tensor,
+                              dim: int) -> torch.Tensor:
+    """diffusers `get_timestep_embedding` as SD configures it (cos first,
+    no frequency shift, period 10000); (batch,) -> (batch, dim) fp32."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    freqs = torch.exp(exponent / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal projection."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int,
+                 out_dim: Optional[int] = None):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+
+    def forward(self, sample: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+def temporal_positional_encoding(num_frames: int, dim: int,
+                                 device=None) -> torch.Tensor:
+    """Sinusoidal PE over the frame axis; (num_frames, dim) fp32."""
+    position = torch.arange(num_frames, dtype=torch.float32,
+                            device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                      device=device)
+                         * (-math.log(10000.0) / dim))
+    args = position * div_term
+    pe = torch.zeros(num_frames, dim, device=device)
+    pe[:, 0::2] = torch.sin(args)
+    pe[:, 1::2] = torch.cos(args[:, : dim // 2])
+    return pe
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over channels-last (..., h, w, c) with statistics per
+    leading index, so (b, f, h, w, c) gets per-frame statistics. Moments in
+    fp32 as E[x^2] - E[x]^2; the affine is folded into one pass."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"channels {num_channels} not divisible by "
+                             f"groups {num_groups}")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, g = x.shape[-1], self.num_groups
+        xf = x.float()
+        s1 = xf.mean(dim=(-3, -2))
+        s2 = (xf * xf).mean(dim=(-3, -2))
+        lead = s1.shape[:-1]
+        mean_g = s1.reshape(lead + (g, c // g)).mean(-1)
+        ex2_g = s2.reshape(lead + (g, c // g)).mean(-1)
+        var_g = (ex2_g - mean_g * mean_g).clamp_min(0.0)
+        mean_c = mean_g.repeat_interleave(c // g, dim=-1)
+        inv_c = torch.rsqrt(var_g + self.eps).repeat_interleave(c // g,
+                                                                dim=-1)
+        mul = inv_c * self.weight.float()
+        add = self.bias.float() - mean_c * mul
+        return torch.addcmul(add[..., None, None, :], xf,
+                             mul[..., None, None, :]).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics, cast back to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+class _Proj(nn.Module):
+    """diffusers GEGLU/GELU holder: only its `proj` Linear is a parameter;
+    the activation runs inside the fused FF kernel."""
+
+    def __init__(self, dim: int, out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, out)
+
+
+class FeedForward(nn.Module):
+    """diffusers `FeedForward` (state-dict names `net.0.proj`, `net.2`),
+    computed by the fused FF kernels: 'geglu' (UNet and temporal blocks,
+    kernel C) or 'gelu' (the prior's blocks, kernel D)."""
+
+    def __init__(self, dim: int, activation: str = "geglu", mult: int = 4):
+        super().__init__()
+        if activation not in ("geglu", "gelu"):
+            raise ValueError(activation)
+        self.activation = activation
+        inner = dim * mult
+        up = 2 * inner if activation == "geglu" else inner
+        self.net = nn.ModuleList([_Proj(dim, up), nn.Identity(),
+                                  nn.Linear(inner, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = geglu_ff if self.activation == "geglu" else gelu_ff
+        proj_in, proj_out = self.net[0].proj, self.net[2]
+        return fn(x, proj_in.weight, proj_in.bias, proj_out.weight,
+                  proj_out.bias)
+
+
+class FrameConv(nn.Conv2d):
+    """Conv2d over channels-last images (..., h, w, c): the leading dims
+    fold into the batch (the reference's per-frame `InflatedConv3d`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        y = super().forward(x.reshape((-1,) + x.shape[-3:])
+                            .permute(0, 3, 1, 2))
+        y = y.permute(0, 2, 3, 1)
+        return y.reshape(lead + y.shape[1:])
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's lecun_normal over a torch (out, in, ...) weight."""
+    std = 1.0 / math.sqrt(weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights drawn as the JAX package's flax initializers
+    draw them: lecun_normal (truncated) Linear/Conv weights, zero biases,
+    unit norm scales, normal(1/sqrt(width)) embedding tables. Modules whose
+    parameters flax draws otherwise (zero embeddings, zero-init output
+    projections, packed projections) define `flax_init_(generator)`, which
+    runs last."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, GroupNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, std=m.weight.shape[1] ** -0.5,
+                            generator=generator)
+    for m in module.modules():
+        if hasattr(m, "flax_init_"):
+            m.flax_init_(generator)

@@ -1,0 +1,159 @@
+"""Diffusion schedulers for sampling, over float64 tables.
+
+The port's counterpart of `rcdms_tpu/core/schedulers.py` for the two
+samplers of the serving path:
+
+  * stage 1: UnCLIP (squaredcos_cap_v2 betas, prediction 'sample',
+    fixed_small_log variance, clip 10) with an explicit `prev_timestep`;
+  * stage 2: DDIM (linear 0.00085 -> 0.012, 'leading' spacing,
+    set_alpha_to_one, clip 1), eta = 0.
+
+Timesteps are plain ints (PyTorch runs eagerly), so every per-step
+coefficient is a Python float taken from the float64 tables; only the
+sample arithmetic runs on tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import cached_property
+
+import numpy as np
+import torch
+
+
+def make_betas(schedule: str, num_train_timesteps: int = 1000,
+               beta_start: float = 0.0001,
+               beta_end: float = 0.02) -> np.ndarray:
+    """Beta tables with diffusers semantics (float64)."""
+    if schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps,
+                           dtype=np.float64)
+    if schedule == "squaredcos_cap_v2":
+        def alpha_bar(t):
+            return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+
+        ts = np.arange(num_train_timesteps, dtype=np.float64)
+        betas = 1.0 - alpha_bar((ts + 1) / num_train_timesteps) / alpha_bar(
+            ts / num_train_timesteps)
+        return np.minimum(betas, 0.999)
+    raise ValueError(f"unknown beta schedule: {schedule}")
+
+
+@dataclass(frozen=True)
+class DiffusionSchedule:
+    """Shared alpha/beta tables and the x0 prediction."""
+
+    beta_schedule: str = "linear"
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.0001
+    beta_end: float = 0.02
+    prediction_type: str = "epsilon"   # epsilon | sample
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+
+    @cached_property
+    def betas(self) -> np.ndarray:
+        return make_betas(self.beta_schedule, self.num_train_timesteps,
+                          self.beta_start, self.beta_end)
+
+    @cached_property
+    def alphas_cumprod(self) -> np.ndarray:
+        return np.cumprod(1.0 - self.betas)
+
+    def _acp(self, t: int) -> float:
+        """alphas_cumprod[t], and 1.0 before the start (set_alpha_to_one)."""
+        return float(self.alphas_cumprod[t]) if t >= 0 else 1.0
+
+    def pred_x0(self, model_output: torch.Tensor, sample: torch.Tensor,
+                t: int) -> torch.Tensor:
+        acp = self._acp(t)
+        if self.prediction_type == "epsilon":
+            x0 = (sample - math.sqrt(1.0 - acp) * model_output) \
+                / math.sqrt(acp)
+        elif self.prediction_type == "sample":
+            x0 = model_output
+        else:
+            raise ValueError(self.prediction_type)
+        if self.clip_sample:
+            x0 = x0.clamp(-self.clip_sample_range, self.clip_sample_range)
+        return x0
+
+
+@dataclass(frozen=True)
+class DDIMSchedule(DiffusionSchedule):
+    """diffusers `DDIMScheduler`, 'leading' spacing, eta = 0."""
+
+    clip_sample: bool = True
+
+    @classmethod
+    def stage2_inference(cls) -> "DDIMSchedule":
+        return cls(beta_schedule="linear", beta_start=0.00085,
+                   beta_end=0.012)
+
+    def timesteps(self, num_inference_steps: int) -> np.ndarray:
+        step_ratio = self.num_train_timesteps // num_inference_steps
+        ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1]
+        return ts.astype(np.int64)
+
+    def prev_timesteps(self, num_inference_steps: int) -> np.ndarray:
+        return (self.timesteps(num_inference_steps)
+                - self.num_train_timesteps // num_inference_steps)
+
+    def step(self, model_output: torch.Tensor, t: int, prev_t: int,
+             sample: torch.Tensor) -> torch.Tensor:
+        """One DDIM step x_t -> x_{prev_t}; prev_t < 0 on the last step."""
+        acp_t, acp_prev = self._acp(t), self._acp(prev_t)
+        x0 = self.pred_x0(model_output, sample, t)
+        # epsilon re-derived from the (clipped) x0, as diffusers does
+        eps = (sample - math.sqrt(acp_t) * x0) / math.sqrt(1.0 - acp_t)
+        return math.sqrt(acp_prev) * x0 + math.sqrt(1.0 - acp_prev) * eps
+
+
+@dataclass(frozen=True)
+class UnCLIPSchedule(DiffusionSchedule):
+    """diffusers `UnCLIPScheduler` with explicit prev_timestep
+    (Kandinsky-2.2 prior config)."""
+
+    beta_schedule: str = "squaredcos_cap_v2"
+    prediction_type: str = "sample"
+    clip_sample: bool = True
+    clip_sample_range: float = 10.0
+
+    def timesteps(self, num_inference_steps: int) -> np.ndarray:
+        """'trailing linspace' spacing."""
+        if num_inference_steps == 1:
+            return np.array([self.num_train_timesteps - 1], dtype=np.int64)
+        step_ratio = (self.num_train_timesteps - 1) / (num_inference_steps - 1)
+        ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1]
+        return ts.astype(np.int64)
+
+    def prev_timesteps(self, num_inference_steps: int) -> np.ndarray:
+        """The next entry of the table; t - 1 after the last."""
+        ts = self.timesteps(num_inference_steps)
+        return np.concatenate([ts[1:], ts[-1:] - 1])
+
+    def step(self, model_output: torch.Tensor, t: int, prev_t: int,
+             sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """One UnCLIP ancestral step x_t -> x_{prev_t}."""
+        acp_t, acp_prev = self._acp(t), self._acp(prev_t)
+        beta_prod_t, beta_prod_prev = 1.0 - acp_t, 1.0 - acp_prev
+        if prev_t == t - 1:
+            beta = float(self.betas[t])
+        else:
+            beta = 1.0 - acp_t / acp_prev
+        x0 = self.pred_x0(model_output, sample, t)
+        mean = (math.sqrt(acp_prev) * beta / beta_prod_t * x0
+                + math.sqrt(1.0 - beta) * beta_prod_prev / beta_prod_t
+                * sample)
+        if t <= 0:
+            return mean
+        var = max(beta_prod_prev / beta_prod_t * beta, 1e-20)
+        return mean + math.exp(0.5 * math.log(var)) * noise
+
+
+def cfg_combine(uncond: torch.Tensor, cond: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """Classifier-free guidance mix."""
+    return uncond + scale * (cond - uncond)

@@ -1,0 +1,137 @@
+"""Build the hand-written CUDA kernels in ``rcdms_tpu_torch/csrc`` and load
+them with ctypes.
+
+All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o librcdms_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``build/rcdms_tpu_torch/`` at the repository root; its
+name carries a hash of the sources and flags, so an edited kernel is rebuilt
+and an unchanged one is reused. The build runs at first use, never at
+import. Each C entry point returns ``cudaGetLastError()`` after its launch;
+`check` turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rcdms_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # dtype, tensor, q, k, v, o, B, H, Sq, Skv, dh, scale, stream
+    "rcdms_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _P],
+    # dtype, q, k, v, o, b, f, n, c, heads, scale, stream
+    "rcdms_frame_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _P],
+    # dtype, geglu, tensor, x, w1, b1, w2, b2, y, rows, c, inner, stream
+    "rcdms_ff_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+class Built:
+    """The loaded kernel library and what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, seconds: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.seconds = seconds  # 0.0 when an earlier build was reused
+        self.log = log          # nvcc's output (ptxas register/smem report)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the rcdms_tpu_torch kernels")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def library() -> Built:
+    """Build (if needed) and load the kernel library; one per process."""
+    sources = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"librcdms_kernels_{_digest()}.so"
+    seconds, log = 0.0, ""
+    if not target.exists():
+        tmp = target.parent / f"{target.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return Built(lib, target, seconds, log)
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {code}")
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cuda_operands(name: str, *tensors: torch.Tensor) -> int:
+    """Check that a kernel's operands are contiguous float32 or bfloat16
+    tensors on one CUDA device, all of one dtype; return the dtype code the
+    C entry points take. Raises on anything else."""
+    first = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name}: operands must share one CUDA device, "
+                             f"got {t.device} and {first.device}")
+        if t.dtype != first.dtype or t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name}: operands must all be float32 or "
+                            f"bfloat16, got {t.dtype} and {first.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return _DTYPE_CODES[first.dtype]
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the pointer ctypes takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream

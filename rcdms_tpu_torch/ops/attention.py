@@ -1,0 +1,48 @@
+"""Plain dot-product attention for the sites that stay off the kernel, as
+they stay XLA in `rcdms_tpu/ops/attention.py`: masked attention (the prior,
+the CLIP text towers), short queries (the fusion stacks, the UNet's 8x8
+mid block) and head dims above 256 (the VAE's mid-block attention).
+
+`multihead_attention` is the one routing rule for every attention site in
+the port, the counterpart of the JAX package's `_use_pallas` /
+`_use_nt_flash` gates: unmasked attention with at least 256 queries and a
+head dim of at most 256 goes to kernel A (`ops/flash.py`), everything else
+to `dot_product_attention`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from rcdms_tpu_torch.ops.flash import MAX_HEAD_DIM, _split_heads, \
+    flash_attention
+
+MIN_KERNEL_QUERIES = 256
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (..., heads, Sq, dh); k, v: (..., heads, Skv, dh); mask additive,
+    broadcastable to (..., heads, Sq, Skv). Scale dh ** -0.5, softmax in
+    fp32; returns q.dtype."""
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
+    if mask is not None:
+        logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        heads: int,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over token-major projections (..., S, heads*dh) ->
+    (..., Sq, heads*dh), routed as the module docstring says."""
+    dh = q.shape[-1] // heads
+    if mask is None and q.shape[-2] >= MIN_KERNEL_QUERIES \
+            and dh <= MAX_HEAD_DIM:
+        return flash_attention(q, k, v, heads)
+    o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
+                              _split_heads(v, heads), mask)
+    return o.transpose(-3, -2).reshape(q.shape[:-1] + (heads * dh,))

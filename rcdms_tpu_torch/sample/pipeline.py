@@ -1,0 +1,306 @@
+"""Two-stage story pipeline — the counterpart of
+`rcdms_tpu/sample/pipeline.py`: captions + known frames -> 5-frame story.
+
+Stage 1 encodes the captions (bigG text tower) and the known frames (bigG
+vision tower) and samples the unknown frames' CLIP embeddings with the
+frame prior. Stage 2 encodes the captions again (SD text tower), encodes
+the known frames' pixels with the VAE, samples the story latents with the
+UNet, and decodes them frame by frame.
+
+`generate` takes a per-request `torch.Generator` or explicit `StoryNoise`.
+Public tensors keep the JAX package's layouts ((b, f, H, W, 3) images,
+(b, f, T) token ids).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from rcdms_tpu.configs import (
+    CLIPTextConfig,
+    CLIPVisionConfig,
+    FusionConfig,
+    PriorConfig,
+    StoryUNetConfig,
+    TemporalConfig,
+    VAEConfig,
+)
+from rcdms_tpu_torch.core.layers import init_like_flax_
+from rcdms_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder
+from rcdms_tpu_torch.models.fusion import FusionModule
+from rcdms_tpu_torch.models.prior import FramePrior
+from rcdms_tpu_torch.models.unet3d import StoryUNet
+from rcdms_tpu_torch.models.vae import VAE
+from rcdms_tpu_torch.sample.prior_sampler import (
+    PriorConditioning,
+    PriorSampler,
+    draw_noise,
+)
+from rcdms_tpu_torch.sample.story_sampler import (
+    StoryConditioning,
+    StorySampler,
+)
+
+
+class StoryInputs(NamedTuple):
+    """tokens_s1 / tokens_s1_u: (b, f, T) caption ids (and "" uncond) for the
+    stage-1 (bigG) tower; tokens_s2 / tokens_s2_u: the same for the stage-2
+    (SD) tower. source_clip / mask_clip: (b, f, 224, 224, 3) CLIP-
+    preprocessed known frames (black where unknown) and white/black mask
+    images. source_pixels: (b, f, H, W, 3) in [-1, 1]. frame_known:
+    (b, f) bool."""
+
+    tokens_s1: torch.Tensor
+    tokens_s1_u: torch.Tensor
+    tokens_s2: torch.Tensor
+    tokens_s2_u: torch.Tensor
+    source_clip: torch.Tensor
+    mask_clip: torch.Tensor
+    source_pixels: torch.Tensor
+    frame_known: torch.Tensor
+
+
+class CondCache(NamedTuple):
+    """Story-independent conditioning, computed once per loaded model:
+    the uncond caption through both text towers and the white/black mask
+    images through the vision tower (`precompute_cond_cache`)."""
+
+    s1_hidden_u: torch.Tensor  # (T1, d1)
+    s1_embed_u: torch.Tensor   # (d1,)
+    s2_hidden_u: torch.Tensor  # (T2, d2)
+    white_embed: torch.Tensor  # (d,)
+    black_embed: torch.Tensor  # (d,)
+
+
+class StoryNoise(NamedTuple):
+    """Every random draw of one `generate` call, fp32 standard normal."""
+
+    prior_init: torch.Tensor   # (b, f, d)
+    prior_steps: torch.Tensor  # (num_steps, b, f, d)
+    vae: torch.Tensor          # (b*f, h8, w8, 4)
+    story_init: torch.Tensor   # (b, f, h8, w8, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfigs:
+    text_s1: CLIPTextConfig
+    text_s2: CLIPTextConfig
+    vision: CLIPVisionConfig
+    vae: VAEConfig
+    prior: PriorConfig
+    unet: StoryUNetConfig
+    fusion: FusionConfig
+
+
+def full_configs(max_text_len: int = 91, vocab_size: int = 49412,
+                 temporal_zero_init: bool = True) -> PipelineConfigs:
+    """The repository's full-width configs (Flintstones by default: 91
+    caption tokens, vocab 49412). temporal_zero_init=False starts the
+    temporal modules' output projections random instead of zero, so that
+    random weights exercise the temporal attention end to end."""
+    temporal = TemporalConfig(zero_init_output=temporal_zero_init)
+    return PipelineConfigs(
+        text_s1=CLIPTextConfig.bigg(max_text_len, vocab_size),
+        text_s2=CLIPTextConfig.sd15(max_text_len, vocab_size),
+        vision=CLIPVisionConfig(),
+        vae=VAEConfig(),
+        prior=PriorConfig(num_text_tokens=max_text_len, temporal=temporal),
+        unet=StoryUNetConfig(temporal=temporal),
+        fusion=FusionConfig())
+
+
+def tiny_configs(unet_channels: Optional[tuple] = None) -> PipelineConfigs:
+    """The configs of the JAX package's `build_tiny_pipeline` (5 frames)."""
+    prior = PriorConfig.tiny()
+    ukw = {"block_channels": unet_channels} if unet_channels else {}
+    unet = StoryUNetConfig.tiny(**ukw)
+    fusion = FusionConfig.tiny(hidden_dim=unet.cross_attention_dim,
+                               text_dim=unet.cross_attention_dim,
+                               unseen_vis_dim=prior.embedding_dim)
+    t = prior.num_text_tokens
+    return PipelineConfigs(
+        text_s1=CLIPTextConfig.tiny(max_positions=t,
+                                    width=prior.embedding_dim,
+                                    projection_dim=prior.embedding_dim),
+        text_s2=CLIPTextConfig.tiny(max_positions=t,
+                                    width=unet.cross_attention_dim,
+                                    projection_dim=unet.cross_attention_dim),
+        vision=CLIPVisionConfig.tiny(width=fusion.seen_vis_dim,
+                                     projection_dim=prior.embedding_dim),
+        vae=VAEConfig.tiny(), prior=prior, unet=unet, fusion=fusion)
+
+
+def padding_mask(tokens: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """True for real tokens: everything up to and including the first EOS
+    (all True where a row has no EOS)."""
+    is_eos = tokens == eos_token_id
+    eos_pos = torch.argmax(is_eos.int(), dim=-1)
+    idx = torch.arange(tokens.shape[-1], device=tokens.device)
+    mask = idx <= eos_pos[..., None]
+    return torch.where(is_eos.any(-1, keepdim=True), mask,
+                       torch.ones_like(mask))
+
+
+class StoryPipeline(nn.Module):
+    """The five towers (text_s1, text_s2, vision, vae, prior, unet, fusion —
+    the JAX package's parameter keys) and the two samplers."""
+
+    vae_scale = 0.18215  # SD's latent scaling factor
+
+    def __init__(self, configs: PipelineConfigs, num_steps: int = 20):
+        super().__init__()
+        self.configs = configs
+        self.text_s1 = CLIPTextEncoder(configs.text_s1)
+        self.text_s2 = CLIPTextEncoder(configs.text_s2)
+        self.vision = CLIPVisionEncoder(configs.vision)
+        self.vae = VAE(configs.vae)
+        self.prior = FramePrior(configs.prior)
+        self.unet = StoryUNet(configs.unet)
+        self.fusion = FusionModule(configs.fusion)
+        self.prior_sampler = PriorSampler(self.prior, num_steps=num_steps)
+        self.story_sampler = StorySampler(self.unet, self.fusion,
+                                          num_steps=num_steps)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.unet.conv_in.weight.dtype
+
+    def _encode_text(self, encoder, tokens: torch.Tensor):
+        b, f, t = tokens.shape
+        hidden, embeds = encoder(tokens.reshape(b * f, t))
+        return hidden.reshape(b, f, t, -1), embeds.reshape(b, f, -1)
+
+    def _encode_images(self, images: torch.Tensor):
+        b, f = images.shape[:2]
+        tokens, embeds = self.vision(
+            images.reshape((b * f,) + images.shape[2:]).to(self.dtype))
+        return (tokens.reshape((b, f) + tokens.shape[1:]),
+                embeds.reshape(b, f, -1))
+
+    @torch.no_grad()
+    def precompute_cond_cache(self, tokens_u_s1: torch.Tensor,
+                              tokens_u_s2: torch.Tensor,
+                              white_clip: torch.Tensor,
+                              black_clip: torch.Tensor) -> CondCache:
+        """tokens_u_s1/s2: (T,) uncond caption ids; white_clip/black_clip:
+        (c, c, 3) CLIP-preprocessed constant mask images."""
+        h1, e1 = self.text_s1(tokens_u_s1[None])
+        h2, _ = self.text_s2(tokens_u_s2[None])
+        _, emb = self.vision(torch.stack([white_clip, black_clip])
+                             .to(self.dtype))
+        return CondCache(h1[0], e1[0], h2[0], emb[0], emb[1])
+
+    @torch.no_grad()
+    def generate(self, inputs: StoryInputs,
+                 cond_cache: Optional[CondCache] = None,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[StoryNoise] = None):
+        """Returns (frames in [0, 1] (b, f, H, W, 3) fp32, stage-1 embeds
+        (b, f, d) fp32). Random draws come from `noise` if given, else from
+        `generator` in the order prior init, prior steps, VAE, story init.
+
+        With a `cond_cache`, `inputs.mask_clip` and the uncond token rows
+        are not read: the mask embeds are the cache's white/black embeds
+        picked by `frame_known`, and the uncond states are the cache's (the
+        protocol's invariants, `data/protocol.py::build_story_example`)."""
+        b, f = inputs.frame_known.shape
+        known = inputs.frame_known.bool()
+        eos1 = self.configs.text_s1.eos_token_id
+
+        # ---- stage 1 --------------------------------------------------------
+        th_c, te_c = self._encode_text(self.text_s1, inputs.tokens_s1)
+        src_tokens, src_embed = self._encode_images(inputs.source_clip)
+        if cond_cache is None:
+            th_u, te_u = self._encode_text(self.text_s1, inputs.tokens_s1_u)
+            _, mask_embed = self._encode_images(inputs.mask_clip)
+            th2_u, _ = self._encode_text(self.text_s2, inputs.tokens_s2_u)
+        else:
+            th_u = cond_cache.s1_hidden_u.expand((b, f) + th_c.shape[2:])
+            te_u = cond_cache.s1_embed_u.expand(te_c.shape)
+            mask_embed = torch.where(known[..., None], cond_cache.white_embed,
+                                     cond_cache.black_embed)
+            th2_u = None
+        cond1 = PriorConditioning(
+            text_embed=te_c, text_hidden=th_c,
+            text_mask=padding_mask(inputs.tokens_s1, eos1),
+            text_embed_u=te_u, text_hidden_u=th_u,
+            text_mask_u=padding_mask(inputs.tokens_s1_u, eos1),
+            image_embed=src_embed, mask_embed=mask_embed)
+        pred_embeds = self.prior_sampler(
+            cond1, None if noise is None else noise.prior_init,
+            None if noise is None else noise.prior_steps, generator)
+        image_proj = torch.where(known[..., None], src_embed,
+                                 pred_embeds.to(src_embed.dtype))
+
+        # ---- stage 2 --------------------------------------------------------
+        th2_c, _ = self._encode_text(self.text_s2, inputs.tokens_s2)
+        if th2_u is None:
+            th2_u = cond_cache.s2_hidden_u.expand(th2_c.shape)
+        px = inputs.source_pixels
+        mean, logvar = self.vae.encode(
+            px.reshape((b * f,) + px.shape[2:]).to(self.dtype))
+        vae_noise = (noise.vae if noise is not None
+                     else draw_noise(mean.shape, generator, mean.device))
+        masked = VAE.sample_latent(mean.float(), logvar.float(),
+                                   vae_noise.float()) * self.vae_scale
+        masked = masked.reshape((b, f) + masked.shape[1:])
+        h8, w8 = masked.shape[2:4]
+        mask_label = known[:, :, None, None, None].float().expand(
+            b, f, h8, w8, 1)
+        cond2 = StoryConditioning(
+            text_hidden=th2_c, text_hidden_u=th2_u, image_tokens=src_tokens,
+            image_proj=image_proj, frame_known=known,
+            masked_latents=masked, mask_label=mask_label)
+        latents = self.story_sampler(
+            cond2, None if noise is None else noise.story_init, generator)
+
+        # ---- decode one frame at a time (bounds the decoder's memory) -------
+        z = (latents / self.vae_scale).reshape((b * f,) + latents.shape[2:])
+        frames = torch.cat([self.vae.decode(zi[None].to(self.dtype)).float()
+                            for zi in z])
+        frames = frames.reshape((b, f) + frames.shape[1:])
+        return (frames / 2 + 0.5).clamp(0.0, 1.0), pred_embeds
+
+
+def build_pipeline(configs: PipelineConfigs, device, dtype=torch.float32,
+                   seed: int = 0, num_steps: int = 20) -> StoryPipeline:
+    """A pipeline with seeded random weights drawn like flax's initializers
+    (no checkpoint), on `device` in `dtype`, ready for inference."""
+    device = torch.device(device)
+    with device:
+        pipe = StoryPipeline(configs, num_steps=num_steps)
+    init_like_flax_(pipe, torch.Generator(device).manual_seed(seed))
+    pipe = pipe.to(dtype).eval().requires_grad_(False)
+    if device.type == "cuda":
+        pipe = pipe.to(memory_format=torch.channels_last)
+    return pipe
+
+
+def tiny_inputs(configs: PipelineConfigs, seed: int = 0) -> StoryInputs:
+    """Example inputs shaped like the JAX `build_tiny_pipeline`'s: frame 0
+    known, token rows with an EOS at position 3, random source frames."""
+    f = configs.prior.num_frames
+    t = configs.prior.num_text_tokens
+    cimg, img = configs.vision.image_size, 32
+    ids = torch.zeros(1, f, t, dtype=torch.int64)
+    ids[:, :, 3] = configs.text_s1.eos_token_id
+    g = torch.Generator().manual_seed(seed)
+    return StoryInputs(
+        tokens_s1=ids, tokens_s1_u=ids, tokens_s2=ids, tokens_s2_u=ids,
+        source_clip=torch.randn(1, f, cimg, cimg, 3, generator=g),
+        mask_clip=torch.zeros(1, f, cimg, cimg, 3),
+        source_pixels=torch.zeros(1, f, img, img, 3),
+        frame_known=(torch.arange(f) < 1)[None])
+
+
+def build_tiny_pipeline(seed: int = 0, num_steps: int = 2):
+    """Tiny random-weight pipeline and example inputs on the CPU (the
+    counterpart of the JAX `build_tiny_pipeline`, for tests and smoke
+    runs)."""
+    configs = tiny_configs()
+    pipe = build_pipeline(configs, "cpu", torch.float32, seed, num_steps)
+    return pipe, tiny_inputs(configs, seed)
