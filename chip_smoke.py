@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the library; prints the build seconds; the ptxas report goes to
    chiprun_out/chip_smoke_ptxas.log;
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the main path's shapes, in fp32 and bf16 (TF32 off), tolerance
+   the story's shapes (A-D) or its study's full shapes (the conv and
+   GroupNorm kernels), in fp32 and bf16 (TF32 off), tolerance
    max|kernel - plain| / max|plain| <= 1e-4 (fp32) and 2e-2 (bf16), with
    the median time of each side;
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
@@ -21,18 +22,23 @@ Phases, in order; any failure raises and the exit code is nonzero:
    weights: the story-independent conditioning cache, two requests with
    their own generators, and request 1 again. Frames must be finite, in
    [0, 1], of shape (1, 5, 512, 512, 3), the repeat equal to the first run
-   within 1e-3, and every kernel's launch count must grow.
+   within 1e-3, and every kernel of the story (A-D) must have launched;
+6. studies: the three ResNet-block studies (`rcdms_tpu_torch/tools/`:
+   channel-major 3x3 conv, GroupNorm moments, fused GroupNorm + SiLU) at
+   their full shapes, in bf16 and fp32; every row within the tolerance of
+   phase 3 of its study's reference, and every study kernel launched.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
+phase 6 only the studies' (`ops.PATHS["studies"]`): each path's counts are
+set to 0 just before it and read just after. The line before the last is
+a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -55,35 +61,18 @@ KERNEL_INFO = {
                  "rcdms_tpu/ops/geglu.py:149 (_ff_kernel)"),
     "gelu_ff": ("rcdms_tpu_torch/csrc/ff.cu",
                 "rcdms_tpu/ops/geglu.py:299 (_ff_gelu_kernel)"),
+    "cm_conv3x3": ("rcdms_tpu_torch/csrc/cm_conv.cu",
+                   "tools/cm_conv_study.py:137 (_cm_kernel)"),
+    "gn_moments": ("rcdms_tpu_torch/csrc/group_norm.cu",
+                   "tools/gn_study.py:99 (_moments_kernel)"),
+    "group_norm_act": ("rcdms_tpu_torch/csrc/group_norm.cu",
+                       "tools/gn_fused_study.py:115 (_gn_kernel)"),
 }
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, reps: int = 10) -> float:
-    """Median time of fn on the card over reps runs (after one warm-up)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def kernel_cases(dev, dtype):
-    """(kernel name, shape label, kernel call, plain call) at the main
-    path's shapes (512 px, 5 frames, b = 1)."""
+    """(kernel name, shape label, kernel call, plain call): A-D at the
+    story's shapes (512 px, 5 frames, b = 1), then the study kernels."""
     from rcdms_tpu_torch.ops.flash import attention_plain, flash_attention
     from rcdms_tpu_torch.ops.frame_attention import (
         frame_attention,
@@ -142,7 +131,49 @@ def kernel_cases(dev, dtype):
         cases.append((fn.__name__, f"{rows}x{c} inner {inner}",
                       lambda a=args, fn=fn: fn(*a),
                       lambda a=args, p=plain: p(*a)))
+    return cases + study_kernel_cases(r, dev, dtype)
+
+
+def study_kernel_cases(r, dev, dtype):
+    """The study kernels at their studies' full shapes: the level-0 conv
+    (5 frames of 64 x 64, 320 -> 320, padded to 4608 tokens) with and
+    without the tap offsets, the moments of (50, 4096, 320), and the fused
+    GroupNorm + SiLU at the four UNet shapes."""
+    from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3, cm_conv3x3_plain
+    from rcdms_tpu_torch.ops.group_norm import (
+        gn_moments,
+        gn_moments_plain,
+        group_norm_act,
+        group_norm_act_plain,
+    )
+    from rcdms_tpu_torch.tools import cm_conv_study as cs
+    from rcdms_tpu_torch.tools import gn_fused_study as gs
+
+    x = cs.to_cm_pad(r(cs.B, cs.H, cs.W, cs.C))
+    w9, bias = r(9, cs.C, cs.COUT, scale=(9 * cs.C) ** -0.5), r(cs.COUT)
+    mask = cs.interior_mask_pad().to(dev, dtype).reshape(cs.TPAD)
+    cases = []
+    for shifts in (True, False):
+        cases.append((
+            "cm_conv3x3", f"{tuple(x.shape)} -> {cs.COUT}"
+                          f"{'' if shifts else ' no shifts'}",
+            lambda s=shifts: cm_conv3x3(x, w9, bias, mask, cs.WP, s),
+            lambda s=shifts: cm_conv3x3_plain(x, w9, bias, mask, cs.WP, s)))
+    xm = r(50, 4096, 320)
+    cases.append(("gn_moments", "50x4096x320", lambda: gn_moments(xm),
+                  lambda: gn_moments_plain(xm)))
+    for shape in gs.SHAPES:
+        c = shape[-1]
+        args = (r(*shape), (r(c, scale=0.5) + 1.0).float(),
+                r(c, scale=0.2).float(), gs.GROUPS, gs.EPS, "silu")
+        cases.append(("group_norm_act", "x".join(map(str, shape)),
+                      lambda a=args: group_norm_act(*a),
+                      lambda a=args: group_norm_act_plain(*a)))
     return cases
+
+
+def _max_diff(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return (out.float() - ref.float()).abs().max().item()
 
 
 def check_kernels(dev, card: str) -> dict:
@@ -150,6 +181,7 @@ def check_kernels(dev, card: str) -> dict:
     per-kernel summary (bf16 times at each kernel's first listed shape,
     the largest error over all shapes and both dtypes)."""
     from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.tools import median_ms, rel_err
 
     print(f"kernels on {card}: median ms of 10 calls, kernel and plain",
           flush=True)
@@ -157,11 +189,13 @@ def check_kernels(dev, card: str) -> dict:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, kernel, plain in kernel_cases(dev, dtype):
-            out = kernel()
-            ref = plain()
+            out, ref = kernel(), plain()
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
+            if isinstance(out, tuple):  # gn_moments: mean, mean of squares
+                err = max(_max_diff(o, p) for o, p in zip(out, ref))
+                rel = max(rel_err(o, p) for o, p in zip(out, ref))
+            else:
+                err, rel = _max_diff(out, ref), rel_err(out, ref)
             ms, plain_ms = median_ms(kernel), median_ms(plain)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms)
@@ -211,7 +245,7 @@ def check_tiny_reference(dev) -> dict:
         type(inputs)(*(t.to(dev) for t in inputs)),
         noise=StoryNoise(*(t.to(dev) for t in noise)))
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = ops.launch_counts("story")
     embed_err = (embeds_c.cpu() - embeds).abs().max().item()
     frame_err = (frames_c.cpu() - frames).abs().max().item()
     print(f"reference: tiny story on the card vs the CPU: embeds max|diff| "
@@ -314,7 +348,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
         print(f"story: request {i + 1} {'(repeat of 1) ' if i == 2 else ''}"
               f"{seconds[-1]:.3f} s", flush=True)
         results.append(frames)
-    counts = ops.launch_counts()
+    counts = ops.launch_counts("story")
 
     f = configs.prior.num_frames
     for frames in results:
@@ -338,6 +372,42 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
     return dict(seconds=seconds, counts=counts, repeat_err=repeat_err)
 
 
+def run_studies(dev, card: str) -> dict:
+    """Phase 6: each ResNet-block study's rows at its full shapes, in bf16
+    and fp32; every row within TOL of its study's reference (the dots row,
+    wrong by design, is only timed); returns the studies' launch counts."""
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.tools import (
+        cm_conv_study,
+        gn_fused_study,
+        gn_study,
+        print_rows,
+    )
+
+    print(f"studies on {card}: median ms of 10 calls", flush=True)
+    ops.reset_launch_counts()
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for study in (cm_conv_study, gn_study, gn_fused_study):
+            rows += study.run(dev, dtype)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts("studies")
+    print_rows(rows)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_studies.json"), "w") as fh:
+        json.dump(rows, fh, indent=1)
+    tol = {str(dtype)[6:]: t for dtype, t in TOL.items()}
+    bad = [(r["study"], r["row"], r["dtype"], r["rel_err"]) for r in rows
+           if r["rel_err"] is not None and not r["rel_err"] <= tol[r["dtype"]]]
+    if bad:
+        raise AssertionError(f"study rows off their reference: {bad}")
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the studies launched no {missing}")
+    print(f"studies: launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -345,6 +415,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from rcdms_tpu_torch.ops import _build
     from rcdms_tpu_torch.sample.pipeline import full_configs
+    from rcdms_tpu_torch.tools import card_line
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,13 +440,14 @@ def main() -> int:
     print(f"story: {card}: per-request seconds "
           f"{[round(s, 3) for s in story['seconds']]} at {STEPS} steps",
           flush=True)
+    launches = {**story["counts"], **run_studies(dev, card)}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         s = summary[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=story["counts"][name],
+            launches=launches[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             shape=s["shape"]))
     print(json.dumps({"kernels": kernels}))

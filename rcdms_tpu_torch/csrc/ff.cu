@@ -253,22 +253,6 @@ struct TcShape {
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// Asynchronous 16-byte copy from device to shared memory (cp.async, which
-// bypasses registers); zero-fills the 16 bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The block walks one sequence of pipeline items: per 64-wide inner chunk,
 // nk = ceil(c / 64) stages of the first product and then the two 32-deep
 // halves of the second. While item t computes, the loads of item t + 2 are

@@ -50,6 +50,12 @@ def _conv(p) -> SD:
     return out
 
 
+def hwio_to_conv_weight(w_hwio: torch.Tensor) -> torch.Tensor:
+    """A JAX conv kernel (kh, kw, in, out) as a tensor -> the torch Conv2d
+    weight (out, in, kh, kw), contiguous, on the same device."""
+    return w_hwio.permute(3, 2, 0, 1).contiguous()
+
+
 def _norm(p) -> SD:
     return {"weight": _a(p["scale"]), "bias": _a(p["bias"])}
 

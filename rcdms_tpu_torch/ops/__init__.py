@@ -1,17 +1,33 @@
-"""The port's kernel ops. Each of the four hand-written Hopper kernels has a
-wrapper here that runs its plain PyTorch version on CPU tensors, launches
-the kernel on CUDA tensors (or raises), and counts its launches."""
+"""The port's kernel ops. Each hand-written Hopper kernel has a wrapper here
+that runs its plain PyTorch version on CPU tensors, launches the kernel on
+CUDA tensors (or raises), and counts its launches.
 
+The kernels belong to two paths: the story (`StoryPipeline.generate`) runs
+A-D; the ResNet-block studies (`rcdms_tpu_torch/tools/`) run the conv and
+GroupNorm kernels, which no story launches. `launch_counts(path)` reads one
+path's kernels, so each path is checked for its own."""
+
+from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3
 from rcdms_tpu_torch.ops.flash import flash_attention
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
+from rcdms_tpu_torch.ops.group_norm import gn_moments, group_norm_act
 
-KERNELS = {
-    "attention": flash_attention,
-    "frame_attention": frame_attention,
-    "geglu_ff": geglu_ff,
-    "gelu_ff": gelu_ff,
+PATHS = {
+    "story": {
+        "attention": flash_attention,
+        "frame_attention": frame_attention,
+        "geglu_ff": geglu_ff,
+        "gelu_ff": gelu_ff,
+    },
+    "studies": {
+        "cm_conv3x3": cm_conv3x3,
+        "gn_moments": gn_moments,
+        "group_norm_act": group_norm_act,
+    },
 }
+KERNELS = {name: fn for kernels in PATHS.values()
+           for name, fn in kernels.items()}
 
 
 def reset_launch_counts() -> None:
@@ -19,5 +35,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(path: str | None = None) -> dict:
+    """Launches of every kernel, or of one path's kernels."""
+    kernels = KERNELS if path is None else PATHS[path]
+    return {name: fn.launches for name, fn in kernels.items()}

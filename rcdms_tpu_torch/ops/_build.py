@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels in ``rcdms_tpu_torch/csrc`` and load
 them with ctypes.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared library
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o librcdms_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  # each
+    nvcc -shared -o librcdms_kernels_<hash>.so *.o
 
 The library lands in ``build/rcdms_tpu_torch/`` at the repository root; its
 name carries a hash of the sources and flags, so an edited kernel is rebuilt
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rcdms_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
@@ -42,6 +45,13 @@ SIGNATURES = {
                                   _P],
     # dtype, geglu, tensor, x, w1, b1, w2, b2, y, rows, c, inner, stream
     "rcdms_ff_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, tensor, shifts, x, w9, bias, mask, out, B, C, Cout, T, wp, stream
+    "rcdms_cm_conv_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
+    # dtype, x, mean, mean2, B, N, C, stream
+    "rcdms_gn_moments": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, stream
+    "rcdms_group_norm_act": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -81,23 +91,46 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, target: Path) -> str:
+    """Compile every source in its own nvcc process, all at once, link the
+    objects into `target`, and return nvcc's output."""
+    sources = _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = Path(tmp_dir) / target.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, target)
+    return log
+
+
 @functools.cache
 def library() -> Built:
     """Build (if needed) and load the kernel library; one per process."""
-    sources = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"librcdms_kernels_{_digest()}.so"
     seconds, log = 0.0, ""
     if not target.exists():
-        tmp = target.parent / f"{target.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(_nvcc(), target)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

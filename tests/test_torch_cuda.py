@@ -9,7 +9,8 @@ no JAX (the repository's conftest.py configures JAX, hence --noconftest):
 Tolerance: max|kernel - plain| / max|plain| <= 1e-4 in fp32 (TF32 off: the
 two differ in summation order only) and 2e-2 in bf16 (the kernels round
 the attention probabilities and the FF intermediate to bf16 where the
-plain versions keep other roundings)."""
+plain versions keep other roundings; the conv and GroupNorm kernels round
+once, as their plain versions do)."""
 
 import pytest
 import torch
@@ -20,11 +21,18 @@ from rcdms_tpu_torch.ops.frame_attention import (
     frame_attention,
     frame_attention_plain,
 )
+from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3, cm_conv3x3_plain
 from rcdms_tpu_torch.ops.geglu import (
     geglu_ff,
     geglu_ff_plain,
     gelu_ff,
     gelu_ff_plain,
+)
+from rcdms_tpu_torch.ops.group_norm import (
+    gn_moments,
+    gn_moments_plain,
+    group_norm_act,
+    group_norm_act_plain,
 )
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -76,7 +84,101 @@ def test_cuda_kernels_match_plain(cuda, dtype):
         assert _rel(gelu_ff(*args), gelu_ff_plain(*args)) <= TOL[dtype]
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"attention": 2, "frame_attention": 1,
-                                   "geglu_ff": 2, "gelu_ff": 2}
+                                   "geglu_ff": 2, "gelu_ff": 2,
+                                   "cm_conv3x3": 0, "gn_moments": 0,
+                                   "group_norm_act": 0}
+
+
+def _frame_mask(h, w, tokens, g, dev, dtype):
+    """The padded frame's interior mask (h x w frame in an (h+2) x (w+2)
+    ring, zero tail up to `tokens`), scaled by random positive values so
+    the multiply is exercised too."""
+    m = torch.zeros(h + 2, w + 2, device=dev)
+    m[1:-1, 1:-1] = 1.0
+    m = torch.nn.functional.pad(m.reshape(-1), (0, tokens - m.numel()))
+    return (m * (0.5 + torch.rand(tokens, generator=g, device=dev))).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_study_kernels_match_plain(cuda, dtype):
+    """The conv, moments and fused GroupNorm kernels against their plain
+    versions at small ragged shapes: a 10 x 13 frame (wp 15) padded to 200
+    tokens, 24 -> 40 channels (the tensor-core conv in bf16: a partial
+    channel chunk, a token tile past the frame), and 61 tokens with every
+    mask value live, 5 -> 6 channels (the CUDA-core conv; taps read past
+    both ends); moments over 100 and 37 rows (16-byte and scalar loads);
+    GroupNorm with 3 and 16 channels a group over 50 and 7 rows."""
+    g = torch.Generator(cuda).manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(dtype)
+
+    ops.reset_launch_counts()
+    conv_cases = [
+        (r(2, 24, 200), r(9, 24, 40, scale=0.07), r(40),
+         _frame_mask(10, 13, 200, g, cuda, dtype), 15),
+        (r(1, 5, 61), r(9, 5, 6, scale=0.15), r(6),
+         (0.5 + torch.rand(61, generator=g, device=cuda)).to(dtype), 7),
+    ]
+    for x, w9, bias, mask, wp in conv_cases:
+        for shifts in (True, False):
+            assert _rel(cm_conv3x3(x, w9, bias, mask, wp, shifts),
+                        cm_conv3x3_plain(x, w9, bias, mask, wp,
+                                         shifts)) <= TOL[dtype]
+    for shape in ((3, 100, 24), (2, 37, 13)):
+        x = r(*shape)
+        for out, ref in zip(gn_moments(x), gn_moments_plain(x)):
+            assert _rel(out, ref) <= TOL[dtype]
+    for shape, groups, act in (((3, 50, 96), 32, "silu"),
+                               ((2, 7, 64), 4, "none")):
+        c = shape[-1]
+        args = (r(*shape), torch.rand(c, generator=g, device=cuda) + 0.5,
+                torch.randn(c, generator=g, device=cuda) * 0.2, groups, 1e-6,
+                act)
+        assert _rel(group_norm_act(*args),
+                    group_norm_act_plain(*args)) <= TOL[dtype]
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies") == {"cm_conv3x3": 4, "gn_moments": 2,
+                                            "group_norm_act": 2}
+    assert set(ops.launch_counts("story").values()) == {0}
+
+
+@pytest.mark.gpu
+def test_cuda_group_norm_refuses_a_slab_beyond_shared_memory(cuda):
+    """8192 rows x 32 channels a group of bf16: a 512 KB slab."""
+    x = torch.zeros(1, 8192, 64, device=cuda, dtype=torch.bfloat16)
+    ones = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        group_norm_act(x, ones, ones, 2, 1e-6, "silu")
+    assert group_norm_act(x[:, :1024].contiguous(), ones, ones, 2, 1e-6,
+                          "silu").shape == (1, 1024, 64)
+
+
+@pytest.mark.gpu
+def test_cuda_study_wrappers_raise_on_bad_operands(cuda):
+    h = torch.zeros(1, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        gn_moments(h)
+    with pytest.raises(TypeError):
+        group_norm_act(h, torch.ones(16, device=cuda),
+                       torch.zeros(16, device=cuda), 4, 1e-6, "silu")
+    with pytest.raises(TypeError):
+        cm_conv3x3(h, h.new_zeros(9, 8, 8), h.new_zeros(8), h.new_ones(16), 4)
+    t = torch.zeros(1, 16, 8, device=cuda).transpose(1, 2)  # (1, 8, 16)
+    with pytest.raises(ValueError):
+        gn_moments(t)
+    with pytest.raises(ValueError):
+        group_norm_act(t, torch.ones(16, device=cuda),
+                       torch.zeros(16, device=cuda), 4, 1e-6, "none")
+    with pytest.raises(ValueError):
+        cm_conv3x3(t, torch.zeros(9, 8, 8, device=cuda),
+                   torch.zeros(8, device=cuda), torch.ones(16, device=cuda), 4)
+    x = torch.zeros(1, 8, 16, device=cuda)
+    with pytest.raises(TypeError):  # scale and bias must be float32
+        group_norm_act(x.bfloat16(), torch.ones(16, device=cuda).bfloat16(),
+                       torch.zeros(16, device=cuda).bfloat16(), 4, 1e-6,
+                       "silu")
 
 
 @pytest.mark.gpu
