@@ -11,9 +11,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
    chiprun_out/chip_smoke_ptxas.log;
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the story's shapes (A-D) or its study's full shapes (the conv and
-   GroupNorm kernels), in fp32 and bf16 (TF32 off), tolerance
-   max|kernel - plain| / max|plain| <= 1e-4 (fp32) and 2e-2 (bf16), with
-   the median time of each side;
+   GroupNorm kernels in fp32 and bf16; the small-head-dim attention
+   kernels E-H, B = 80 batch-heads x 4096 x 4096 at dh 40, in bf16 only),
+   TF32 off, tolerance max|kernel - plain| / max|plain| <= 1e-4 (fp32) and
+   2e-2 (bf16), with the median time of each side, of one PyTorch library
+   call that computes the same function where there is one (SDPA beside A
+   and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
+   GN), and the case's bound (its work at the card's published peaks);
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3;
@@ -25,8 +29,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
    within 1e-3, and every kernel of the story (A-D) must have launched;
 6. studies: the three ResNet-block studies (`rcdms_tpu_torch/tools/`:
    channel-major 3x3 conv, GroupNorm moments, fused GroupNorm + SiLU) at
-   their full shapes, in bf16 and fp32; every row within the tolerance of
-   phase 3 of its study's reference, and every study kernel launched.
+   their full shapes, in bf16 and fp32, then the three small-head-dim
+   attention studies (flash_smallk, pv_overlap, pv_softmax) in bf16; every
+   row within the tolerance of phase 3 of its study's reference (the
+   pv_overlap rows also within 0.02 of its fp32 oracle), and every study
+   kernel launched.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`): each path's counts are
@@ -41,8 +48,10 @@ import json
 import os
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -67,7 +76,47 @@ KERNEL_INFO = {
                    "tools/gn_study.py:99 (_moments_kernel)"),
     "group_norm_act": ("rcdms_tpu_torch/csrc/group_norm.cu",
                        "tools/gn_fused_study.py:115 (_gn_kernel)"),
+    "smallk_attention": (
+        "rcdms_tpu_torch/csrc/smallk_attention.cu",
+        "tools/flash_smallk_study.py:68 (_kernel_base128), :82 "
+        "(_kernel_slice40), :96 (_kernel_nt40), :116 (_kernel_nt_t40) and "
+        "tools/pv_overlap_study.py:88 (_kernel_base), :92 "
+        "(_make_split_kernel), :128 (_kernel_dscore)"),
+    "attn_scores": ("rcdms_tpu_torch/csrc/attn_parts.cu",
+                    "tools/flash_smallk_study.py:235 (k_score_base), :251 "
+                    "(k_score_nt)"),
+    "attn_pv": ("rcdms_tpu_torch/csrc/attn_parts.cu",
+                "tools/flash_smallk_study.py:294 (k_pv_base), :304 "
+                "(k_pv_narrow), :314 (k_pv_nt) and tools/pv_softmax_study.py"
+                ":70 (k_pv_lanes), :76 (k_pv_std)"),
+    "attn_softmax": ("rcdms_tpu_torch/csrc/attn_parts.cu",
+                     "tools/flash_smallk_study.py:327 (k_softmax) and "
+                     "tools/pv_softmax_study.py:82 (k_softmax), :91 "
+                     "(k_softmax2), :100 (k_noop)"),
 }
+
+
+class Case(NamedTuple):
+    """One phase-3 case: a kernel call, its plain version, the work its
+    inputs need (flops, exponentials, bytes read once and written once),
+    and one PyTorch library call of the same function, where there is
+    one (timed only)."""
+    name: str
+    label: str
+    kernel: Callable
+    plain: Callable
+    work: tuple
+    library: Optional[Callable] = None
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., S, H * dh) -> (batch, H, S, dh), a view for SDPA."""
+    return t.reshape(-1, t.shape[-2], heads, t.shape[-1] // heads
+                     ).transpose(1, 2)
 
 
 def kernel_cases(dev, dtype):
@@ -92,31 +141,38 @@ def kernel_cases(dev, dtype):
 
     cases = []
     # kernel A: UNet self/cross attention per level, CLIP vision attention
-    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
-        dh = c // 8
-        q = r(1, 5, s, c)
-        for skv, tag in ((s, "self"), (91, "cross")):
-            k, v = r(1, 5, skv, c), r(1, 5, skv, c)
-            cases.append((
-                "attention", f"unet {tag} Sq={s} Skv={skv} dh={dh}",
-                lambda q=q, k=k, v=v: flash_attention(q, k, v, 8),
-                lambda q=q, k=k, v=v, dh=dh: attention_plain(
-                    q, k, v, 8, dh ** -0.5)))
-    q, k, v = r(5, 257, 1664), r(5, 257, 1664), r(5, 257, 1664)
-    cases.append(("attention", "clip-vision S=257 dh=104",
-                  lambda q=q, k=k, v=v: flash_attention(q, k, v, 16),
-                  lambda q=q, k=k, v=v: attention_plain(q, k, v, 16,
-                                                        104 ** -0.5)))
+    attn_shapes = [(1, 5, s, skv, c, 8, f"unet {tag} Sq={s} Skv={skv} "
+                    f"dh={c // 8}")
+                   for s, c in ((4096, 320), (1024, 640), (256, 1280))
+                   for skv, tag in ((s, "self"), (91, "cross"))]
+    attn_shapes.append((5, 1, 257, 257, 1664, 16, "clip-vision S=257 dh=104"))
+    for b, f, s, skv, c, heads, label in attn_shapes:
+        lead = (b, f) if b == 1 else (b,)
+        q, k, v = r(*lead, s, c), r(*lead, skv, c), r(*lead, skv, c)
+        dh = c // heads
+        bh = b * f * heads
+        cases.append(Case(
+            "attention", label,
+            lambda q=q, k=k, v=v, h=heads: flash_attention(q, k, v, h),
+            lambda q=q, k=k, v=v, h=heads, dh=dh: attention_plain(
+                q, k, v, h, dh ** -0.5),
+            (4 * bh * s * skv * dh, bh * s * skv, 2 * _nbytes(q, k)),
+            lambda q=q, k=k, v=v, h=heads, dh=dh:
+                F.scaled_dot_product_attention(
+                    _heads(q, h), _heads(k, h), _heads(v, h),
+                    scale=dh ** -0.5)))
     # kernel B: UNet temporal modules per level, prior temporal modules
     for shape in ((1, 5, 4096, 320), (1, 5, 1024, 640), (1, 5, 256, 1280),
                   (1, 5, 64, 1280), (2, 5, 97, 2048)):
         q, k, v = r(*shape), r(*shape), r(*shape)
-        dh = shape[-1] // 8
-        cases.append((
+        b, f, n, c = shape
+        dh = c // 8
+        cases.append(Case(
             "frame_attention", "x".join(map(str, shape)),
             lambda q=q, k=k, v=v: frame_attention(q, k, v, 8),
             lambda q=q, k=k, v=v, dh=dh: frame_attention_plain(
-                q, k, v, 8, dh ** -0.5)))
+                q, k, v, 8, dh ** -0.5),
+            (4 * b * n * f * f * c, b * n * 8 * f * f, 4 * _nbytes(q))))
     # kernels C and D: UNet and prior feed-forwards (rows x c, inner 4c);
     # bf16 takes the tensor-core kernel, fp32 the CUDA-core one
     for rows, c, geglu in ((20480, 320, True), (5120, 640, True),
@@ -128,10 +184,15 @@ def kernel_cases(dev, dtype):
                 r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
         fn, plain = (geglu_ff, geglu_ff_plain) if geglu else (gelu_ff,
                                                                gelu_ff_plain)
-        cases.append((fn.__name__, f"{rows}x{c} inner {inner}",
-                      lambda a=args, fn=fn: fn(*a),
-                      lambda a=args, p=plain: p(*a)))
-    return cases + study_kernel_cases(r, dev, dtype)
+        cases.append(Case(
+            fn.__name__, f"{rows}x{c} inner {inner}",
+            lambda a=args, fn=fn: fn(*a), lambda a=args, p=plain: p(*a),
+            (2 * rows * c * (up + inner), 0,
+             _nbytes(*args) + _nbytes(args[0]))))
+    cases += study_kernel_cases(r, dev, dtype)
+    if dtype == torch.bfloat16:
+        cases += smallk_kernel_cases(r, dev)
+    return cases
 
 
 def study_kernel_cases(r, dev, dtype):
@@ -152,23 +213,112 @@ def study_kernel_cases(r, dev, dtype):
     x = cs.to_cm_pad(r(cs.B, cs.H, cs.W, cs.C))
     w9, bias = r(9, cs.C, cs.COUT, scale=(9 * cs.C) ** -0.5), r(cs.COUT)
     mask = cs.interior_mask_pad().to(dev, dtype).reshape(cs.TPAD)
+    # cuDNN on the same x: its padded frame as NCHW, w9 as OIHW
+    x_frame = x[:, :, :cs.HP * cs.WP].unflatten(2, (cs.HP, cs.WP))
+    w_oihw = w9.reshape(3, 3, cs.C, cs.COUT).permute(3, 2, 0, 1).contiguous()
+    conv_work = (2 * cs.B * cs.H * cs.W * 9 * cs.C * cs.COUT, 0,
+                 _nbytes(x, w9, bias, mask, x))
     cases = []
     for shifts in (True, False):
-        cases.append((
+        cases.append(Case(
             "cm_conv3x3", f"{tuple(x.shape)} -> {cs.COUT}"
                           f"{'' if shifts else ' no shifts'}",
             lambda s=shifts: cm_conv3x3(x, w9, bias, mask, cs.WP, s),
-            lambda s=shifts: cm_conv3x3_plain(x, w9, bias, mask, cs.WP, s)))
+            lambda s=shifts: cm_conv3x3_plain(x, w9, bias, mask, cs.WP, s),
+            conv_work, lambda: F.conv2d(x_frame, w_oihw, bias)))
     xm = r(50, 4096, 320)
-    cases.append(("gn_moments", "50x4096x320", lambda: gn_moments(xm),
-                  lambda: gn_moments_plain(xm)))
+    cases.append(Case("gn_moments", "50x4096x320", lambda: gn_moments(xm),
+                      lambda: gn_moments_plain(xm),
+                      (0, 0, _nbytes(xm) + 2 * 50 * 320 * 4)))
     for shape in gs.SHAPES:
         c = shape[-1]
         args = (r(*shape), (r(c, scale=0.5) + 1.0).float(),
                 r(c, scale=0.2).float(), gs.GROUPS, gs.EPS, "silu")
-        cases.append(("group_norm_act", "x".join(map(str, shape)),
-                      lambda a=args: group_norm_act(*a),
-                      lambda a=args: group_norm_act_plain(*a)))
+        x_cf = args[0].transpose(1, 2)
+        cases.append(Case(
+            "group_norm_act", "x".join(map(str, shape)),
+            lambda a=args: group_norm_act(*a),
+            lambda a=args: group_norm_act_plain(*a),
+            (0, args[0].numel(), 2 * _nbytes(args[0])),
+            lambda x_cf=x_cf, a=args: gs.torch_gn(x_cf, a[1], a[2])))
+    return cases
+
+
+def smallk_kernel_cases(r, dev):
+    """E-H at the small-head-dim studies' full shape (B = 80 batch-heads,
+    Sq = Skv = 4096, dh = 40, 512-row cells), bf16: every whole-block row
+    of the two attention studies (E, SDPA beside base128), both score rows
+    (F), the PV rows over generated and over input P (G), the softmax rows
+    (H). Work counts what the inputs need: products as wide as their
+    nonzero columns (base128's are zero past 40), one exponential a
+    score."""
+    from rcdms_tpu_torch.ops import smallk as sk
+    from rcdms_tpu_torch.tools import flash_smallk_study as fs
+
+    b, sq, skv, dh, cells = fs.B, fs.SQ, fs.SKV, fs.DH, fs.CELLS
+    qt, kt, vt = r(b, dh, sq), r(b, dh, skv), r(b, dh, skv)
+    tok = [F.pad(t.transpose(1, 2), (0, 128 - dh)).contiguous()
+           for t in (qt, kt, vt)]
+    exps = b * sq * skv
+    block = (4 * exps * dh, exps, 4 * _nbytes(qt))
+    cases = []
+    for label, kw in (("base128", dict(dk=128)), ("slice40", dict(dk=dh)),
+                      ("nt40", dict(norm="pre")), ("nt_t40", {}),
+                      ("split2", dict(split=2)), ("split4", dict(split=4)),
+                      ("dscore", dict(dscore=True))):
+        cm = "dk" not in kw
+        kw = ({"channel_major": True, "norm": "rounded", **kw} if cm
+              else {"norm": "post", **kw})
+        args = (qt, kt, vt) if cm else tok
+        cases.append(Case(
+            "smallk_attention", f"{label} {tuple(args[0].shape)}",
+            lambda a=args, kw=kw: sk.smallk_attention(*a, fs.SCALE, **kw),
+            lambda a=args, kw=kw: sk.smallk_attention_plain(*a, fs.SCALE,
+                                                            **kw),
+            block,
+            (lambda: F.scaled_dot_product_attention(
+                *(t.unsqueeze(1) for t in tok), scale=fs.SCALE))
+            if label == "base128" else None))
+    out_bytes = b * sq * 128 * 4
+    q128, k128 = r(b, sq, 128), r(b, skv, 128)
+    for label, q, k, cm in (("score_nt", qt, kt, True),
+                            ("score_base", q128, k128, False)):
+        width = dh if cm else 128
+        cases.append(Case(
+            "attn_scores", f"{label} {tuple(q.shape)}",
+            lambda q=q, k=k, cm=cm: sk.attn_scores(q, k, channel_major=cm),
+            lambda q=q, k=k, cm=cm: sk.attn_scores_plain(q, k,
+                                                         channel_major=cm),
+            (2 * exps * width, 0, _nbytes(q, k) + out_bytes)))
+    seeds = r(b, 8, 128)
+    p_in = (torch.rand(b, sk.BLK, skv, generator=torch.Generator(dev)
+                       .manual_seed(3), device=dev) * 0.001).bfloat16()
+    v128 = r(b, skv, 128)
+    for label, v, cm, src in (
+            ("pv_nt", vt, True, dict(seeds=seeds)),
+            ("pv_base", v128, False, dict(seeds=seeds)),
+            ("pv_narrow", v128[..., :dh].contiguous(), False,
+             dict(seeds=seeds)),
+            ("pv_lanes", vt, True, dict(p=p_in)),
+            ("pv_std", v128, False, dict(p=p_in))):
+        kw = dict(channel_major=cm, cells=cells, **src)
+        width = dh if cm else v.shape[2]
+        p_bytes = _nbytes(p_in) if "p" in src else 0
+        cases.append(Case(
+            "attn_pv", f"{label} {tuple(v.shape)}",
+            lambda v=v, kw=kw: sk.attn_pv(v, **kw),
+            lambda v=v, kw=kw: sk.attn_pv_plain(v, **kw),
+            (2 * exps * width, 0, _nbytes(v) + p_bytes + out_bytes)))
+    for label, kw in (("softmax gen", dict(seeds=seeds, skv=skv)),
+                      ("softmax", dict(p=p_in, scale=1000.0)),
+                      ("softmax2", dict(p=p_in, scale=1000.0, op="exp2")),
+                      ("reduce_only", dict(p=p_in, op="sum"))):
+        cases.append(Case(
+            "attn_softmax", f"{label} {b}x{sq}x{skv}",
+            lambda kw=kw: sk.attn_softmax(cells=cells, **kw),
+            lambda kw=kw: sk.attn_softmax_plain(cells=cells, **kw),
+            (0, 0 if kw.get("op") == "sum" else exps,
+             (_nbytes(p_in) if "p" in kw else 0) + out_bytes)))
     return cases
 
 
@@ -181,35 +331,44 @@ def check_kernels(dev, card: str) -> dict:
     per-kernel summary (bf16 times at each kernel's first listed shape,
     the largest error over all shapes and both dtypes)."""
     from rcdms_tpu_torch import ops
-    from rcdms_tpu_torch.tools import median_ms, rel_err
+    from rcdms_tpu_torch.tools import bound_ms, median_ms, rel_err
 
-    print(f"kernels on {card}: median ms of 10 calls, kernel and plain",
-          flush=True)
+    print(f"kernels on {card}: median ms of 10 calls: kernel, plain, "
+          f"library call (where there is one), bound", flush=True)
     summary = {name: {"max_abs_err": 0.0} for name in ops.KERNELS}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, label, kernel, plain in kernel_cases(dev, dtype):
-            out, ref = kernel(), plain()
+        for case in kernel_cases(dev, dtype):
+            name, label = case.name, case.label
+            out, ref = case.kernel(), case.plain()
             torch.cuda.synchronize()
             if isinstance(out, tuple):  # gn_moments: mean, mean of squares
                 err = max(_max_diff(o, p) for o, p in zip(out, ref))
                 rel = max(rel_err(o, p) for o, p in zip(out, ref))
             else:
                 err, rel = _max_diff(out, ref), rel_err(out, ref)
-            ms, plain_ms = median_ms(kernel), median_ms(plain)
+            del out, ref
+            ms, plain_ms = median_ms(case.kernel), median_ms(case.plain)
+            lib_ms = None if case.library is None else median_ms(
+                case.library)
+            bound, bound_by = bound_ms(*case.work, dtype=dtype)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
-                       max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms)
+                       max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                       lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
             rows.append(row)
+            lib = "-" if lib_ms is None else f"{lib_ms:.3f}"
             print(f"kernel {name:16s} {row['dtype']:8s} {label:34s} "
                   f"rel_err {rel:.2e} kernel {ms:9.3f} ms "
-                  f"plain {plain_ms:9.3f} ms", flush=True)
+                  f"plain {plain_ms:9.3f} ms library {lib} ms "
+                  f"bound {bound:.4f} ms ({bound_by})", flush=True)
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"{name} {label} {dtype}: relative "
                                      f"error {rel:.3e} > {TOL[dtype]}")
             s = summary[name]
             s["max_abs_err"] = max(s["max_abs_err"], err)
             if dtype == torch.bfloat16 and "ms" not in s:
-                s.update(ms=ms, plain_ms=plain_ms, shape=label)
+                s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=bound_by, shape=label)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
         json.dump(rows, fh, indent=1)
@@ -374,14 +533,19 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
 
 def run_studies(dev, card: str) -> dict:
     """Phase 6: each ResNet-block study's rows at its full shapes, in bf16
-    and fp32; every row within TOL of its study's reference (the dots row,
-    wrong by design, is only timed); returns the studies' launch counts."""
+    and fp32, then each small-head-dim attention study's rows in bf16;
+    every row within TOL of its study's reference (the dots and sdpa rows
+    are only timed; pv_overlap raises itself on a row off its oracle);
+    returns the studies' launch counts."""
     from rcdms_tpu_torch import ops
     from rcdms_tpu_torch.tools import (
         cm_conv_study,
+        flash_smallk_study,
         gn_fused_study,
         gn_study,
         print_rows,
+        pv_overlap_study,
+        pv_softmax_study,
     )
 
     print(f"studies on {card}: median ms of 10 calls", flush=True)
@@ -390,6 +554,8 @@ def run_studies(dev, card: str) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for study in (cm_conv_study, gn_study, gn_fused_study):
             rows += study.run(dev, dtype)
+    for study in (flash_smallk_study, pv_overlap_study, pv_softmax_study):
+        rows += study.run(dev)
     torch.cuda.synchronize()
     counts = ops.launch_counts("studies")
     print_rows(rows)
@@ -449,7 +615,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
-            shape=s["shape"]))
+            bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+            library_ms=s["library_ms"], shape=s["shape"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

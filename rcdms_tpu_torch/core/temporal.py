@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from rcdms_tpu.configs import TemporalConfig
+from rcdms_tpu_torch.configs import TemporalConfig
 from rcdms_tpu_torch.core.attention import Attention
 from rcdms_tpu_torch.core.layers import (
     FeedForward,

@@ -17,7 +17,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from rcdms_tpu.configs import PriorConfig, StoryUNetConfig, VAEConfig
+from rcdms_tpu_torch.configs import PriorConfig, StoryUNetConfig, VAEConfig
 
 SD = Dict[str, np.ndarray]
 

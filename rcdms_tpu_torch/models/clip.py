@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rcdms_tpu.configs import CLIPTextConfig, CLIPVisionConfig
+from rcdms_tpu_torch.configs import CLIPTextConfig, CLIPVisionConfig
 from rcdms_tpu_torch.core.layers import FrameConv, LayerNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 

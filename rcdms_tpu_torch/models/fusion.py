@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rcdms_tpu.configs import FusionConfig
+from rcdms_tpu_torch.configs import FusionConfig
 from rcdms_tpu_torch.core.layers import lecun_normal_
 from rcdms_tpu_torch.ops.attention import multihead_attention
 

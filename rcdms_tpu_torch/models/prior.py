@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from rcdms_tpu.configs import PriorConfig
+from rcdms_tpu_torch.configs import PriorConfig
 from rcdms_tpu_torch.core.attention import BasicTransformerBlock
 from rcdms_tpu_torch.core.layers import (
     LayerNorm,

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rcdms_tpu.configs import StoryUNetConfig
+from rcdms_tpu_torch.configs import StoryUNetConfig
 from rcdms_tpu_torch.core.attention import SpatialTransformer
 from rcdms_tpu_torch.core.layers import (
     FrameConv,

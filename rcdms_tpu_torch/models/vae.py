@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rcdms_tpu.configs import VAEConfig
+from rcdms_tpu_torch.configs import VAEConfig
 from rcdms_tpu_torch.core.layers import FrameConv, GroupNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 

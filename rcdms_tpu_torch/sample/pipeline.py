@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from rcdms_tpu.configs import (
+from rcdms_tpu_torch.configs import (
     CLIPTextConfig,
     CLIPVisionConfig,
     FusionConfig,

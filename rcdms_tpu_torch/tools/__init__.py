@@ -1,16 +1,22 @@
 """The port's kernel studies: the ResNet-block studies of `tools/` (the 3x3
 conv in the padded channel-major layout, GroupNorm moments, fused
-GroupNorm + SiLU), each run on the card with its hand-written kernel beside
-the plain PyTorch formulations:
+GroupNorm + SiLU) and the small-head-dim attention studies (whole blocks
+and their parts at dh 40, the split-PV overlap, PV and softmax costs), each
+run on the card with its hand-written kernels beside the plain PyTorch
+formulations:
 
     python -m rcdms_tpu_torch.tools.cm_conv_study
     python -m rcdms_tpu_torch.tools.gn_study
     python -m rcdms_tpu_torch.tools.gn_fused_study
+    python -m rcdms_tpu_torch.tools.flash_smallk_study
+    python -m rcdms_tpu_torch.tools.pv_overlap_study
+    python -m rcdms_tpu_torch.tools.pv_softmax_study
 
 Each module's `run(dev, dtype)` returns its rows (one dict each: the row's
 name and shape, its median time, its rate and its error against the study's
-reference) for `chip_smoke.py`. A study needs a CUDA card: it measures the
-card, so there is no CPU path.
+reference; the attention studies add the row's bound, `bound_ms`) for
+`chip_smoke.py`. A study needs a CUDA card: it measures the card, so there
+is no CPU path.
 
 Timing: CUDA events around each call, the median of `reps` calls after one
 warm-up (`median_ms`). The JAX studies timed the slope between two lengths
@@ -26,6 +32,24 @@ import statistics
 import subprocess
 
 import torch
+
+
+# Published peaks of one H100 SXM5 at its 700 W limit: dense bf16 tensor
+# cores, fp32 outside them, HBM3, and MUFU.EX2 (16 an SM a clock).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+PEAK_EXPS = 3.9e12
+
+
+def bound_ms(flops: float = 0.0, exps: float = 0.0, nbytes: float = 0.0,
+             dtype: torch.dtype = torch.bfloat16) -> tuple[float, str]:
+    """The least time the card could take for the work, in ms, and what
+    sets it: "operations" (products at the dtype's peak, exponentials at
+    MUFU's) or "bytes" (each input read once, each output written once)."""
+    ops_ms = max(flops / PEAK_FLOPS[dtype], exps / PEAK_EXPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
 
 
 def require_cuda(dev: torch.device) -> None:
@@ -63,9 +87,23 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
             / ref.float().abs().max()).item()
 
 
+def timed_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
+              ref, flops: float, bound: tuple[float, str],
+              reps: int = 10) -> dict:
+    """A study row: fn's median time on the card, its rate (TFLOP/s of
+    `flops`), its error against ref (None: timed only) and its bound."""
+    err = None if ref is None else rel_err(fn(), ref)
+    ms = median_ms(fn, reps)
+    return dict(study=study, row=name, dtype=str(dtype)[6:], shape=shape,
+                ms=ms, rate=flops / ms / 1e9, unit="TFLOP/s", rel_err=err,
+                bound_ms=bound[0], bound_by=bound[1])
+
+
 def print_rows(rows: list[dict]) -> None:
     for r in rows:
         err = "-" if r["rel_err"] is None else f"{r['rel_err']:.2e}"
+        bound = (f" {r['bound_ms'] / r['ms']:6.1%} of bound"
+                 if r.get("bound_ms") else "")
         print(f"  {r['row']:16s} {r['dtype']:9s} {r['shape']:24s} "
               f"{r['ms']:9.4f} ms {r['rate']:8.1f} {r['unit']:7s} "
-              f"rel_err {err}", flush=True)
+              f"rel_err {err}{bound}", flush=True)

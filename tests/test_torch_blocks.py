@@ -27,6 +27,7 @@ from rcdms_tpu_torch.core import layers as tlayers
 from rcdms_tpu_torch.core import resnet as tresnet
 from rcdms_tpu_torch.core import temporal as ttemporal
 from rcdms_tpu_torch.io import bridge
+from tests.test_torch_configs import port_config
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 
@@ -180,21 +181,23 @@ _TCFG = TemporalConfig(num_heads=2, num_blocks=1, zero_init_output=False)
 def test_temporal_module_unet_mode():
     x = _x(12, 1, 5, 4, 4, 32)
     params, ref = _flax(jtemporal.TemporalModule(32, _TCFG), x)
-    m = _load(ttemporal.TemporalModule(32, _TCFG), bridge._temporal, params)
+    m = _load(ttemporal.TemporalModule(32, port_config(_TCFG)),
+              bridge._temporal, params)
     np.testing.assert_allclose(_run(m, x), ref, **TOL)
 
 
 def test_temporal_module_prior_mode():
     x = _x(13, 2, 5, 7, 16)
     params, ref = _flax(jtemporal.TemporalModule(16, _TCFG), x)
-    m = _load(ttemporal.TemporalModule(16, _TCFG, prior_mode=True),
+    m = _load(ttemporal.TemporalModule(16, port_config(_TCFG),
+                                        prior_mode=True),
               bridge._temporal, params)
     np.testing.assert_allclose(_run(m, x), ref, **TOL)
 
 
 def test_temporal_module_zero_init_is_identity():
-    m = ttemporal.TemporalModule(16, dataclasses.replace(
-        _TCFG, zero_init_output=True), prior_mode=True)
+    m = ttemporal.TemporalModule(16, port_config(dataclasses.replace(
+        _TCFG, zero_init_output=True)), prior_mode=True)
     tlayers.init_like_flax_(m, torch.Generator().manual_seed(0))
     x = _x(14, 1, 5, 3, 16)
     np.testing.assert_array_equal(_run(m, x), x)

@@ -41,6 +41,7 @@ from rcdms_tpu_torch.models import fusion as tfusion
 from rcdms_tpu_torch.models import prior as tprior
 from rcdms_tpu_torch.models import unet3d as tunet
 from rcdms_tpu_torch.models import vae as tvae
+from tests.test_torch_configs import port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -84,8 +85,8 @@ CASES = {
         lambda: junet.StoryUNet(_UNET),
         (np.zeros((1, 5, 8, 8, 9), _f32), np.zeros((1,), np.int32),
          np.zeros((1, 5, 7, 24), _f32)),
-        lambda: tunet.StoryUNet(_UNET),
-        lambda p: bridge.unet_state_dict(p, _UNET),
+        lambda: tunet.StoryUNet(port_config(_UNET)),
+        lambda p: bridge.unet_state_dict(p, port_config(_UNET)),
         # convert_rcdms_unet3d has no mid-block temporal module (the
         # reference has none); it is checked through the strict load
         lambda sd: convert.convert_rcdms_unet3d(sd, _UNET),
@@ -96,32 +97,32 @@ CASES = {
          np.zeros((1, 5, 16), _f32), np.zeros((1, 5, 7, 16), _f32),
          np.zeros((1, 5, 16), _f32), np.zeros((1, 5, 16), _f32),
          np.ones((1, 5, 7), bool)),
-        lambda: tprior.FramePrior(_PRIOR),
-        lambda p: bridge.prior_state_dict(p, _PRIOR),
+        lambda: tprior.FramePrior(port_config(_PRIOR)),
+        lambda p: bridge.prior_state_dict(p, port_config(_PRIOR)),
         lambda sd: convert.convert_rcdms_prior(sd, _PRIOR), ()),
     "vae": (
         lambda: jvae.VAE(_VAE),
         (np.zeros((1, 32, 32, 3), _f32), np.zeros((1, 16, 16, 4), _f32)),
-        lambda: tvae.VAE(_VAE),
-        lambda p: bridge.vae_state_dict(p, _VAE),
+        lambda: tvae.VAE(port_config(_VAE)),
+        lambda p: bridge.vae_state_dict(p, port_config(_VAE)),
         lambda sd: convert.convert_sd_vae(sd, _VAE), ()),
     "clip_text": (
         lambda: jclip.CLIPTextEncoder(_TEXT),
         (np.zeros((1, 7), np.int32),),
-        lambda: tclip.CLIPTextEncoder(_TEXT),
+        lambda: tclip.CLIPTextEncoder(port_config(_TEXT)),
         bridge.clip_text_state_dict,
         lambda sd: convert.convert_clip_text(sd, _TEXT), ()),
     "clip_vision": (
         lambda: jclip.CLIPVisionEncoder(_VISION),
         (np.zeros((1, 28, 28, 3), _f32),),
-        lambda: tclip.CLIPVisionEncoder(_VISION),
+        lambda: tclip.CLIPVisionEncoder(port_config(_VISION)),
         bridge.clip_vision_state_dict,
         lambda sd: convert.convert_clip_vision(sd, _VISION), ()),
     "fusion": (
         lambda: jfusion.FusionModule(_FUSION),
         (np.zeros((1, 5, 5, 16), _f32), np.zeros((1, 5, 16), _f32),
          np.zeros((1, 5, 7, 24), _f32), np.zeros((1, 5), bool)),
-        lambda: tfusion.FusionModule(_FUSION),
+        lambda: tfusion.FusionModule(port_config(_FUSION)),
         bridge.fusion_state_dict, _fusion_back, ()),
 }
 

@@ -10,7 +10,8 @@ Tolerance: max|kernel - plain| / max|plain| <= 1e-4 in fp32 (TF32 off: the
 two differ in summation order only) and 2e-2 in bf16 (the kernels round
 the attention probabilities and the FF intermediate to bf16 where the
 plain versions keep other roundings; the conv and GroupNorm kernels round
-once, as their plain versions do)."""
+once, as their plain versions do; the small-head-dim kernels E-H take bf16
+only and round where their plain versions round)."""
 
 import pytest
 import torch
@@ -33,6 +34,16 @@ from rcdms_tpu_torch.ops.group_norm import (
     gn_moments_plain,
     group_norm_act,
     group_norm_act_plain,
+)
+from rcdms_tpu_torch.ops.smallk import (
+    attn_pv,
+    attn_pv_plain,
+    attn_scores,
+    attn_scores_plain,
+    attn_softmax,
+    attn_softmax_plain,
+    smallk_attention,
+    smallk_attention_plain,
 )
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -86,7 +97,9 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     assert ops.launch_counts() == {"attention": 2, "frame_attention": 1,
                                    "geglu_ff": 2, "gelu_ff": 2,
                                    "cm_conv3x3": 0, "gn_moments": 0,
-                                   "group_norm_act": 0}
+                                   "group_norm_act": 0,
+                                   "smallk_attention": 0, "attn_scores": 0,
+                                   "attn_pv": 0, "attn_softmax": 0}
 
 
 def _frame_mask(h, w, tokens, g, dev, dtype):
@@ -139,8 +152,10 @@ def test_cuda_study_kernels_match_plain(cuda, dtype):
         assert _rel(group_norm_act(*args),
                     group_norm_act_plain(*args)) <= TOL[dtype]
     torch.cuda.synchronize()
-    assert ops.launch_counts("studies") == {"cm_conv3x3": 4, "gn_moments": 2,
-                                            "group_norm_act": 2}
+    assert ops.launch_counts("studies") == {
+        "cm_conv3x3": 4, "gn_moments": 2, "group_norm_act": 2,
+        "smallk_attention": 0, "attn_scores": 0, "attn_pv": 0,
+        "attn_softmax": 0}
     assert set(ops.launch_counts("story").values()) == {0}
 
 
@@ -194,3 +209,91 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda):
         gelu_ff(f, torch.zeros(16, 64, device=cuda),
                 torch.zeros(64, device=cuda), torch.zeros(16, 64, device=cuda),
                 torch.zeros(16, device=cuda))
+
+
+SMALLK_ROWS = [  # (channel_major, dk, norm, split, dscore) of every E row
+    (False, 128, "post", 1, False), (False, 40, "post", 1, False),
+    (True, None, "pre", 1, False), (True, None, "rounded", 1, False),
+    (True, None, "rounded", 2, False), (True, None, "rounded", 4, False),
+    (True, None, "rounded", 1, True)]
+
+
+@pytest.mark.gpu
+def test_cuda_smallk_kernels_match_plain(cuda):
+    """E-H against their plain versions in every layout and variant of the
+    studies at B = 4 batch-heads, full Skv = 4096 and dh 40, 1024 queries
+    (two 512-row cells)."""
+    g = torch.Generator(cuda).manual_seed(2)
+    bsz, sq, skv, dh = 4, 1024, 4096, 40
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    def pad128(t):  # token-major width 128, zero past dh
+        return torch.nn.functional.pad(t, (0, 128 - dh))
+
+    ops.reset_launch_counts()
+    qt, kt, vt = r(bsz, dh, sq), r(bsz, dh, skv), r(bsz, dh, skv)
+    tok = [pad128(t.transpose(1, 2)).contiguous() for t in (qt, kt, vt)]
+    for cm, dk, norm, split, dscore in SMALLK_ROWS:
+        args = (qt, kt, vt) if cm else tok
+        kw = dict(channel_major=cm, dk=dk, norm=norm, split=split,
+                  dscore=dscore)
+        assert _rel(smallk_attention(*args, dh ** -0.5, **kw),
+                    smallk_attention_plain(*args, dh ** -0.5, **kw)
+                    ) <= TOL[torch.bfloat16], kw
+    q128, k128 = r(bsz, sq, 128), r(bsz, skv, 128)
+    for q, k, cm in ((q128, k128, False), (qt, kt, True)):
+        assert _rel(attn_scores(q, k, channel_major=cm),
+                    attn_scores_plain(q, k, channel_major=cm)) <= 1e-4
+    seeds = r(bsz, 8, 128)
+    p_in = (torch.rand(bsz, 512, skv, generator=g, device=cuda)
+            * 0.001).to(torch.bfloat16)
+    cells = sq // 512
+    for v, cm, src in ((r(bsz, skv, 128), False, "gen"),
+                       (r(bsz, skv, dh), False, "gen"), (vt, True, "gen"),
+                       (vt, True, "p"), (r(bsz, skv, 128), False, "p")):
+        kw = dict(channel_major=cm, cells=cells,
+                  **({"seeds": seeds} if src == "gen" else {"p": p_in}))
+        out = attn_pv(v, **kw)
+        assert _rel(out, attn_pv_plain(v, **kw)) <= 1e-4, (cm, src)
+        assert (out[..., v.shape[1 if cm else 2]:] == 0).all()
+    for kw in (dict(seeds=seeds, skv=skv), dict(p=p_in, scale=1000.0),
+               dict(p=p_in, scale=1000.0, op="exp2"), dict(p=p_in, op="sum")):
+        assert _rel(attn_softmax(cells=cells, **kw),
+                    attn_softmax_plain(cells=cells, **kw)) <= 1e-4, kw
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies") == {
+        "cm_conv3x3": 0, "gn_moments": 0, "group_norm_act": 0,
+        "smallk_attention": 7, "attn_scores": 2, "attn_pv": 5,
+        "attn_softmax": 4}
+
+
+@pytest.mark.gpu
+def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
+    f = torch.zeros(1, 40, 512, device=cuda)
+    with pytest.raises(TypeError):  # the kernels take bf16 only
+        smallk_attention(f, f, f, 0.1, channel_major=True, norm="pre")
+    with pytest.raises(TypeError):
+        attn_scores(f, f, channel_major=True)
+    with pytest.raises(TypeError):
+        attn_pv(f, p=torch.zeros(1, 512, 512, device=cuda),
+                channel_major=True, cells=1)
+    with pytest.raises(TypeError):
+        attn_softmax(p=torch.zeros(1, 512, 512, device=cuda), cells=1)
+    h = f.bfloat16()
+    t = torch.zeros(1, 512, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # not contiguous
+        smallk_attention(t.transpose(1, 2), h, h, 0.1, channel_major=True,
+                         norm="pre")
+    with pytest.raises(ValueError):
+        attn_scores(t.transpose(1, 2), h, channel_major=True)
+    with pytest.raises(ValueError):  # Sq not a multiple of 128
+        smallk_attention(h[..., :200].contiguous(), h, h, 0.1,
+                         channel_major=True, norm="pre")
+    with pytest.raises(ValueError):  # dh past the kernel's 48
+        z = torch.zeros(1, 56, 512, device=cuda, dtype=torch.bfloat16)
+        attn_scores(z, z, channel_major=True)
+    with pytest.raises(ValueError):  # P blocks of 200 rows
+        attn_pv(h, p=torch.zeros(1, 200, 512, device=cuda,
+                                 dtype=torch.bfloat16), channel_major=True)

@@ -39,6 +39,7 @@ from rcdms_tpu_torch.models import fusion as tfusion
 from rcdms_tpu_torch.models import prior as tprior
 from rcdms_tpu_torch.models import unet3d as tunet
 from rcdms_tpu_torch.models import vae as tvae
+from tests.test_torch_configs import port_config
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -76,7 +77,7 @@ def test_story_unet():
     cfg = _temporal_live(StoryUNetConfig.tiny())
     sample, ctx = _x(0, 1, 5, 8, 8, 9), _x(1, 1, 5, 7, 24)
     t = np.array([500], np.int32)
-    m = tunet.StoryUNet(cfg)
+    m = tunet.StoryUNet(port_config(cfg))
     params = convert.convert_rcdms_unet3d(_weights(m), cfg)
     ref = _apply(junet.StoryUNet(cfg), params, sample, t, ctx)
     with torch.no_grad():
@@ -90,7 +91,7 @@ def test_fusion():
     cfg = FusionConfig.tiny()
     args = (_x(2, 1, 5, 5, 16), _x(3, 1, 5, 16), _x(4, 1, 5, 7, 24),
             np.array([[True, False, True, False, False]]))
-    m = tfusion.FusionModule(cfg)
+    m = tfusion.FusionModule(port_config(cfg))
     blob = convert.split_deepspeed_blob(_weights(m))
     params = {"seen_module": convert.convert_fusion_stack(blob["seen"]),
               "unseen_module": convert.convert_fusion_stack(blob["unseen"])}
@@ -103,7 +104,7 @@ def test_fusion():
 def test_vae_encode_decode():
     cfg = VAEConfig.tiny()
     x, z = _x(5, 2, 32, 32, 3), _x(6, 2, 16, 16, 4)
-    m = tvae.VAE(cfg)
+    m = tvae.VAE(port_config(cfg))
     params = convert.convert_sd_vae(_weights(m), cfg)
     jm = jvae.VAE(cfg)
     mean, logvar = _apply(jm, params, x, method=jvae.VAE.encode)
@@ -123,7 +124,7 @@ def test_clip_text(act):
     cfg = CLIPTextConfig.tiny(hidden_act=act)
     ids = np.random.default_rng(7).integers(0, 60, (3, 7)).astype(np.int32)
     ids[0, 2] = ids[1, 5] = ids[1, 6] = ids[2, 6] = cfg.eos_token_id
-    m = tclip.CLIPTextEncoder(cfg)
+    m = tclip.CLIPTextEncoder(port_config(cfg))
     params = convert.convert_clip_text(_weights(m), cfg)
     h, e = _apply(jclip.CLIPTextEncoder(cfg), params, ids)
     with torch.no_grad():
@@ -135,7 +136,7 @@ def test_clip_text(act):
 def test_clip_vision():
     cfg = CLIPVisionConfig.tiny()
     px = _x(8, 2, 28, 28, 3)
-    m = tclip.CLIPVisionEncoder(cfg)
+    m = tclip.CLIPVisionEncoder(port_config(cfg))
     params = convert.convert_clip_vision(_weights(m), cfg)
     h, e = _apply(jclip.CLIPVisionEncoder(cfg), params, px)
     with torch.no_grad():
@@ -151,7 +152,7 @@ def test_frame_prior():
     mask[0, :, 4:] = False
     args = (_x(9, b, f, d), np.full((b, f), 700, np.int32), _x(10, b, f, d),
             _x(11, b, f, t, d), _x(12, b, f, d), _x(13, b, f, d), mask)
-    m = tprior.FramePrior(cfg)
+    m = tprior.FramePrior(port_config(cfg))
     params = convert.convert_rcdms_prior(_weights(m), cfg)
     ref = _apply(jprior.FramePrior(cfg), params, *args)
     with torch.no_grad():

@@ -252,6 +252,12 @@ def test_cpu_wrappers_do_not_count():
     group_norm_act(x, torch.ones(64), torch.zeros(64), 32, 1e-6, "silu")
     cm_conv3x3(torch.zeros(1, 2, 16), torch.zeros(9, 2, 3), torch.zeros(3),
                torch.ones(16), 4)
+    c = torch.zeros(1, 40, 512, dtype=torch.bfloat16)
+    seeds = torch.ones(1, 8, 128, dtype=torch.bfloat16)
+    ops.smallk_attention(c, c, c, 1.0, channel_major=True, norm="rounded")
+    ops.attn_scores(c, c, channel_major=True)
+    ops.attn_pv(c, seeds=seeds, channel_major=True, cells=1)
+    ops.attn_softmax(seeds=seeds, skv=512, cells=1)
     assert ops.launch_counts("studies") == dict.fromkeys(
         ops.PATHS["studies"], 0)
 
@@ -259,8 +265,10 @@ def test_cpu_wrappers_do_not_count():
 def test_paths_split_the_kernels():
     assert set(ops.PATHS["story"]) == {"attention", "frame_attention",
                                        "geglu_ff", "gelu_ff"}
-    assert set(ops.PATHS["studies"]) == {"cm_conv3x3", "gn_moments",
-                                         "group_norm_act"}
+    assert set(ops.PATHS["studies"]) == {
+        "cm_conv3x3", "gn_moments", "group_norm_act", "smallk_attention",
+        "attn_scores", "attn_pv", "attn_softmax"}
+    assert len(ops.KERNELS) == 11
     assert ops.KERNELS == {**ops.PATHS["story"], **ops.PATHS["studies"]}
 
 
