@@ -26,7 +26,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
    weights: the story-independent conditioning cache, two requests with
    their own generators, and request 1 again. Frames must be finite, in
    [0, 1], of shape (1, 5, 512, 512, 3), the repeat equal to the first run
-   within 1e-3, and every kernel of the story (A-D) must have launched;
+   within 1e-3, and every kernel of the story (A-D) must have launched.
+   Then one more request under `torch.profiler`: the device time of its
+   kernels summed by name into A, B, C/D, cuDNN and other, each group's
+   seconds and share printed and written to
+   chiprun_out/chip_smoke_story_profile.json;
 6. studies: the three ResNet-block studies (`rcdms_tpu_torch/tools/`:
    channel-major 3x3 conv, GroupNorm moments, fused GroupNorm + SiLU) at
    their full shapes, in bf16 and fp32, then the three small-head-dim
@@ -528,7 +532,69 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
                              f"{missing}")
     print(f"story: repeat max|diff| {repeat_err:.2e}; launches {counts}",
           flush=True)
-    return dict(seconds=seconds, counts=counts, repeat_err=repeat_err)
+    profile = profile_request(pipe, requests[1], cache, dev, 12)
+    return dict(seconds=seconds, counts=counts, repeat_err=repeat_err,
+                profile=profile)
+
+
+# profiler groups of a story's kernels: (group, substrings of the kernel
+# name), the first match wins; "other" takes the rest (cuBLAS products,
+# norms, elementwise PyTorch kernels, copies)
+KERNEL_GROUPS = (
+    ("C/D", ("ff_gemm_kernel", "rcdms::(anonymous namespace)::ff_kernel")),
+    ("B", ("frame_attention_kernel",)),
+    ("A", ("attention_mma_kernel",
+           "rcdms::(anonymous namespace)::attention_kernel")),
+    ("cuDNN", ("cudnn", "fprop", "implicit_gemm", "winograd")),
+)
+
+
+def kernel_group(name: str) -> str:
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def profile_request(pipe, req, cache, dev, seed: int) -> dict:
+    """One request under torch.profiler: the device time of every kernel
+    and copy, summed by name and by group (KERNEL_GROUPS); prints each
+    group's seconds and share of the request's device time and writes
+    them, with the 15 longest names, to chip_smoke_story_profile.json."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.generate(req, cache, torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() * 1e-6)
+    device = sum(by_name.values())
+    if device <= 0:
+        raise AssertionError("the profiler saw no device time")
+    groups = dict.fromkeys(("A", "B", "C/D", "cuDNN", "other"), 0.0)
+    for name, sec in by_name.items():
+        groups[kernel_group(name)] += sec
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    result = dict(wall_s=wall, device_s=device,
+                  groups={g: dict(s=sec, share=sec / device)
+                          for g, sec in groups.items()},
+                  top=[dict(name=n[:160], s=sec) for n, sec in top])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_story_profile.json"),
+              "w") as fh:
+        json.dump(result, fh, indent=1)
+    print(f"story profile: one request {wall:.3f} s wall (profiled), "
+          f"{device:.3f} s device: " + ", ".join(
+              f"{g} {v['s']:.3f} s ({v['share']:.1%})"
+              for g, v in result["groups"].items()), flush=True)
+    return result
 
 
 def run_studies(dev, card: str) -> dict:

@@ -10,27 +10,42 @@
 // What bounds it on the H100: at the UNet's level 0 (S = 4096, dh = 40) a
 // query row meets 4096 keys, and one fp32 score row is 16 KB, so the TPU
 // kernel's whole-row softmax cannot live in 227 KB of shared memory. Both
-// kernels below stream K/V through shared memory in tiles with an online
-// softmax (running max m and sum l per query; the output is rescaled when
-// m grows and divided by l once at the end). The ragged last tile is
-// masked by Skv, so a 91-token context arrives unpadded. Scores, softmax
-// and sums are fp32.
+// kernels below stream K/V in tiles with an online softmax (running max m
+// and sum l per query; the output is rescaled when m grows and divided by
+// l once at the end). The ragged last tile is masked by Skv, so a 91-token
+// context arrives unpadded. Scores, softmax and sums are fp32. At dh 40
+// there are more exponentials than product flops per score: 40 heads of
+// 4096 x 4096 need 0.17 ms of MUFU.EX2 against about 0.11 ms of bf16
+// products at peak, so the exponentials, not the tensor cores, set the
+// floor.
 //
 // Two kernels compute it:
-//   * CUDA cores (fp32, and any dh): one block of 256 threads holds one
-//     (batch, head) and 256 / TPQ queries; TPQ lanes share a query, each
-//     owning dh / TPQ of its dims, and combine partial dot products with
-//     warp shuffles. dh is a template bound (32 ... 256); a smaller runtime
-//     dh is masked. Bound by the FMA rate and shared-memory reads.
-//   * tensor cores (bf16, dh a multiple of 8; every site of the main path):
-//     Q K^T and P V as WMMA 16x16x16 bf16 products with fp32 accumulators,
-//     64 queries and 64-key tiles a block, the online softmax between them
-//     on the CUDA cores with the scores staged through shared memory. dh
-//     is zero-padded to a multiple of 16 in shared memory only. At
-//     dh = 40 a score costs more softmax instructions than product flops,
-//     so the softmax, not the tensor cores, bounds it; wgmma and keeping
-//     the scores in registers are later work.
-#include <mma.h>
+//   * CUDA cores (fp32, any dh up to 256): one block of 256 threads holds
+//     one (batch, head) and 256 / TPQ queries; TPQ lanes share a query,
+//     each owning dh / TPQ of its dims, and combine partial dot products
+//     with warp shuffles. dh is a template bound (32 ... 256); a smaller
+//     runtime dh is masked. Bound by the FMA rate and shared-memory reads.
+//   * tensor cores (bf16, dh a multiple of 8 up to 256; every site of the
+//     main path): FlashAttention-2's layout on mma.sync m16n8k16. A block
+//     holds 128 queries of one (batch, head) (64 where the padded dh is
+//     160 or more), 32 query rows a warp where dh <= 64 (so each K and V
+//     fragment a warp loads serves two m16 row tiles), else 16. K and V
+//     tiles of 64 keys stream through a cp.async double-buffered ring, so
+//     tile j + 1 loads while tile j computes. K is read by ldmatrix, V by
+//     ldmatrix.trans; Q's A fragments by ldmatrix too, once where a warp
+//     has 16 rows, at every K tile at dh <= 64, where the registers go to
+//     a third block an SM instead. The scores stay in the mma accumulators:
+//     the online softmax works on them in place (a row's max and sum over
+//     the four lanes that share it, two shuffles), one FFMA folds
+//     scale * log2(e) into each exponential, and P is repacked from the
+//     fp32 score accumulators into bf16 A fragments in registers (the
+//     m16n8k16 C -> A layout identity), rounded to bf16 as the TPU kernel
+//     rounds it. No score or probability ever reaches shared memory. The
+//     score product contracts dh padded to a multiple of 16 (the pad
+//     columns of the shared tiles are zeroed once); the output is dh wide,
+//     in n = 8 tiles.
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -154,228 +169,381 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// ---- the bf16 tensor-core kernel ----------------------------------------
+// ---- the bf16 tensor-core kernel (mma.sync, scores in registers) --------
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcBQ = 16 * kTcWarps;  // queries per block, 16 per warp
-constexpr int kTcBKV = 64;            // keys per K/V tile
-constexpr int kTcLdS = kTcBKV + 4;    // fp32 row of a warp's score tile
-constexpr int kTcLdP = kTcBKV + 8;    // bf16 row of a warp's probabilities
+constexpr int kMmaKV = 64;           // keys per K/V tile
+constexpr int kKeyTiles = kMmaKV / 8;  // its n8 score tiles
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// DP: the head dim rounded up to the 16 of a WMMA product (zero-filled in
-// shared memory only). Byte offsets, each a multiple of 128.
-template <int DP>
-struct TcAttnShape {
-  static constexpr int LD = DP + 8;   // bf16 row of the Q, K and V tiles
-  static constexpr int LDT = DP + 4;  // fp32 row of a warp's P.V tile
-  static constexpr int WARP_FLOATS =
-      16 * (kTcLdS > LDT ? kTcLdS : LDT);  // scores, then the P.V tile
-  static constexpr int QS = 0;
-  static constexpr int KS = QS + kTcBQ * LD * 2;
-  static constexpr int VS = KS + kTcBKV * LD * 2;
-  static constexpr int SS = VS + kTcBKV * LD * 2;
-  static constexpr int PS = SS + kTcWarps * WARP_FLOATS * 4;
-  static constexpr int BYTES = PS + kTcWarps * 16 * kTcLdP * 2;
+// DP: the contraction width, dh padded to a multiple of 16. NT: the n8
+// output tiles held, dh / 8 rounded up to a width the kernel is built for
+// (tiles at or past dh / 8 are skipped). BQ: queries a block. MT: m16 row
+// tiles a warp; two where DP <= 64, so each K and V fragment a warp loads
+// from shared memory serves 32 query rows. Q's A fragments stay in
+// registers where a warp holds one row tile up to DP 160; with two, Q is
+// read by ldmatrix at every K tile instead, which leaves the registers
+// for three blocks an SM at DP 48. Rows of the shared Q, K and V tiles
+// are DP + 8 bf16 long, an odd number of 16-byte chunks, so the eight row
+// addresses of an ldmatrix fall in eight different bank groups. Must
+// agree with rcdms_tpu_torch/ops/flash.py::_plan.
+template <int DP, int NT_, int BQ>
+struct MmaShape {
+  static constexpr int MT = DP <= 64 ? 2 : 1;
+  static constexpr int WARPS = BQ / (16 * MT);
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = DP + 8;
+  static constexpr int KSTEPS = DP / 16;  // k16 steps of the score product
+  static constexpr int NT = NT_;
+  static constexpr bool QREG = MT == 1 && DP <= 160;
+  static constexpr int MIN_BLOCKS = MT == 1 ? 1 : (DP == 48 ? 3 : 2);
+  static_assert(8 * NT <= DP, "the output tiles lie inside the padded row");
+  static constexpr int K_OFF = BQ * LD * 2;               // Q at 0
+  static constexpr int V_OFF = K_OFF + 2 * kMmaKV * LD * 2;  // K: 2 stages
+  static constexpr int BYTES = V_OFF + 2 * kMmaKV * LD * 2;  // V: 2 stages
 };
 
-// One block: kTcBQ queries of one (batch, head); each warp owns 16 of them.
-// Per K/V tile: S = Q K^T on the tensor cores into the warp's fp32 tile;
-// the online softmax on the CUDA cores, two lanes per query row (its
-// running max m and sum l, and half of its output row in registers); P,
-// rounded to bf16 as the TPU kernel rounds it, times V on the tensor
-// cores; the output row rescaled and accumulated in fp32.
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
-    attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                        int H, int Sq, int Skv, int dh, float scale) {
-  using S = TcAttnShape<DP>;
-  constexpr int V8 = DP / 8;   // 16-byte vectors in a padded row
-  constexpr int HD = DP / 2;   // output columns a lane owns
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem + S::QS);  // [kTcBQ][LD]
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem + S::KS);  // [kTcBKV][LD]
-  bf16* vs = reinterpret_cast<bf16*>(tc_smem + S::VS);  // [kTcBKV][LD]
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block: BQ queries of one (batch, head), 16 * MT a warp. Fragment
+// layouts of m16n8k16 (g = lane / 4, t = lane % 4): a score accumulator of
+// an n8 tile holds rows g (regs 0, 1) and g + 8 (regs 2, 3) at columns
+// 2t, 2t+1; an A fragment holds rows g / g + 8 at columns 2t, 2t+1 (regs
+// 0 / 1) and 2t+8, 2t+9 (regs 2 / 3). So the score tiles 2kk and 2kk + 1
+// are, as they stand, the A fragment of P for keys 16kk ... 16kk + 15.
+template <int DP, int NT, int BQ>
+__global__ void __launch_bounds__(MmaShape<DP, NT, BQ>::THREADS,
+                                  MmaShape<DP, NT, BQ>::MIN_BLOCKS)
+    attention_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         int H, int Sq, int Skv, int dh, float scale_log2) {
+  using S = MmaShape<DP, NT, BQ>;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(mma_smem);              // [BQ][LD]
+  bf16* ks = reinterpret_cast<bf16*>(mma_smem + S::K_OFF);   // [2][64][LD]
+  bf16* vs = reinterpret_cast<bf16*>(mma_smem + S::V_OFF);   // [2][64][LD]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  float* ss = reinterpret_cast<float*>(tc_smem + S::SS) +
-              warp * S::WARP_FLOATS;  // [16][kTcLdS], then [16][LDT]
-  bf16* ps = reinterpret_cast<bf16*>(tc_smem + S::PS) +
-             warp * 16 * kTcLdP;      // [16][kTcLdP]
-  const int q0 = blockIdx.x * kTcBQ;
+  const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const long row = (long)H * dh;
   const bf16* qp = q + (long)b * Sq * row + (long)h * dh;
   const bf16* kp = k + (long)b * Skv * row + (long)h * dh;
   const bf16* vp = v + (long)b * Skv * row + (long)h * dh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  for (int idx = tid; idx < kTcBQ * V8; idx += kTcThreads) {
-    const int r = idx / V8, d = (idx % V8) * 8;
-    *reinterpret_cast<uint4*>(qs + r * S::LD + d) =
-        (q0 + r < Sq && d < dh)
-            ? *reinterpret_cast<const uint4*>(qp + (long)(q0 + r) * row + d)
-            : zero;
+  // Every tile row is DP / 8 chunks of 16 bytes: chunks < dh / 8 come from
+  // device memory by cp.async (zero-filled past Sq / Skv: source size 0),
+  // the pad chunks are zeroed once here and never written again.
+  constexpr int CH = DP / 8;
+  const int nt_out = dh / 8;  // n8 output tiles = 16-byte chunks of a row
+  for (int idx = tid; idx < (BQ + 4 * kMmaKV) * CH; idx += S::THREADS) {
+    if (idx % CH >= nt_out)
+      *reinterpret_cast<uint4*>(qs + idx / CH * S::LD + idx % CH * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
   }
-
-  const int r = lane / 2;     // this lane's query row within the warp's 16
-  const int half = lane % 2;  // ... and which half of its keys and output
-  float acc[HD];
-#pragma unroll
-  for (int i = 0; i < HD; ++i) acc[i] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += kTcBKV) {
-    __syncthreads();  // Q stored / the previous K, V tiles consumed
-    for (int idx = tid; idx < kTcBKV * V8; idx += kTcThreads) {
-      const int j = idx / V8, d = (idx % V8) * 8;
-      const bool ok = kv0 + j < Skv && d < dh;
-      const long off = (long)(kv0 + j) * row + d;
-      *reinterpret_cast<uint4*>(ks + j * S::LD + d) =
-          ok ? *reinterpret_cast<const uint4*>(kp + off) : zero;
-      *reinterpret_cast<uint4*>(vs + j * S::LD + d) =
-          ok ? *reinterpret_cast<const uint4*>(vp + off) : zero;
-    }
-    __syncthreads();
-
-    // S (16 x 64) = Q (16 x DP) . K tile^T
-#pragma unroll
-    for (int jf = 0; jf < kTcBKV / 16; ++jf) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        FragA a;
-        FragKt bk;
-        wmma::load_matrix_sync(a, qs + warp * 16 * S::LD + kk, S::LD);
-        wmma::load_matrix_sync(bk, ks + jf * 16 * S::LD + kk, S::LD);
-        wmma::mma_sync(s, a, bk, s);
-      }
-      wmma::store_matrix_sync(ss + jf * 16, s, kTcLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this lane's 32 keys of row r
-    float sv[32];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const int key = kv0 + half * 32 + t;
-      sv[t] = key < Skv ? ss[r * kTcLdS + half * 32 + t] * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, sv[t]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    const float m_new = fmaxf(m, tile_max);  // finite: key kv0 is real
-    const float corr = __expf(m - m_new);    // 0 on the first tile
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const float p = __expf(sv[t] - m_new);  // 0 for masked keys
-      sum += p;
-      ps[r * kTcLdP + half * 32 + t] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * corr + sum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < HD; ++i) acc[i] *= corr;
-    __syncwarp();
-
-    // T (16 x DP) = P (16 x 64) . V tile, into the score rows' place
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      FragC t;
-      wmma::fill_fragment(t, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kTcBKV; kk += 16) {
-        FragA a;
-        FragV bv;
-        wmma::load_matrix_sync(a, ps + kk, kTcLdP);
-        wmma::load_matrix_sync(bv, vs + kk * S::LD + n * 16, S::LD);
-        wmma::mma_sync(t, a, bv, t);
-      }
-      wmma::store_matrix_sync(ss + n * 16, t, S::LDT, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < HD; ++i) acc[i] += ss[r * S::LDT + half * HD + i];
-    __syncwarp();  // read before the next tile's scores overwrite it
+  for (int idx = tid; idx < BQ * CH; idx += S::THREADS) {
+    const int r = idx / CH;
+    const int c = idx % CH * 8;
+    const bool ok = q0 + r < Sq;
+    if (c < dh)
+      cp_async16(qs + r * S::LD + c, ok ? qp + (long)(q0 + r) * row + c : q,
+                 ok);
   }
+  auto load_kv = [&](int kv0, int stage) {
+    bf16* kd = ks + stage * kMmaKV * S::LD;
+    bf16* vd = vs + stage * kMmaKV * S::LD;
+    for (int idx = tid; idx < kMmaKV * CH; idx += S::THREADS) {
+      const int r = idx / CH;
+      const int c = idx % CH * 8;
+      const bool ok = kv0 + r < Skv;
+      const long off = ok ? (long)(kv0 + r) * row + c : 0;
+      if (c < dh) {
+        cp_async16(kd + r * S::LD + c, kp + off, ok);
+        cp_async16(vd + r * S::LD + c, vp + off, ok);
+      }
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();  // group: Q and the first K/V tile
 
-  const int qi = q0 + warp * 16 + r;
-  if (qi < Sq) {
-    const float inv = 1.f / l;
-    bf16* op = o + ((long)b * Sq + qi) * row + (long)h * dh + half * HD;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  constexpr int MT = S::MT;
+  // per row tile mt of the warp: output accumulators, running max of rows
+  // g and g + 8 (m[mt][0], [1]) and this lane's share of their sums
+  float oacc[MT][NT][4];
+  float m[MT][2], l[MT][2];
 #pragma unroll
-    for (int i = 0; i < HD; ++i)
-      if (half * HD + i < dh) op[i] = __float2bfloat16(acc[i] * inv);
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      oacc[mt][n][0] = oacc[mt][n][1] = oacc[mt][n][2] = oacc[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  uint32_t qf[S::QREG ? S::KSTEPS : 1][4];  // Q fragments (QREG)
+  // this lane's ldmatrix row address of the warp's first Q row tile
+  const bf16* qa =
+      qs + (warp * 16 * MT + lane % 16) * S::LD + (lane / 16) * 8;
+  float s[MT][kKeyTiles][4];          // scores of the current K tile
+  uint32_t pf[MT][kKeyTiles / 2][4];  // P as A fragments, per 16 keys
+  const bf16* kt = ks;  // the current K and V tiles
+  const bf16* vt = vs;
+  int j = 0;            // the current tile
+
+  // S (16 x 64 a row tile) = Q K^T into n8 accumulator tiles, for every
+  // row tile of the warp (each K fragment serves all of them)
+  auto scores = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n)
+        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < S::KSTEPS; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (S::QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[mt][i] = qf[kk][i];
+        } else {
+          ldsm_x4(a[mt], qa + mt * 16 * S::LD + kk * 16);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < kKeyTiles / 2; ++np) {  // key tiles 2np, +1
+        uint32_t bk[4];
+        ldsm_x4(bk, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * S::LD +
+                        kk * 16 + ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
+        }
+      }
+    }
+  };
+
+  // the online softmax of row tile mt on its accumulators, into pf[mt]
+  auto softmax = [&](auto mtc) {
+    constexpr int mt = decltype(mtc)::value;
+    const int kv0 = j * kMmaKV;
+    if (kv0 + kMmaKV > Skv) {  // keys at or past Skv: -inf before the max
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n) {
+        const int key = kv0 + n * 8 + 2 * t4;
+        if (key >= Skv) s[mt][n][0] = s[mt][n][2] = -INFINITY;
+        if (key + 1 >= Skv) s[mt][n][1] = s[mt][n][3] = -INFINITY;
+      }
+    }
+    float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+    for (int n = 0; n < kKeyTiles; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+    }
+    float ms[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1)  // the quad sharing a row
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], off));
+      // finite: key kv0 < Skv is live in every row. 0 on the first tile.
+      const float corr = fast_exp2((m[mt][hh] - mx[hh]) * scale_log2);
+      m[mt][hh] = mx[hh];
+      ms[hh] = mx[hh] * scale_log2;
+      l[mt][hh] *= corr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        oacc[mt][n][2 * hh] *= corr;
+        oacc[mt][n][2 * hh + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kKeyTiles; ++n) {
+      const float p0 = fast_exp2(fmaf(s[mt][n][0], scale_log2, -ms[0]));
+      const float p1 = fast_exp2(fmaf(s[mt][n][1], scale_log2, -ms[0]));
+      const float p2 = fast_exp2(fmaf(s[mt][n][2], scale_log2, -ms[1]));
+      const float p3 = fast_exp2(fmaf(s[mt][n][3], scale_log2, -ms[1]));
+      l[mt][0] += p0 + p1;  // l from the unrounded p
+      l[mt][1] += p2 + p3;
+      pf[mt][n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pf[mt][n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+  };
+
+  // O (16 x dh a row tile) += P (16 x 64) . V tile, for every row tile
+  auto pv = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < (NT + 1) / 2; ++np) {  // tiles 2np, 2np + 1
+        if (2 * np < nt_out) {
+          // for an odd dh / 8 the last pair's second tile lies in the
+          // zeroed pad (dh + 8 <= DP) and is not used
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                     S::LD +
+                                np * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(oacc[mt][2 * np], pf[mt][kk], bv[0], bv[1]);
+            if (2 * np + 1 < NT && 2 * np + 1 < nt_out)
+              mma_bf16(oacc[mt][(2 * np + 1) % NT], pf[mt][kk], bv[2],
+                       bv[3]);
+          }
+        }
+      }
+    }
+  };
+
+  const int ntiles = (Skv + kMmaKV - 1) / kMmaKV;
+  for (j = 0; j < ntiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < ntiles) load_kv((j + 1) * kMmaKV, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) have landed for this thread
+    __syncthreads();     // ... and for every thread
+    if constexpr (S::QREG) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < S::KSTEPS; ++kk) ldsm_x4(qf[kk], qa + kk * 16);
+      }
+    }
+    kt = ks + stage * kMmaKV * S::LD;
+    vt = vs + stage * kMmaKV * S::LD;
+    scores();
+    softmax(std::integral_constant<int, 0>{});
+    if constexpr (MT == 2) softmax(std::integral_constant<int, 1>{});
+    pv();
+    __syncthreads();  // this stage is free for tile j + 2's loads
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float sum = l[mt][hh];
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float inv = 1.f / sum;
+      const int r = q0 + (warp * MT + mt) * 16 + g + 8 * hh;
+      if (r >= Sq) continue;
+      bf16* op = o + ((long)b * Sq + r) * row + (long)h * dh + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < nt_out)
+          *reinterpret_cast<uint32_t*>(op + n * 8) = pack_bf16(
+              oacc[mt][n][2 * hh] * inv, oacc[mt][n][2 * hh + 1] * inv);
+      }
+    }
   }
 }
 
-template <int DP>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Sq, int Skv, int dh, float scale,
-                      cudaStream_t stream) {
-  using S = TcAttnShape<DP>;
-  cudaError_t err = allow_smem(attention_tc_kernel<DP>, S::BYTES);
+template <int DP, int NT, int BQ>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int Sq, int Skv, int dh, float scale,
+                       int smem, cudaStream_t stream) {
+  using S = MmaShape<DP, NT, BQ>;
+  if (smem != S::BYTES || dh > 8 * NT) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(attention_mma_kernel<DP, NT, BQ>, S::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kTcBQ - 1) / kTcBQ, B * H);
-  attention_tc_kernel<DP><<<grid, kTcThreads, S::BYTES, stream>>>(
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  attention_mma_kernel<DP, NT, BQ><<<grid, S::THREADS, S::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Sq, Skv, dh,
-      scale);
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// dh a multiple of 8 (16-byte rows), padded up to the next instantiated
-// width: 40 -> 48, 80, 104 -> 112, 160, 256.
-cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int Sq, int Skv, int dh, float scale,
-                        cudaStream_t s) {
+// The (DP, NT, BQ) triples that flash.py::_plan chooses from.
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int Sq, int Skv, int dh, float scale,
+                         int dp, int nt, int bq, int smem, cudaStream_t s) {
   if (dh % 8 != 0) return cudaErrorInvalidValue;
-  if (dh <= 48) return launch_tc<48>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 80) return launch_tc<80>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 112)
-    return launch_tc<112>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 160)
-    return launch_tc<160>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 256)
-    return launch_tc<256>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+#define RCDMS_MMA_CASE(DP, NT, BQ)                                       \
+  if (dp == DP && nt == NT && bq == BQ)                                  \
+    return launch_mma<DP, NT, BQ>(q, k, v, o, B, H, Sq, Skv, dh, scale,  \
+                                  smem, s);
+  RCDMS_MMA_CASE(48, 5, 128)
+  RCDMS_MMA_CASE(48, 6, 128)
+  RCDMS_MMA_CASE(64, 8, 128)
+  RCDMS_MMA_CASE(80, 10, 128)
+  RCDMS_MMA_CASE(112, 13, 128)
+  RCDMS_MMA_CASE(112, 14, 128)
+  RCDMS_MMA_CASE(128, 16, 128)
+  RCDMS_MMA_CASE(160, 20, 64)
+  RCDMS_MMA_CASE(256, 32, 64)
+#undef RCDMS_MMA_CASE
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int Sq, int Skv, int dh, float scale,
-                     cudaStream_t s) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 40) return launch<T, 40>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
-  if (dh <= 80) return launch<T, 80>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int Sq, int Skv, int dh, float scale,
+                         cudaStream_t s) {
+  if (dh <= 32)
+    return launch<float, 32>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+  if (dh <= 40)
+    return launch<float, 40>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+  if (dh <= 64)
+    return launch<float, 64>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+  if (dh <= 80)
+    return launch<float, 80>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   if (dh <= 104)
-    return launch<T, 104>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+    return launch<float, 104>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+    return launch<float, 128>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   if (dh <= 160)
-    return launch<T, 160>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+    return launch<float, 160>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   if (dh <= 256)
-    return launch<T, 256>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+    return launch<float, 256>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -383,23 +551,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace rcdms
 
 // q: (B, Sq, H*dh); k, v: (B, Skv, H*dh); o: (B, Sq, H*dh); all contiguous.
-// tensor: 1 for the tensor-core kernel (bf16 only; dh a multiple of 8,
-// q / k / v 16-byte aligned), 0 for the CUDA-core one.
-extern "C" int rcdms_attention_fwd(int dtype, int tensor, const void* q,
-                                   const void* k, const void* v, void* o,
-                                   int B, int H, int Sq, int Skv, int dh,
-                                   float scale, void* stream) {
+// fp32 runs the CUDA-core kernel. bf16 runs the mma.sync kernel with the
+// launch plan of flash.py::_plan: the contraction width dp, the output
+// tiles nt, queries a block bq, and its shared-memory bytes, which must be
+// what the kernel lays out (dh a multiple of 8, q / k / v 16-byte aligned).
+extern "C" int rcdms_attention_fwd(int dtype, const void* q, const void* k,
+                                   const void* v, void* o, int B, int H,
+                                   int Sq, int Skv, int dh, float scale,
+                                   int dp, int nt, int bq, int smem,
+                                   void* stream) {
   using namespace rcdms;
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || dh <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor)
-    return dtype == kBFloat16
-               ? dispatch_tc(q, k, v, o, B, H, Sq, Skv, dh, scale, s)
-               : cudaErrorInvalidValue;
-  if (dtype == kFloat32)
-    return dispatch<float>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
+    return dispatch_mma(q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq,
+                        smem, s);
+  if (dtype == kFloat32)
+    return dispatch_f32(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   return cudaErrorInvalidValue;
 }

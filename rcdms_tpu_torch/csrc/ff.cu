@@ -1,5 +1,5 @@
-// Kernels C and D: the fused transformer feed-forward, one templated
-// source for both activations.
+// Kernels C and D: the transformer feed-forward, one source for both
+// activations.
 //
 //   C (GEGLU): y = (x W1h^T + b1h) * gelu(x W1g^T + b1g) W2^T + b2
 //   D (GELU):  y = gelu(x W1^T + b1) W2^T + b2
@@ -9,54 +9,61 @@
 // second), w2 is (c, inner).
 //
 // Replaces rcdms_tpu/ops/geglu.py::_ff_kernel (C) and ::_ff_gelu_kernel
-// (D). Like them, it never writes the (rows, inner) intermediate to device
-// memory: a block computes an intermediate tile of BM rows x 64 inner
-// columns in shared memory, applies the activation, and at once
-// accumulates that tile's share of the second product into registers. Rows
-// need no padding: the ragged tail (the prior's 970 rows) is masked.
+// (D). The TPU kernels never write the (rows, inner) intermediate to HBM:
+// VMEM holds a whole row block's intermediate, and HBM writes are what a
+// TPU kernel avoids. On the H100 that rule costs more than it saves. A
+// block's accumulators for all c output columns do not fit an SM (512 KB
+// of fp32 at c = 2048 and 64 rows), so a fused kernel must either re-read
+// W1 for every small row block or recompute the up-projection for every
+// column block. And every FF of the story stays above the card's 295
+// flop/byte line even when its intermediate makes a round trip through
+// device memory (C at UNet level 0: 50.3 GFLOP against about 134 MB with
+// the 52 MB intermediate written and read back, about 375 flop/byte; D's
+// 16 MB intermediate stays in the 50 MB L2). So the products, at the bf16
+// tensor-core peak, bound C and D.
 //
-// What bounds it on the H100: an fp32 accumulator for all c output
-// columns of 64 rows at c = 2048 is 512 KB, far above the 227 KB of shared
-// memory, let alone registers. So a block owns a block of output columns,
-// and a wide c is split over column blocks that each recompute the
-// intermediate (more up-projection flops, no intermediate in memory). Two
-// kernels:
-//   * CUDA cores (fp32, and bf16 shapes the tensor-core kernel does not
-//     take): 32 rows x 320 output columns a block, fp32 FMA staged through
-//     shared memory; bound by the FMA rate and shared-memory reads.
-//   * tensor cores (bf16; c and inner multiples of 8, 16-byte aligned x,
-//     w1, w2: every FF of the main path): WMMA 16x16x16 bf16 products with
-//     fp32 accumulators. A block of 8 warps holds 32 rows x BN = 128 * NC
-//     output columns (512 or 640) in accumulator fragments, so a c of 320
-//     or 640 needs one column block, 1280 two and 2048 four. Per 64-wide
-//     inner chunk: H (32 x 64, and the gate) = x . W1 chunk^T over c in
-//     64-deep stages, then bias + activation into a bf16 tile, then
-//     acc += tile . W2 chunk^T. Every tile reaches shared memory by
-//     cp.async two pipeline items ahead of its use. Each block reads all
-//     of W1 for only 32 rows (W1 crosses L2 rows / 32 x column blocks
-//     times), and a larger row block needs more accumulator registers
-//     than a thread has; on the H100 it is slower than the two cuBLAS
-//     products of the plain version (PERF.md). TMA, wgmma and a cluster
-//     sharing each W1 tile are later work.
+// Two kernels compute it:
+//   * CUDA cores (fp32): the fused form, 32 rows x 320 output columns a
+//     block, the intermediate tile in shared memory, fp32 FMA; bound by
+//     the FMA rate and shared-memory reads.
+//   * tensor cores (bf16; c and inner multiples of 8, x / w1 / w2 16-byte
+//     aligned: every FF of the main path): two passes of one GEMM kernel,
+//     Y = epilogue(X W^T) with X (M, K) and W (N, K), which the wrapper
+//     (rcdms_tpu_torch/ops/geglu.py) launches twice:
+//       pass 1  A = act(x W1^T + b1) into a bf16 (rows, inner) buffer;
+//               for GEGLU a block loads the hidden rows [n0, n0+BN) and
+//               the gate rows [inner+n0, ...) of W1 into two accumulators;
+//       pass 2  y = A W2^T + b2.
+//     The kernel is Hopper's: a block of 128 rows x BN columns (BN a
+//     multiple of 8 up to 256, chosen per call by geglu.py::_plan), one
+//     producer warp that keeps TMA loads of X and W tiles (64 deep in K,
+//     one 128-byte swizzled row of bf16) in flight in a four-stage ring
+//     against mbarriers, and two consumer warpgroups of 64 rows each that
+//     run wgmma.mma_async m64nBNk16 on the tiles that have arrived, fp32
+//     accumulators in registers. TMA zero-fills the ragged row tail (the
+//     prior's 970 rows) and any K tail on load; the epilogue masks rows
+//     and columns on store, so no operand is padded. No block re-reads W1
+//     for a small row block and none recomputes the up-projection.
 //
-// The intermediate is rounded to the input type before the second
-// product, as the plain version's is.
-#include <mma.h>
-#include <type_traits>
+// Rounding, as the plain version's: pass 1 rounds h + b and g + b to
+// bf16, then gelu(g), then the product (GELU: h + b, then gelu(h)); the
+// intermediate is bf16; pass 2 rounds y + b2 once.
+#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
+                   // fetched at run time (no -lcuda)
 
 #include "common.cuh"
 
 namespace rcdms {
 namespace {
 
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+}
+
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kBI = 64;        // inner columns per intermediate tile
 constexpr int kBK = 32;        // c-depth per stage of the first product
 constexpr int kBK2 = 16;       // inner-depth per stage of the second
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
 
 template <int TM, int TN, bool GEGLU>
 struct FFShape {
@@ -215,294 +222,482 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
   return cudaGetLastError();
 }
 
-// ---- the bf16 tensor-core kernel ----------------------------------------
 
-namespace wmma = nvcuda::wmma;
+// ---- the bf16 tensor-core GEMM (TMA + wgmma, warp-specialised) ---------
+
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcBM = 32;       // rows per block (2 fragment rows)
-constexpr int kTcBI = 64;       // inner columns per chunk
-constexpr int kTcBK = 64;       // c-depth per stage of the first product
-constexpr int kTcLd = 64 + 8;   // bf16 row of an x / W1 / activation tile
-constexpr int kTcLdH = 64 + 4;  // fp32 row of the staged H (and gate) tile
-constexpr int kTcLdW2 = 32 + 8; // bf16 row of a W2 half-chunk (32 deep)
+constexpr int kGemmBM = 128;     // rows a block: two consumer warpgroups
+constexpr int kGemmBK = 64;      // K a stage: one 128-byte row of bf16
+constexpr int kGemmStages = 4;   // depth of the TMA ring
+constexpr int kGemmThreads = 288;  // 2 consumer warpgroups + 1 producer warp
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+enum Epilogue : int { kBias = 0, kGelu = 1, kGeglu = 2 };
 
-// Byte offsets into shared memory, each 128-byte aligned (WMMA needs
-// 32-byte aligned fragment pointers): a ring of three x + W1 stages, the
-// fp32 H and gate tiles, the bf16 activation tile and the two W2 halves of
-// a chunk. The final per-warp output scratch reuses the stage ring.
-template <int NC, bool GEGLU>
-struct TcShape {
-  static constexpr int BN = 128 * NC;
-  static constexpr int XS = kTcBM * kTcLd * 2;             // x stage tile
-  static constexpr int WS = kTcBI * kTcLd * 2;             // a W1 stage tile
-  static constexpr int STAGE = XS + WS * (GEGLU ? 2 : 1);  // x, W1h[, W1g]
-  static constexpr int HF = 3 * STAGE;
-  static constexpr int GF = HF + kTcBM * kTcLdH * 4;
-  static constexpr int AS = GF + (GEGLU ? kTcBM * kTcLdH * 4 : 0);
-  static constexpr int W2 = AS + kTcBM * kTcLd * 2;
-  static constexpr int W2_HALF = BN * kTcLdW2 * 2;
-  static constexpr int BYTES = W2 + 2 * W2_HALF;
-  static_assert(8 * 16 * 16 * 4 <= 3 * STAGE, "per-warp output scratch");
+// Shared memory: a ring of kGemmStages stages, each an X tile (128 x 64)
+// and one W tile (BN x 64), two for GEGLU (hidden, gate), every tile in
+// TMA's 128-byte swizzle and 1024-byte aligned; then the full and empty
+// mbarriers of each stage; plus 1024 bytes to align the ring. Must agree
+// with rcdms_tpu_torch/ops/geglu.py::_gemm_plan.
+template <int BN, int MODE>
+struct GemmShape {
+  static constexpr int NW = MODE == kGeglu ? 2 : 1;
+  static constexpr int X_BYTES = kGemmBM * kGemmBK * 2;
+  static constexpr int W_BYTES = BN * kGemmBK * 2;
+  static constexpr int STAGE = X_BYTES + NW * W_BYTES;
+  static constexpr int BARS = kGemmStages * STAGE;
+  static constexpr int BYTES = BARS + 2 * kGemmStages * 8 + 1024;
+  static constexpr int ACC = BN / 2;  // fp32 accumulators a thread, per W
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma takes n = 8 ... 256");
+  static_assert(W_BYTES % 1024 == 0, "tiles stay 1024-byte aligned");
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// The block walks one sequence of pipeline items: per 64-wide inner chunk,
-// nk = ceil(c / 64) stages of the first product and then the two 32-deep
-// halves of the second. While item t computes, the loads of item t + 2 are
-// in flight (cp.async), so each load has two items' time to land.
-template <int NC, bool GEGLU>
-__global__ void __launch_bounds__(kThreads)
-    ff_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ y, int rows,
-                 int c, int inner) {
-  using S = TcShape<NC, GEGLU>;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  float* hf = reinterpret_cast<float*>(tc_smem + S::HF);  // [32][kTcLdH]
-  float* gf = reinterpret_cast<float*>(tc_smem + S::GF);  // [32][kTcLdH]
-  bf16* as = reinterpret_cast<bf16*>(tc_smem + S::AS);    // [32][kTcLd]
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = blockIdx.x * kTcBM;
-  const int col0 = blockIdx.y * S::BN;
-  // first product: this warp's 16 x 16 piece of the 32 x 64 H tile
-  const int hr = warp / 4, hc = warp % 4;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  const int nk = (c + kTcBK - 1) / kTcBK;
-  const int per_chunk = nk + 2;
-  const int n_items = (inner + kTcBI - 1) / kTcBI * per_chunk;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 
-  // stage s of the ring: x [32][kTcLd], W1h [64][kTcLd], W1g [64][kTcLd]
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(tc_smem + (s % 3) * S::STAGE);
-  };
-  auto w2_half = [&](int half) {
-    return reinterpret_cast<bf16*>(tc_smem + S::W2 + half * S::W2_HALF);
-  };
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-  // issue the loads of item t (nothing past the end)
-  auto issue = [&](int t) {
-    if (t >= n_items) return;
-    const int i0 = t / per_chunk * kTcBI, j = t % per_chunk;
-    if (j < nk) {
-      bf16* xs = stage(t / per_chunk * nk + j);
-      bf16* wh = xs + kTcBM * kTcLd;
-      bf16* wg = wh + kTcBI * kTcLd;
-      const int k0 = j * kTcBK;
-      {
-        const int r = tid / 8, v = (tid % 8) * 8;
-        const bool ok = row0 + r < rows && k0 + v < c;
-        cp_async16(xs + r * kTcLd + v,
-                   ok ? x + (long)(row0 + r) * c + k0 + v : x, ok);
-      }
-      for (int idx = tid; idx < kTcBI * 8; idx += kThreads) {
-        const int n = idx / 8, v = (idx % 8) * 8;
-        const bool ok = i0 + n < inner && k0 + v < c;
-        const long off = ok ? (long)(i0 + n) * c + k0 + v : 0;
-        cp_async16(wh + n * kTcLd + v, w1 + off, ok);
-        if (GEGLU)
-          cp_async16(wg + n * kTcLd + v, w1 + (long)inner * c + off, ok);
-      }
-    } else {
-      bf16* w2s = w2_half(j - nk);
-      for (int idx = tid; idx < S::BN * 4; idx += kThreads) {
-        const int n = idx / 4, v = (idx % 4) * 8;
-        const int gi = i0 + (j - nk) * 32 + v;
-        const bool ok = col0 + n < c && gi < inner;
-        cp_async16(w2s + n * kTcLdW2 + v,
-                   ok ? w2 + (long)(col0 + n) * inner + gi : w2, ok);
-      }
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 = column, c1 = row) of `map` into shared memory at
+// `dst`, completing bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile in the
+// 128-byte swizzle: start address >> 4, stride between 8-row groups 1024
+// bytes (SBO 64), leading offset unused for this layout (1), layout 1 at
+// bits 62-63. A k16 step inside the 128-byte row adds 32 bytes (2) to
+// the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)64 << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from touching accumulators across an async product.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, this thread's N / 2) += A (64 x 16) . B (N x 16)^T, both
+// operands K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<160>(float (&d)[80], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// One block: rows [m0, m0 + 128) x columns [n0, n0 + BN) of Y (M x N).
+// Warps 0-7 are two consumer warpgroups (rows m0 + 64 wg ...), warp 8 the
+// producer. The ring's stage s is filled when full[s] completes (TMA
+// bytes) and free when empty[s] completes (one arrival per consumer
+// warp). Accumulator layout of m64nNk16, per warp w of a warpgroup
+// (g = lane / 4, t = lane % 4): d[4i], d[4i+1] at row 16w + g, columns
+// 8i + 2t, +1; d[4i+2], d[4i+3] at row 16w + g + 8.
+template <int BN, int MODE>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    ff_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                const bf16* __restrict__ bias, bf16* __restrict__ y, int M,
+                int N, int K) {
+  using S = GemmShape<BN, MODE>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t raw = smem_addr(gemm_smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + S::BARS;       // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kGemmStages;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * kGemmBM;
+  const int nk = (K + kGemmBK - 1) / kGemmBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-  };
-
-  FragC acc[2][NC];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) wmma::fill_fragment(acc[r][j], 0.f);
-  FragC h_acc, g_acc;
-
-  issue(0);
-  cp_async_commit();
-  issue(1);
-  cp_async_commit();
-  for (int t = 0; t < n_items; ++t) {
-    issue(t + 2);
-    cp_async_commit();
-    cp_async_wait<2>();  // item t's group has landed
-    __syncthreads();     // ... for every thread's copies
-    const int i0 = t / per_chunk * kTcBI, j = t % per_chunk;
-    if (j < nk) {
-      // ---- H (32 x 64) += x stage . W1 stage^T, and the gate ------------
-      const bf16* xs = stage(t / per_chunk * nk + j);
-      const bf16* wh = xs + kTcBM * kTcLd;
-      const bf16* wg = wh + kTcBI * kTcLd;
-      if (j == 0) {
-        wmma::fill_fragment(h_acc, 0.f);
-        wmma::fill_fragment(g_acc, 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kTcBK; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, xs + hr * 16 * kTcLd + kk, kTcLd);
-        wmma::load_matrix_sync(b, wh + hc * 16 * kTcLd + kk, kTcLd);
-        wmma::mma_sync(h_acc, a, b, h_acc);
-        if (GEGLU) {
-          wmma::load_matrix_sync(b, wg + hc * 16 * kTcLd + kk, kTcLd);
-          wmma::mma_sync(g_acc, a, b, g_acc);
-        }
-      }
-      if (j == nk - 1) {
-        // ---- bias + activation into the bf16 tile, rounded like plain --
-        wmma::store_matrix_sync(hf + hr * 16 * kTcLdH + hc * 16, h_acc,
-                                kTcLdH, wmma::mem_row_major);
-        if (GEGLU)
-          wmma::store_matrix_sync(gf + hr * 16 * kTcLdH + hc * 16, g_acc,
-                                  kTcLdH, wmma::mem_row_major);
-        __syncthreads();
-        for (int e = tid; e < kTcBM * kTcBI; e += kThreads) {
-          const int r = e / kTcBI, i = e % kTcBI;
-          const int gi = i0 + i;
-          float a = 0.f;
-          if (gi < inner) {
-            const float hv = to_float(
-                from_float<bf16>(hf[r * kTcLdH + i] + to_float(b1[gi])));
-            if (GEGLU) {
-              const float gv = to_float(from_float<bf16>(
-                  gf[r * kTcLdH + i] + to_float(b1[inner + gi])));
-              a = hv * to_float(from_float<bf16>(gelu_erf(gv)));
-            } else {
-              a = gelu_erf(hv);
-            }
-          }
-          as[r * kTcLd + i] = from_float<bf16>(a);
-        }
-      }
-    } else {
-      // ---- acc (32 x BN) += tile half (32 x 32) . W2 half^T -------------
-      const int half = j - nk;
-      const bf16* w2s = w2_half(half);
-#pragma unroll
-      for (int kk = 0; kk < 32; kk += 16) {
-        FragA a0, a1;
-        wmma::load_matrix_sync(a0, as + half * 32 + kk, kTcLd);
-        wmma::load_matrix_sync(a1, as + 16 * kTcLd + half * 32 + kk, kTcLd);
-#pragma unroll
-        for (int jj = 0; jj < NC; ++jj) {
-          const int cf = warp + 8 * jj;  // this warp's column fragments
-          if (col0 + cf * 16 < c) {
-            FragB b;
-            wmma::load_matrix_sync(b, w2s + cf * 16 * kTcLdW2 + kk, kTcLdW2);
-            wmma::mma_sync(acc[0][jj], a0, b, acc[0][jj]);
-            wmma::mma_sync(acc[1][jj], a1, b, acc[1][jj]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // item t's buffers are free for item t + 3's loads
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // ---- + b2, masked store through a per-warp 16 x 16 fp32 scratch -------
-  __syncthreads();  // the stage ring is free for the scratch
-  float* scratch = reinterpret_cast<float*>(tc_smem) + warp * 256;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int jj = 0; jj < NC; ++jj) {
-      const int cf = warp + 8 * jj;
-      if (col0 + cf * 16 >= c) continue;
-      wmma::store_matrix_sync(scratch, acc[r][jj], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gr = row0 + r * 16 + e / 16;
-        const int gcol = col0 + cf * 16 + e % 16;
-        if (gr < rows && gcol < c)
-          y[(long)gr * c + gcol] =
-              from_float<bf16>(scratch[e] + to_float(b2[gcol]));
+  if (warp == 8) {  // ---- producer ---------------------------------------
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kGemmStages;
+        mbar_wait(empty + 8 * s, ((i / kGemmStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, S::STAGE);
+        const uint32_t st = ring + s * S::STAGE;
+        tma_load(st, &xmap, i * kGemmBK, m0, full + 8 * s);
+        tma_load(st + S::X_BYTES, &wmap, i * kGemmBK, n0, full + 8 * s);
+        if (MODE == kGeglu)
+          tma_load(st + S::X_BYTES + S::W_BYTES, &wmap, i * kGemmBK, N + n0,
+                   full + 8 * s);
       }
-      __syncwarp();
+    }
+    return;
+  }
+
+  // ---- consumers ----------------------------------------------------------
+  const int wg = warp / 4;
+  float acc[S::ACC];
+  float gacc[MODE == kGeglu ? S::ACC : 1];
+#pragma unroll
+  for (int i = 0; i < S::ACC; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (MODE == kGeglu ? S::ACC : 1); ++i) gacc[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kGemmStages;
+    mbar_wait(full + 8 * s, (i / kGemmStages) & 1);
+    const uint32_t st = ring + s * S::STAGE;
+    const uint64_t da = sw128_desc(st + wg * 64 * 128);
+    const uint64_t dw = sw128_desc(st + S::X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+      wgmma<BN>(acc, da + 2 * kk, dw + 2 * kk);
+      if constexpr (MODE == kGeglu)
+        wgmma<BN>(gacc, da + 2 * kk, sw128_desc(st + S::X_BYTES +
+                                                S::W_BYTES) + 2 * kk);
+    }
+    wgmma_commit();
+    if (i > 0) {  // the previous stage's products are done: free it
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % kGemmStages));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(gacc);
+
+  // ---- epilogue: bias, activation, bf16 pairs straight to device memory --
+  const int r_lo = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int col = n0 + 8 * i + 2 * (lane % 4);
+    if (col >= N) continue;  // N is even, so col + 1 < N as well
+    const float b0 = __bfloat162float(bias[col]);
+    const float b1 = __bfloat162float(bias[col + 1]);
+    float g0 = 0.f, g1 = 0.f;
+    if constexpr (MODE == kGeglu) {
+      g0 = __bfloat162float(bias[N + col]);
+      g1 = __bfloat162float(bias[N + col + 1]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_lo + 8 * half;
+      if (r >= M) continue;
+      float v0 = acc[4 * i + 2 * half] + b0;
+      float v1 = acc[4 * i + 2 * half + 1] + b1;
+      if constexpr (MODE == kGelu) {
+        v0 = gelu_erf(round_bf16(v0));
+        v1 = gelu_erf(round_bf16(v1));
+      } else if constexpr (MODE == kGeglu) {
+        const float h0 = round_bf16(v0), h1 = round_bf16(v1);
+        const float q0 = round_bf16(gacc[4 * i + 2 * half] + g0);
+        const float q1 = round_bf16(gacc[4 * i + 2 * half + 1] + g1);
+        v0 = h0 * round_bf16(gelu_erf(q0));
+        v1 = h1 * round_bf16(gelu_erf(q1));
+      }
+      __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(y + (long)r * N + col) = out;
     }
   }
 }
 
-template <int NC, bool GEGLU>
-cudaError_t launch_tc(const void* x, const void* w1, const void* b1,
-                      const void* w2, const void* b2, void* y, int rows,
-                      int c, int inner, cudaStream_t stream) {
-  using S = TcShape<NC, GEGLU>;
-  cudaError_t err = allow_smem(ff_tc_kernel<NC, GEGLU>, S::BYTES);
+// cuTensorMapEncodeTiled, taken from the driver at run time.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) bf16 matrix, read in boxes of
+// 64 columns x box_rows rows in the 128-byte swizzle; reads outside the
+// matrix return zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                     int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kGemmBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, int MODE>
+cudaError_t launch_gemm(const void* x, const void* w, const void* bias,
+                        void* y, int M, int N, int K, int smem,
+                        cudaStream_t stream) {
+  using S = GemmShape<BN, MODE>;
+  if (smem != S::BYTES) return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = make_map(&xmap, x, M, K, kGemmBM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + kTcBM - 1) / kTcBM, (c + S::BN - 1) / S::BN);
-  ff_tc_kernel<NC, GEGLU><<<grid, kThreads, S::BYTES, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(y), rows, c, inner);
+  err = make_map(&wmap, w, MODE == kGeglu ? 2 * N : N, K, BN);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(ff_gemm_kernel<BN, MODE>, S::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + kGemmBM - 1) / kGemmBM);
+  ff_gemm_kernel<BN, MODE><<<grid, kGemmThreads, S::BYTES, stream>>>(
+      xmap, wmap, static_cast<const bf16*>(bias), static_cast<bf16*>(y), M,
+      N, K);
   return cudaGetLastError();
 }
 
-// The column block that needs the fewest blocks across c: 640 wide where
-// it tiles c (320, 640, 1280), else 512 (2048).
-template <bool GEGLU>
-cudaError_t by_width(const void* x, const void* w1, const void* b1,
-                     const void* w2, const void* b2, void* y, int rows, int c,
-                     int inner, cudaStream_t s) {
-  if (c % 8 != 0 || inner % 8 != 0) return cudaErrorInvalidValue;
-  if ((c + 639) / 640 < (c + 511) / 512)
-    return launch_tc<5, GEGLU>(x, w1, b1, w2, b2, y, rows, c, inner, s);
-  return launch_tc<4, GEGLU>(x, w1, b1, w2, b2, y, rows, c, inner, s);
-}
-
-template <typename T, bool GEGLU>
-cudaError_t by_kernel(int tensor, const void* x, const void* w1,
-                      const void* b1, const void* w2, const void* b2, void* y,
-                      int rows, int c, int inner, cudaStream_t s) {
-  if (!tensor)
-    return launch<T, 2, 20, GEGLU>(x, w1, b1, w2, b2, y, rows, c, inner, s);
-  if constexpr (std::is_same<T, bf16>::value)
-    return by_width<GEGLU>(x, w1, b1, w2, b2, y, rows, c, inner, s);
+// The (mode, BN) pairs that geglu.py::_gemm_plan chooses from.
+cudaError_t dispatch_gemm(int mode, int bn, const void* x, const void* w,
+                          const void* bias, void* y, int M, int N, int K,
+                          int smem, cudaStream_t s) {
+  if (N % 8 != 0 || K % 8 != 0) return cudaErrorInvalidValue;
+#define RCDMS_GEMM_CASE(MODE, BN)                                         \
+  if (mode == MODE && bn == BN)                                           \
+    return launch_gemm<BN, MODE>(x, w, bias, y, M, N, K, smem, s);
+  RCDMS_GEMM_CASE(kGeglu, 64)
+  RCDMS_GEMM_CASE(kGeglu, 128)
+  RCDMS_GEMM_CASE(kGelu, 128)
+  RCDMS_GEMM_CASE(kGelu, 256)
+  RCDMS_GEMM_CASE(kBias, 64)
+  RCDMS_GEMM_CASE(kBias, 128)
+  RCDMS_GEMM_CASE(kBias, 160)
+  RCDMS_GEMM_CASE(kBias, 256)
+#undef RCDMS_GEMM_CASE
   return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t dispatch(int geglu, int tensor, const void* x, const void* w1,
-                     const void* b1, const void* w2, const void* b2, void* y,
-                     int rows, int c, int inner, cudaStream_t s) {
-  if (geglu)
-    return by_kernel<T, true>(tensor, x, w1, b1, w2, b2, y, rows, c, inner,
-                              s);
-  return by_kernel<T, false>(tensor, x, w1, b1, w2, b2, y, rows, c, inner, s);
 }
 
 }  // namespace
 }  // namespace rcdms
 
-// x: (rows, c); w1: (up, c) with up = 2*inner (geglu) or inner; b1: (up,);
-// w2: (c, inner); b2: (c,); y: (rows, c). All contiguous, one dtype.
-// tensor: 1 for the tensor-core kernel (bf16 only; c and inner multiples
-// of 8, x / w1 / w2 16-byte aligned), 0 for the CUDA-core one.
-extern "C" int rcdms_ff_fwd(int dtype, int geglu, int tensor, const void* x,
-                            const void* w1, const void* b1, const void* w2,
-                            const void* b2, void* y, int rows, int c,
-                            int inner, void* stream) {
+// fp32, the fused CUDA-core kernel. x: (rows, c); w1: (up, c) with up =
+// 2*inner (geglu) or inner; b1: (up,); w2: (c, inner); b2: (c,); y:
+// (rows, c). All contiguous float32.
+extern "C" int rcdms_ff_fwd(int geglu, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            void* y, int rows, int c, int inner,
+                            void* stream) {
   using namespace rcdms;
   if (rows <= 0 || c <= 0 || inner <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch<float>(geglu, tensor, x, w1, b1, w2, b2, y, rows, c,
-                           inner, s);
-  if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(geglu, tensor, x, w1, b1, w2, b2, y, rows,
-                                   c, inner, s);
-  return cudaErrorInvalidValue;
+  if (geglu)
+    return launch<float, 2, 20, true>(x, w1, b1, w2, b2, y, rows, c, inner,
+                                      s);
+  return launch<float, 2, 20, false>(x, w1, b1, w2, b2, y, rows, c, inner, s);
+}
+
+// bf16, one pass of the tensor-core FF: y (M, N) = epilogue(x (M, K) .
+// w^T + bias) with mode 0 (bias), 1 (gelu) or 2 (geglu: w is (2N, K), the
+// hidden rows first, and bias (2N,)). bn and smem are the plan of
+// geglu.py::_gemm_plan; smem must be what the kernel lays out. x and w
+// 16-byte aligned (TMA), N and K multiples of 8.
+extern "C" int rcdms_ff_gemm(int mode, int bn, int smem, const void* x,
+                             const void* w, const void* bias, void* y, int M,
+                             int N, int K, void* stream) {
+  using namespace rcdms;
+  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  return dispatch_gemm(mode, bn, x, w, bias, y, M, N, K, smem,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -37,14 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # dtype, tensor, q, k, v, o, B, H, Sq, Skv, dh, scale, stream
-    "rcdms_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _P],
+    # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq, smem, stream
+    "rcdms_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                            _I, _I, _I, _P],
     # dtype, q, k, v, o, b, f, n, c, heads, scale, stream
     "rcdms_frame_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
-    # dtype, geglu, tensor, x, w1, b1, w2, b2, y, rows, c, inner, stream
-    "rcdms_ff_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # geglu, x, w1, b1, w2, b2, y, rows, c, inner, stream (fp32)
+    "rcdms_ff_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # mode, bn, smem, x, w, bias, y, M, N, K, stream (bf16)
+    "rcdms_ff_gemm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, tensor, shifts, x, w9, bias, mask, out, B, C, Cout, T, wp, stream
     "rcdms_cm_conv_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
@@ -72,7 +74,8 @@ class Built:
         self.lib = lib
         self.path = path
         self.seconds = seconds  # 0.0 when an earlier build was reused
-        self.log = log          # nvcc's output (ptxas register/smem report)
+        self.log = log          # nvcc's output (ptxas register/smem report),
+                                # kept beside the library for a reuse
 
 
 def _nvcc() -> str:
@@ -135,11 +138,15 @@ def library() -> Built:
     """Build (if needed) and load the kernel library; one per process."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"librcdms_kernels_{_digest()}.so"
-    seconds, log = 0.0, ""
+    log_path = target.with_suffix(".log")
+    seconds = 0.0
     if not target.exists():
         t0 = time.perf_counter()
         log = _compile(_nvcc(), target)
         seconds = time.perf_counter() - t0
+        log_path.write_text(log)
+    else:
+        log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -9,13 +9,14 @@ in the channel axis, exactly as the q/k/v projections emit them:
     q: (..., Sq, H*dh)   k, v: (..., Skv, H*dh)   ->   (..., Sq, H*dh)
 
 with identical leading dims. No padding: the kernel masks a ragged Skv
-(91 caption tokens) and any dh up to 256.
+(91 caption tokens).
 
 `flash_attention` dispatches on where its operands lie: on the CPU it runs
-`attention_plain`; on a CUDA device it launches the kernel or raises: the
-tensor-core kernel for bf16 with dh a multiple of 8 and 16-byte aligned
-operands (every site of the main path), the CUDA-core one otherwise.
-`flash_attention.launches` counts launches.
+`attention_plain`; on a CUDA device it launches a kernel or raises: bf16
+runs the `mma.sync` kernel with the launch plan of `_plan` (dh a multiple
+of 8 up to 256, 16-byte aligned operands: every site of the main path),
+fp32 the CUDA-core kernel (dh up to 256). `flash_attention.launches`
+counts launches.
 """
 
 from __future__ import annotations
@@ -27,6 +28,37 @@ import torch
 from rcdms_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 256
+KV_TILE = 64  # keys a K/V tile of the mma kernel
+# contraction widths the mma kernel is built for (dh padded up to one),
+# each with the output tile counts it is built for (dh / 8 rounded up)
+OUTPUT_TILES = {48: (5, 6), 64: (8,), 80: (10,), 112: (13, 14), 128: (16,),
+                160: (20,), 256: (32,)}
+
+
+def _plan(dh: int) -> dict:
+    """Launch plan of the bf16 `mma.sync` kernel for head dim dh: the
+    contraction width `dp` (dh padded to a multiple of 16, to the next
+    width the kernel is built for), the output's n8 tiles (`n_tiles`,
+    dh / 8 for every head dim of the main path: no pad on the output
+    side; else rounded up to a count the kernel is built for, the extra
+    tiles skipped), queries a block (`bq`: 128, or 64
+    from dp 160, where Q's fragments and the output accumulators fill the
+    registers), query rows a warp (`rows_per_warp`: two m16 tiles up to dp
+    64, so a K or V fragment serves both; one above) and threads a block,
+    and the block's shared memory
+    (`smem`: the Q tile and two stages of K and V tiles, rows dp + 8 bf16
+    long). Raises ValueError for a dh the kernel does not take."""
+    if dh <= 0 or dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the bf16 kernel takes a head dim "
+                         f"that is a multiple of 8 up to {MAX_HEAD_DIM}, "
+                         f"got {dh}")
+    dp = next(w for w in OUTPUT_TILES if w >= dh)
+    n_tiles = next(n for n in OUTPUT_TILES[dp] if 8 * n >= dh)
+    bq = 128 if dp <= 128 else 64
+    rows_per_warp = 32 if dp <= 64 else 16
+    smem = (bq + 4 * KV_TILE) * (dp + 8) * 2
+    return dict(dp=dp, n_tiles=n_tiles, bq=bq, rows_per_warp=rows_per_warp,
+                threads=32 * bq // rows_per_warp, smem=smem)
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -62,15 +94,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _build.cuda_operands("flash_attention", q, k, v)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
-    tensor = (q.dtype == torch.bfloat16 and dh % 8 == 0
-              and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    plan = dict(dp=0, n_tiles=0, bq=0, smem=0)
+    if q.dtype == torch.bfloat16:
+        plan = _plan(dh)
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: the bf16 kernel takes "
+                             "16-byte aligned q, k, v")
     sq, skv = q.shape[-2], k.shape[-2]
     batch = math.prod(q.shape[:-2])
     out = torch.empty_like(q)
     code = _build.library().lib.rcdms_attention_fwd(
-        dtype, int(tensor), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), batch, heads, sq, skv, dh, float(scale),
-        _build.stream(q))
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        batch, heads, sq, skv, dh, float(scale), plan["dp"],
+        plan["n_tiles"], plan["bq"], plan["smem"], _build.stream(q))
     _build.check(code, "rcdms_attention_fwd")
     flash_attention.launches += 1
     return out

@@ -1,5 +1,5 @@
-"""Kernels C and D: the fused transformer feed-forward — the port's
-counterparts of `rcdms_tpu/ops/geglu.py::geglu_ff` and `::gelu_ff`.
+"""Kernels C and D: the transformer feed-forward — the port's counterparts
+of `rcdms_tpu/ops/geglu.py::geglu_ff` and `::gelu_ff`.
 
     geglu_ff: y = (x W1h^T + b1h) * gelu(x W1g^T + b1g) W2^T + b2
     gelu_ff:  y = gelu(x W1^T + b1) W2^T + b2
@@ -7,14 +7,16 @@ counterparts of `rcdms_tpu/ops/geglu.py::geglu_ff` and `::gelu_ff`.
 Weights keep torch's Linear layout: w1 (up, c), b1 (up,), w2 (c, inner),
 b2 (c,), with up = 2*inner for geglu (hidden half first, gate half second,
 as diffusers' GEGLU splits it). The FF is pointwise over tokens, so all
-leading dims of x flatten into one row axis (a view); the kernel masks the
+leading dims of x flatten into one row axis (a view); the kernels take the
 ragged row tail, so the JAX package's `ff_flat` pad to 128 rows is gone.
 
 Each wrapper dispatches on where x lies: on the CPU it runs its plain
-version; on a CUDA device it launches `csrc/ff.cu` or raises: the
-tensor-core kernel for bf16 with c and inner multiples of 8 and 16-byte
-aligned x, w1, w2 (every FF of the main path), the CUDA-core one
-otherwise. `.launches` counts launches.
+version; on a CUDA device it launches `csrc/ff.cu` or raises. bf16 runs two
+passes of the TMA + `wgmma` GEMM kernel with the plan of `_plan` (c and
+inner multiples of 8, 16-byte aligned x, w1, w2: every FF of the main
+path): pass 1 writes the activated (rows, inner) intermediate, pass 2 the
+output. fp32 runs the fused CUDA-core kernel. `.launches` counts wrapper
+calls (one FF, whatever its passes).
 """
 
 from __future__ import annotations
@@ -23,6 +25,48 @@ import torch
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.ops import _build
+
+BM, BK, STAGES = 128, 64, 4  # rows a block, K a stage, depth of the ring
+SMS = 132                    # an H100 SXM's multiprocessors: one wave
+MODES = {"bias": 0, "gelu": 1, "geglu": 2}
+# column tiles the GEMM kernel is built for, per epilogue (per W half for
+# geglu, which holds two accumulators)
+TILE_WIDTHS = {"geglu": (128, 64), "gelu": (256, 128),
+               "bias": (256, 160, 128, 64)}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _gemm_plan(m: int, n: int, mode: str) -> dict:
+    """Plan of one GEMM pass, Y (m, n) = epilogue(X W^T): the column tile
+    `bn` that gives the fewest waves of blocks over the card, each wave
+    weighted by a block's width (its W tiles plus a constant for its X
+    tile), ties to the wider tile; the grid, the ring's `stages` and the
+    block's shared memory (`smem`: the ring of X and W tiles, the
+    stages' two mbarriers, 1024 bytes to align the ring)."""
+    nw = 2 if mode == "geglu" else 1
+    m_blocks = _cdiv(m, BM)
+
+    def cost(bn):
+        return _cdiv(m_blocks * _cdiv(n, bn), SMS) * (nw * bn + 64), -bn
+
+    bn = min(TILE_WIDTHS[mode], key=cost)
+    smem = STAGES * (BM * BK * 2 + nw * bn * BK * 2) + 2 * STAGES * 8 + 1024
+    return dict(mode=mode, bm=BM, bn=bn, stages=STAGES, smem=smem,
+                grid=(_cdiv(n, bn), m_blocks))
+
+
+def _plan(rows: int, c: int, inner: int, geglu: bool) -> dict:
+    """Launch plan of the bf16 FF: pass 1 (x -> the activated intermediate
+    of shape `intermediate`) and pass 2 (-> y). Raises ValueError for a
+    shape the kernel does not take."""
+    if rows <= 0 or c <= 0 or inner <= 0 or c % 8 or inner % 8:
+        raise ValueError(f"the bf16 FF kernel takes c and inner multiples "
+                         f"of 8, got rows {rows}, c {c}, inner {inner}")
+    return dict(pass1=_gemm_plan(rows, inner, "geglu" if geglu else "gelu"),
+                pass2=_gemm_plan(rows, c, "bias"), intermediate=(rows, inner))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +85,13 @@ def gelu_ff_plain(x, w1, b1, w2, b2):
     return F.linear(_gelu(F.linear(x, w1, b1)), w2, b2)
 
 
+def _gemm(p: dict, x, w, bias, y, m: int, n: int, k: int) -> None:
+    code = _build.library().lib.rcdms_ff_gemm(
+        MODES[p["mode"]], p["bn"], p["smem"], x.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), m, n, k, _build.stream(x))
+    _build.check(code, "rcdms_ff_gemm")
+
+
 def _ff(name: str, geglu: bool, x, w1, b1, w2, b2):
     c = x.shape[-1]
     inner = w2.shape[-1]
@@ -50,21 +101,28 @@ def _ff(name: str, geglu: bool, x, w1, b1, w2, b2):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
                          f"b2 {tuple(b2.shape)}")
-    dtype = _build.cuda_operands(name, x, w1, b1, w2, b2)
-    tensor = (x.dtype == torch.bfloat16 and c % 8 == 0 and inner % 8 == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x, w1, w2)))
+    _build.cuda_operands(name, x, w1, b1, w2, b2)
     rows = x.numel() // c
     out = torch.empty_like(x)
-    code = _build.library().lib.rcdms_ff_fwd(
-        dtype, int(geglu), int(tensor), x.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, c,
-        inner, _build.stream(x))
-    _build.check(code, "rcdms_ff_fwd")
+    if x.dtype == torch.float32:
+        code = _build.library().lib.rcdms_ff_fwd(
+            int(geglu), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, c, inner,
+            _build.stream(x))
+        _build.check(code, "rcdms_ff_fwd")
+        return out
+    plan = _plan(rows, c, inner, geglu)
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError(f"{name}: the bf16 kernel takes 16-byte aligned x, "
+                         f"w1, w2")
+    act = torch.empty(plan["intermediate"], device=x.device, dtype=x.dtype)
+    _gemm(plan["pass1"], x, w1, b1, act, rows, inner, c)
+    _gemm(plan["pass2"], act, w2, b2, out, rows, c, inner)
     return out
 
 
 def geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Fused GEGLU feed-forward over x (..., c)."""
+    """GEGLU feed-forward over x (..., c)."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w1, b1, w2, b2)
     out = _ff("geglu_ff", True, x, w1, b1, w2, b2)
@@ -73,7 +131,7 @@ def geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def gelu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Fused GELU feed-forward over x (..., c)."""
+    """GELU feed-forward over x (..., c)."""
     if x.device.type == "cpu":
         return gelu_ff_plain(x, w1, b1, w2, b2)
     out = _ff("gelu_ff", False, x, w1, b1, w2, b2)

@@ -6,7 +6,8 @@ kernel with the CUDA toolkit's `cuobjdump`:
 
 One line per kernel whose mangled name holds one of the substrings (every
 kernel when none is given): MUFU.EX2 (the special-function unit's
-exponential), FMUL, FFMA, FADD, HMMA (tensor-core products) and all
+exponential), FMUL, FFMA, FADD, HMMA (warp-level tensor-core products:
+mma.sync and WMMA), HGMMA (warpgroup products: wgmma) and all
 instructions. The counts are of the compiled code, not of executed
 instructions: they show which instructions a source line became, e.g.
 that `__expf(x)` and `exp2f(x * log2 e)` both become one FMUL and one
@@ -24,7 +25,7 @@ from pathlib import Path
 
 from rcdms_tpu_torch.ops import _build
 
-OPCODES = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "HMMA")
+OPCODES = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "HMMA", "HGMMA")
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTRUCTION = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")

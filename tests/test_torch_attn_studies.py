@@ -416,6 +416,9 @@ _SASS = """
         Function : _Z3mmav
         /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0010*/                   MUFU.RCP R2, R3 ;
+        Function : _Z5wgmmav
+        /*0000*/                   WARPGROUP.ARRIVE ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
 """
 
 
@@ -424,3 +427,4 @@ def test_sass_mix_counts_opcodes():
     assert mix["_Z3expv"] == {"FADD": 1, "FMUL": 1, "MUFU.EX2": 1,
                               "FFMA": 1, "total": 5}
     assert mix["_Z3mmav"] == {"HMMA": 1, "total": 2}
+    assert mix["_Z5wgmmav"] == {"HGMMA": 1, "total": 2}

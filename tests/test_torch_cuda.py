@@ -7,11 +7,12 @@ no JAX (the repository's conftest.py configures JAX, hence --noconftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m gpu
 
 Tolerance: max|kernel - plain| / max|plain| <= 1e-4 in fp32 (TF32 off: the
-two differ in summation order only) and 2e-2 in bf16 (the kernels round
-the attention probabilities and the FF intermediate to bf16 where the
-plain versions keep other roundings; the conv and GroupNorm kernels round
-once, as their plain versions do; the small-head-dim kernels E-H take bf16
-only and round where their plain versions round)."""
+two differ in summation order only) and 2e-2 in bf16 (kernel A rounds the
+attention probabilities to bf16 where its plain version keeps them in
+fp32; the FF kernels round where their plain versions round, and sum in
+another order; the conv and GroupNorm kernels round once, as their plain
+versions do; the small-head-dim kernels E-H take bf16 only and round where
+their plain versions round)."""
 
 import pytest
 import torch
@@ -76,16 +77,17 @@ def test_cuda_kernels_match_plain(cuda, dtype):
 
     ops.reset_launch_counts()
     q, k, v = r(3, 200, 80), r(3, 91, 80), r(3, 91, 80)
-    # dh 40: the tensor-core kernel in bf16; dh 20: the CUDA-core one
-    for heads in (2, 4):
+    # bf16 runs the mma kernel (dh 80 and 40), fp32 the CUDA-core one
+    for heads in (1, 2) if dtype == torch.bfloat16 else (2, 4):
         dh = 80 // heads
         assert _rel(flash_attention(q, k, v, heads),
                     attention_plain(q, k, v, heads, dh ** -0.5)) <= TOL[dtype]
     q, k, v = r(2, 5, 97, 96), r(2, 5, 97, 96), r(2, 5, 97, 96)
     assert _rel(frame_attention(q, k, v, 3),
                 frame_attention_plain(q, k, v, 3, 32 ** -0.5)) <= TOL[dtype]
-    # c 96: the tensor-core kernel in bf16; c 100: the CUDA-core one
-    for c in (96, 100):
+    # bf16: the two GEMM passes (c 104: a K tail past the 64-deep stage);
+    # fp32: the fused CUDA-core kernel (c 100: no multiple of 8)
+    for c in (96, 104) if dtype == torch.bfloat16 else (96, 100):
         x, inner = r(70, c), 4 * c
         args = (x, r(2 * inner, c, scale=0.1), r(2 * inner, scale=0.1),
                 r(c, inner, scale=0.05), r(c, scale=0.1))
@@ -197,6 +199,56 @@ def test_cuda_study_wrappers_raise_on_bad_operands(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [40, 80, 104, 160])
+def test_cuda_attention_tile_edges(cuda, dh):
+    """The bf16 mma kernel at every head dim of the main path, ragged on
+    both sides: 200 queries (a partial 128- or 64-query block) against 91
+    keys (a partial 64-key tile) and against 200 (three full tiles and a
+    partial one); 2 heads, so a head is a stride inside the token row."""
+    g = torch.Generator(cuda).manual_seed(3)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    ops.reset_launch_counts()
+    for skv in (91, 200):
+        q, k, v = r(3, 200, 2 * dh), r(3, skv, 2 * dh), r(3, skv, 2 * dh)
+        out = flash_attention(q, k, v, 2)
+        assert _rel(out, attention_plain(q, k, v, 2, dh ** -0.5)) \
+            <= TOL[torch.bfloat16], (dh, skv)
+    torch.cuda.synchronize()
+    assert ops.launch_counts("story")["attention"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geglu", [True, False])
+@pytest.mark.parametrize("c", [320, 640, 1280, 2048])
+@pytest.mark.parametrize("rows", [70, 970])
+def test_cuda_ff_tile_edges(cuda, rows, c, geglu):
+    """The two bf16 GEMM passes at every width of the main path (inner =
+    4c) and row counts ragged against the 128-row block: 70 (one partial
+    block) and 970 (the prior's rows, 7 full blocks and a partial one)."""
+    g = torch.Generator(cuda).manual_seed(4)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(
+            torch.bfloat16)
+
+    inner = 4 * c
+    up = 2 * inner if geglu else inner
+    args = (r(rows, c), r(up, c, scale=c ** -0.5), r(up, scale=0.1),
+            r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    fn, plain = (geglu_ff, geglu_ff_plain) if geglu else (gelu_ff,
+                                                           gelu_ff_plain)
+    ops.reset_launch_counts()
+    out = fn(*args)
+    assert out.shape == (rows, c)
+    assert _rel(out, plain(*args)) <= TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    assert ops.launch_counts("story")[fn.__name__] == 1
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_raise_on_bad_operands(cuda):
     x = torch.zeros(2, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -209,6 +261,27 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda):
         gelu_ff(f, torch.zeros(16, 64, device=cuda),
                 torch.zeros(64, device=cuda), torch.zeros(16, 64, device=cuda),
                 torch.zeros(16, device=cuda))
+    # operands the bf16 kernels refuse: no fallback runs them
+    ops.reset_launch_counts()
+    h = torch.zeros(2, 8, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # dh 20: not a multiple of 8
+        flash_attention(h, h, h, 2)
+    wide = torch.zeros(1, 8, 528, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # dh 264 > 256
+        flash_attention(wide, wide, wide, 2)
+    flat = torch.zeros(2 * 8 * 32 + 1, device=cuda, dtype=torch.bfloat16)
+    odd = flat[1:].view(2, 8, 32)  # contiguous, 2 bytes off 16
+    with pytest.raises(ValueError):
+        flash_attention(odd, odd, odd, 1)
+    xb = torch.zeros(4, 100, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(400, 100, device=cuda, dtype=torch.bfloat16)
+    b1 = torch.zeros(400, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(100, 400, device=cuda, dtype=torch.bfloat16)
+    b2 = torch.zeros(100, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # c 100: not a multiple of 8
+        gelu_ff(xb, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
 
 
 SMALLK_ROWS = [  # (channel_major, dk, norm, split, dscore) of every E row
