@@ -15,8 +15,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    kernels E-H, B = 80 batch-heads x 4096 x 4096 at dh 40, in bf16 only),
    TF32 off, tolerance max|kernel - plain| / max|plain| <= 1e-4 (fp32) and
    2e-2 (bf16), with the median time of each side, of one PyTorch library
-   call that computes the same function where there is one (SDPA beside A
-   and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
+   call that computes the same function where there is one (SDPA beside A,
+   B and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
    GN), and the case's bound (its work at the card's published peaks);
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
@@ -165,18 +165,24 @@ def kernel_cases(dev, dtype):
                 F.scaled_dot_product_attention(
                     _heads(q, h), _heads(k, h), _heads(v, h),
                     scale=dh ** -0.5)))
-    # kernel B: UNet temporal modules per level, prior temporal modules
+    # kernel B: UNet temporal modules per level, prior temporal modules;
+    # SDPA over the same q, k, v laid out as (b n, heads, f, dh) beforehand
+    # (attention across the frames at each token), timed alone
     for shape in ((1, 5, 4096, 320), (1, 5, 1024, 640), (1, 5, 256, 1280),
                   (1, 5, 64, 1280), (2, 5, 97, 2048)):
         q, k, v = r(*shape), r(*shape), r(*shape)
         b, f, n, c = shape
         dh = c // 8
+        per_token = [t.transpose(1, 2).reshape(b * n, f, 8, dh).transpose(
+            1, 2).contiguous() for t in (q, k, v)]
         cases.append(Case(
             "frame_attention", "x".join(map(str, shape)),
             lambda q=q, k=k, v=v: frame_attention(q, k, v, 8),
             lambda q=q, k=k, v=v, dh=dh: frame_attention_plain(
                 q, k, v, 8, dh ** -0.5),
-            (4 * b * n * f * f * c, b * n * 8 * f * f, 4 * _nbytes(q))))
+            (4 * b * n * f * f * c, b * n * 8 * f * f, 4 * _nbytes(q)),
+            lambda t=per_token, dh=dh: F.scaled_dot_product_attention(
+                *t, scale=dh ** -0.5)))
     # kernels C and D: UNet and prior feed-forwards (rows x c, inner 4c);
     # bf16 takes the tensor-core kernel, fp32 the CUDA-core one
     for rows, c, geglu in ((20480, 320, True), (5120, 640, True),
@@ -265,6 +271,11 @@ def smallk_kernel_cases(r, dev):
            for t in (qt, kt, vt)]
     exps = b * sq * skv
     block = (4 * exps * dh, exps, 4 * _nbytes(qt))
+    # SDPA beside base128 on its (80, 1, 4096, 128) tensors and beside
+    # nt_t40 on the unpadded (80, 1, 4096, 40) ones
+    sdpa = {"base128": [t.unsqueeze(1) for t in tok],
+            "nt_t40": [t.transpose(1, 2).contiguous().unsqueeze(1)
+                       for t in (qt, kt, vt)]}
     cases = []
     for label, kw in (("base128", dict(dk=128)), ("slice40", dict(dk=dh)),
                       ("nt40", dict(norm="pre")), ("nt_t40", {}),
@@ -280,9 +291,8 @@ def smallk_kernel_cases(r, dev):
             lambda a=args, kw=kw: sk.smallk_attention_plain(*a, fs.SCALE,
                                                             **kw),
             block,
-            (lambda: F.scaled_dot_product_attention(
-                *(t.unsqueeze(1) for t in tok), scale=fs.SCALE))
-            if label == "base128" else None))
+            (lambda t=sdpa[label]: F.scaled_dot_product_attention(
+                *t, scale=fs.SCALE)) if label in sdpa else None))
     out_bytes = b * sq * 128 * 4
     q128, k128 = r(b, sq, 128), r(b, skv, 128)
     for label, q, k, cm in (("score_nt", qt, kt, True),

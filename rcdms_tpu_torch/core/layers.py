@@ -69,10 +69,28 @@ def temporal_positional_encoding(num_frames: int, dim: int,
     return pe
 
 
-class GroupNorm(nn.Module):
+class _Fp32Params:
+    """Keeps a norm's scale and bias in fp32 through `.to(dtype)`,
+    `.half()` and the like, as the JAX package's norms hold them
+    (`param_dtype` float32): a bf16 model rounds its activations, never
+    these parameters."""
+
+    def _apply(self, fn, recurse=True):
+        # a conversion rounds: take the values from before it, on the new
+        # device
+        before = [p.data for p in self.parameters(recurse=False)]
+        super()._apply(fn, recurse)
+        for p, data in zip(self.parameters(recurse=False), before):
+            if p.dtype != torch.float32:
+                p.data = data.to(p.device, torch.float32)
+        return self
+
+
+class GroupNorm(_Fp32Params, nn.Module):
     """GroupNorm over channels-last (..., h, w, c) with statistics per
     leading index, so (b, f, h, w, c) gets per-frame statistics. Moments in
-    fp32 as E[x^2] - E[x]^2; the affine is folded into one pass."""
+    fp32 as E[x^2] - E[x]^2; the affine is folded into one pass. Scale and
+    bias stay fp32 in any model dtype."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -102,8 +120,9 @@ class GroupNorm(nn.Module):
                              mul[..., None, None, :]).to(x.dtype)
 
 
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, cast back to the input dtype."""
+class LayerNorm(_Fp32Params, nn.LayerNorm):
+    """LayerNorm with fp32 statistics, cast back to the input dtype; scale
+    and bias stay fp32 in any model dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape,

@@ -48,6 +48,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace rcdms {
 namespace {
@@ -203,53 +204,8 @@ struct MmaShape {
   static constexpr int BYTES = V_OFF + 2 * kMmaKV * LD * 2;  // V: 2 stages
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One block: BQ queries of one (batch, head), 16 * MT a warp. Fragment
-// layouts of m16n8k16 (g = lane / 4, t = lane % 4): a score accumulator of
-// an n8 tile holds rows g (regs 0, 1) and g + 8 (regs 2, 3) at columns
-// 2t, 2t+1; an A fragment holds rows g / g + 8 at columns 2t, 2t+1 (regs
-// 0 / 1) and 2t+8, 2t+9 (regs 2 / 3). So the score tiles 2kk and 2kk + 1
+// One block: BQ queries of one (batch, head), 16 * MT a warp. By the
+// fragment layouts of m16n8k16 (mma.cuh), the score tiles 2kk and 2kk + 1
 // are, as they stand, the A fragment of P for keys 16kk ... 16kk + 15.
 template <int DP, int NT, int BQ>
 __global__ void __launch_bounds__(MmaShape<DP, NT, BQ>::THREADS,

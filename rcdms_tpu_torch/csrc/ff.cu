@@ -45,9 +45,9 @@
 //     and columns on store, so no operand is padded. No block re-reads W1
 //     for a small row block and none recomputes the up-projection.
 //
-// Rounding, as the plain version's: pass 1 rounds h + b and g + b to
-// bf16, then gelu(g), then the product (GELU: h + b, then gelu(h)); the
-// intermediate is bf16; pass 2 rounds y + b2 once.
+// Rounding, as the TPU kernels' and the plain version's: pass 1 keeps
+// h + b, g + b and the activation in fp32 and rounds h * gelu(g) (GELU:
+// gelu(h + b)) once into the bf16 intermediate; pass 2 rounds y + b2 once.
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
                    // fetched at run time (no -lcuda)
 
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // ---- bias + activation, rounded to T like the plain version --------
+    // ---- bias + activation in fp32, rounded once to T -----------------
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int gi = i0 + cg + 16 * u;
@@ -155,14 +155,8 @@ __global__ void __launch_bounds__(kThreads)
       const float bg = (ok && GEGLU) ? to_float(b1[inner + gi]) : 0.f;
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
-        float a;
-        if (GEGLU) {
-          const float hv = to_float(from_float<T>(hh[r][u] + bh));
-          const float gv = to_float(from_float<T>(gg[r][u] + bg));
-          a = hv * to_float(from_float<T>(gelu_erf(gv)));
-        } else {
-          a = gelu_erf(to_float(from_float<T>(hh[r][u] + bh)));
-        }
+        const float a = GEGLU ? (hh[r][u] + bh) * gelu_erf(gg[r][u] + bg)
+                              : gelu_erf(hh[r][u] + bh);
         as[(rg + 16 * r) * kBI + cg + 16 * u] =
             ok ? to_float(from_float<T>(a)) : 0.f;
       }
@@ -460,10 +454,6 @@ __device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // One block: rows [m0, m0 + 128) x columns [n0, n0 + BN) of Y (M x N).
 // Warps 0-7 are two consumer warpgroups (rows m0 + 64 wg ...), warp 8 the
 // producer. The ring's stage s is filled when full[s] completes (TMA
@@ -569,15 +559,13 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       float v0 = acc[4 * i + 2 * half] + b0;
       float v1 = acc[4 * i + 2 * half + 1] + b1;
       if constexpr (MODE == kGelu) {
-        v0 = gelu_erf(round_bf16(v0));
-        v1 = gelu_erf(round_bf16(v1));
+        v0 = gelu_erf(v0);
+        v1 = gelu_erf(v1);
       } else if constexpr (MODE == kGeglu) {
-        const float h0 = round_bf16(v0), h1 = round_bf16(v1);
-        const float q0 = round_bf16(gacc[4 * i + 2 * half] + g0);
-        const float q1 = round_bf16(gacc[4 * i + 2 * half + 1] + g1);
-        v0 = h0 * round_bf16(gelu_erf(q0));
-        v1 = h1 * round_bf16(gelu_erf(q1));
+        v0 *= gelu_erf(gacc[4 * i + 2 * half] + g0);
+        v1 *= gelu_erf(gacc[4 * i + 2 * half + 1] + g1);
       }
+      // the one rounding of the epilogue
       __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
       *reinterpret_cast<__nv_bfloat162*>(y + (long)r * N + col) = out;
     }

@@ -54,9 +54,10 @@ SIGNATURES = {
     "rcdms_gn_moments": [_I, _P, _P, _P, _I, _I, _I, _P],
     # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, stream
     "rcdms_group_norm_act": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # cm, norm, split, dscore, q, k, v, o, B, Sq, Skv, W, dk, scale, stream
+    # cm, norm, split, dscore, q, k, v, o, B, Sq, Skv, W, dk, scale, smem,
+    # stream
     "rcdms_smallk_attention": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _P],
+                               _I, _I, _F, _I, _P],
     # cm, q, k, out, B, Sq, Skv, dk, stream
     "rcdms_attn_scores": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # vlayout, seeds, p, v, out, B, Sq, Skv, blk, dh, stream

@@ -6,8 +6,10 @@ mid block) and head dims above 256 (the VAE's mid-block attention).
 `multihead_attention` is the one routing rule for every attention site in
 the port, the counterpart of the JAX package's `_use_pallas` /
 `_use_nt_flash` gates: unmasked attention with at least 256 queries and a
-head dim of at most 256 goes to kernel A (`ops/flash.py`), everything else
-to `dot_product_attention`.
+head dim of at most 256 goes to kernel A (`ops/flash.py`), in bf16 only
+where the head dim is also a multiple of 8 (the `mma.sync` kernel's
+tiles; fp32 runs the CUDA-core kernel, which takes any head dim up to
+256); everything else goes to `dot_product_attention` (`uses_kernel`).
 """
 
 from __future__ import annotations
@@ -34,14 +36,21 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, v)
 
 
+def uses_kernel(dtype: torch.dtype, dh: int, queries: int,
+                masked: bool) -> bool:
+    """The routing rule: True where kernel A takes the site."""
+    return (not masked and queries >= MIN_KERNEL_QUERIES
+            and dh <= MAX_HEAD_DIM
+            and (dtype != torch.bfloat16 or dh % 8 == 0))
+
+
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         heads: int,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over token-major projections (..., S, heads*dh) ->
     (..., Sq, heads*dh), routed as the module docstring says."""
     dh = q.shape[-1] // heads
-    if mask is None and q.shape[-2] >= MIN_KERNEL_QUERIES \
-            and dh <= MAX_HEAD_DIM:
+    if uses_kernel(q.dtype, dh, q.shape[-2], mask is not None):
         return flash_attention(q, k, v, heads)
     o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), mask)

@@ -69,20 +69,31 @@ def _plan(rows: int, c: int, inner: int, geglu: bool) -> dict:
                 pass2=_gemm_plan(rows, c, "bias"), intermediate=(rows, inner))
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) gelu in fp32, back in x.dtype."""
-    return F.gelu(x.float()).to(x.dtype)
+def _up(x, w1, b1) -> torch.Tensor:
+    """x W1^T + b1 in fp32: the products of x.dtype operands summed in
+    fp32, the bias in x.dtype (as `_ff_pallas` casts b1) added in fp32."""
+    return F.linear(x.float(), w1.float(), b1.to(x.dtype).float())
+
+
+def _down(a, w2, b2, dtype) -> torch.Tensor:
+    """The fp32 activation rounded once to dtype, then a W2^T + b2 summed
+    in fp32 and rounded once."""
+    a = a.to(dtype).float()
+    return F.linear(a, w2.float(), b2.to(dtype).float()).to(dtype)
 
 
 def geglu_ff_plain(x, w1, b1, w2, b2):
-    """Plain PyTorch version of kernel C."""
-    h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
-    return F.linear(h * _gelu(gate), w2, b2)
+    """Plain PyTorch version of kernel C, rounded where the TPU kernel
+    rounds: h + b, g + b and h * gelu(g) in fp32, one rounding of the
+    product to x.dtype."""
+    h, gate = _up(x, w1, b1).chunk(2, dim=-1)
+    return _down(h * F.gelu(gate), w2, b2, x.dtype)
 
 
 def gelu_ff_plain(x, w1, b1, w2, b2):
-    """Plain PyTorch version of kernel D."""
-    return F.linear(_gelu(F.linear(x, w1, b1)), w2, b2)
+    """Plain PyTorch version of kernel D: gelu(h + b) in fp32, rounded
+    once to x.dtype."""
+    return _down(F.gelu(_up(x, w1, b1)), w2, b2, x.dtype)
 
 
 def _gemm(p: dict, x, w, bias, y, m: int, n: int, k: int) -> None:

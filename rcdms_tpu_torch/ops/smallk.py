@@ -22,8 +22,9 @@ level 0: B = 80 batch-heads, 4096 x 4096 tokens, dh = 40, bf16):
   or the reduced sums of P alone (op "sum").
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
-plain version; on a CUDA device it launches `csrc/smallk_attention.cu` or
-`csrc/attn_parts.cu` (bf16 only, as the TPU studies), or raises. The
+plain version; on a CUDA device it launches `csrc/smallk_attention.cu` (E,
+`mma.sync`, with the launch plan of `_plan`) or `csrc/attn_parts.cu`
+(bf16 only, as the TPU studies), or raises. The
 variants are the studies' own; anything else raises on either device.
 The plain versions work one batch row at a time: a whole (80, 4096, 4096)
 fp32 score tensor would take 5.4 GB. `.launches` counts launches.
@@ -93,6 +94,34 @@ def _check_smallk(q, k, v, channel_major, dk, norm, split, dscore) -> int:
     return dk
 
 
+def _plan(channel_major: bool, dk: int, split: int, dscore: bool) -> dict:
+    """Launch plan of E's `mma.sync` kernel: a block of `bq` = 128 queries
+    in `threads` / 32 warps of `split` m16 row tiles each
+    (`rows_per_warp`); the score contracting `dp` columns (dk padded to
+    48, or 128 token-major); `n_tiles` n8 output tiles a row tile (the 128
+    token-major columns, or dk / 8 rounded up to 5 or 6 channel-major); and
+    the block's shared memory (`smem`): the Q tile and two stages of K and
+    V tiles of `kv_tile` keys, token-major rows (or channel-major rows of
+    128 / 64 tokens) 8 bf16 longer than their data, plus dscore's 128
+    fp32 row maxima. Raises ValueError for operands the kernel does not
+    take."""
+    if dk <= 0 or dk % 8 or dk > (48 if channel_major else 128):
+        raise ValueError(f"smallk_attention: the kernel takes dk a multiple "
+                         f"of 8 up to {48 if channel_major else 128}, got "
+                         f"{dk}")
+    bq, kv, width = 128, 64, 128
+    dp = 48 if dk <= 48 else 128
+    if channel_major:
+        n_tiles = 5 if dk <= 40 else 6
+        smem = 2 * (dp * (bq + 8) + 4 * dp * (kv + 8)) + (4 * bq if dscore
+                                                           else 0)
+    else:
+        n_tiles = width // 8
+        smem = 2 * ((bq + 2 * kv) * (dp + 8) + 2 * kv * (width + 8))
+    return dict(bq=bq, kv_tile=kv, dp=dp, n_tiles=n_tiles,
+                rows_per_warp=16 * split, threads=32 * 8 // split, smem=smem)
+
+
 def smallk_attention_plain(q, k, v, scale: float, *, channel_major=False,
                            dk=None, norm="post", split=1,
                            dscore=False) -> torch.Tensor:
@@ -144,11 +173,15 @@ def smallk_attention(q, k, v, scale: float, *, channel_major=False, dk=None,
                          f"token-major width 128 with dk <= 48 or 128 (a "
                          f"multiple of 8); got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, dk {dk}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("smallk_attention: the kernel takes 16-byte "
+                         "aligned q, k, v")
+    plan = _plan(channel_major, dk, split, dscore)
     out = torch.empty_like(q)
     code = _build.library().lib.rcdms_smallk_attention(
         int(channel_major), NORMS[norm], split, int(dscore), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, sq, skv, width, dk,
-        float(scale), _build.stream(q))
+        float(scale), plan["smem"], _build.stream(q))
     _build.check(code, "rcdms_smallk_attention")
     smallk_attention.launches += 1
     return out

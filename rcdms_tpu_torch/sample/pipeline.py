@@ -203,10 +203,13 @@ class StoryPipeline(nn.Module):
         (b, f, d) fp32). Random draws come from `noise` if given, else from
         `generator` in the order prior init, prior steps, VAE, story init.
 
-        With a `cond_cache`, `inputs.mask_clip` and the uncond token rows
+        With a `cond_cache`, `inputs.mask_clip` and `inputs.tokens_s2_u`
         are not read: the mask embeds are the cache's white/black embeds
-        picked by `frame_known`, and the uncond states are the cache's (the
-        protocol's invariants, `data/protocol.py::build_story_example`)."""
+        picked by `frame_known`, and the uncond hidden states and embeds
+        are the cache's (the protocol's invariants,
+        `data/protocol.py::build_story_example`). The mask of the stage-1
+        uncond states still comes from `inputs.tokens_s1_u`, as the
+        reference builds it."""
         b, f = inputs.frame_known.shape
         known = inputs.frame_known.bool()
         eos1 = self.configs.text_s1.eos_token_id

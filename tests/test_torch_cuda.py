@@ -291,30 +291,37 @@ SMALLK_ROWS = [  # (channel_major, dk, norm, split, dscore) of every E row
     (True, None, "rounded", 1, True)]
 
 
+def _smallk_rows(r, bsz, sq, skv, dh):
+    """E at every row of the studies against its plain version; dh is the
+    channel-major width and the token-major rows' narrow contraction."""
+    qt, kt, vt = r(bsz, dh, sq), r(bsz, dh, skv), r(bsz, dh, skv)
+    # token-major width 128, zero past dh
+    tok = [torch.nn.functional.pad(t.transpose(1, 2), (0, 128 - dh))
+           .contiguous() for t in (qt, kt, vt)]
+    for cm, dk, norm, split, dscore in SMALLK_ROWS:
+        args = (qt, kt, vt) if cm else tok
+        kw = dict(channel_major=cm, dk=dh if dk == 40 else dk, norm=norm,
+                  split=split, dscore=dscore)
+        out = smallk_attention(*args, dh ** -0.5, **kw)
+        assert out.shape == args[0].shape
+        assert _rel(out, smallk_attention_plain(*args, dh ** -0.5, **kw)
+                    ) <= TOL[torch.bfloat16], (kw, bsz, sq, skv, dh)
+
+
 @pytest.mark.gpu
 def test_cuda_smallk_kernels_match_plain(cuda):
     """E-H against their plain versions in every layout and variant of the
-    studies at B = 4 batch-heads, full Skv = 4096 and dh 40, 1024 queries
-    (two 512-row cells)."""
+    studies: E at B = 2 batch-heads, 256 queries and keys, dh 40; F-H at
+    B = 4, full Skv = 4096 and dh 40, 1024 queries (two 512-row cells)."""
     g = torch.Generator(cuda).manual_seed(2)
     bsz, sq, skv, dh = 4, 1024, 4096, 40
 
     def r(*s):
         return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
 
-    def pad128(t):  # token-major width 128, zero past dh
-        return torch.nn.functional.pad(t, (0, 128 - dh))
-
     ops.reset_launch_counts()
+    _smallk_rows(r, 2, 256, 256, dh)
     qt, kt, vt = r(bsz, dh, sq), r(bsz, dh, skv), r(bsz, dh, skv)
-    tok = [pad128(t.transpose(1, 2)).contiguous() for t in (qt, kt, vt)]
-    for cm, dk, norm, split, dscore in SMALLK_ROWS:
-        args = (qt, kt, vt) if cm else tok
-        kw = dict(channel_major=cm, dk=dk, norm=norm, split=split,
-                  dscore=dscore)
-        assert _rel(smallk_attention(*args, dh ** -0.5, **kw),
-                    smallk_attention_plain(*args, dh ** -0.5, **kw)
-                    ) <= TOL[torch.bfloat16], kw
     q128, k128 = r(bsz, sq, 128), r(bsz, skv, 128)
     for q, k, cm in ((q128, k128, False), (qt, kt, True)):
         assert _rel(attn_scores(q, k, channel_major=cm),
@@ -343,6 +350,25 @@ def test_cuda_smallk_kernels_match_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,dh", [(128, 64, 40), (256, 192, 48),
+                                       (128, 128, 16)])
+def test_cuda_smallk_attention_edges(cuda, sq, skv, dh):
+    """E's seven rows at one 128-query block against one 64-key tile (the
+    two-stage ring's shortest run), at an odd count of key tiles with the
+    widest channel-major dh (48: six output tiles, no pad), and at a
+    narrow dh (16: pad rows in every tile)."""
+    g = torch.Generator(cuda).manual_seed(5)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    ops.reset_launch_counts()
+    _smallk_rows(r, 3, sq, skv, dh)
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies")["smallk_attention"] == 7
+
+
+@pytest.mark.gpu
 def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
     f = torch.zeros(1, 40, 512, device=cuda)
     with pytest.raises(TypeError):  # the kernels take bf16 only
@@ -363,6 +389,10 @@ def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
         attn_scores(t.transpose(1, 2), h, channel_major=True)
     with pytest.raises(ValueError):  # Sq not a multiple of 128
         smallk_attention(h[..., :200].contiguous(), h, h, 0.1,
+                         channel_major=True, norm="pre")
+    flat = torch.zeros(40 * 512 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # contiguous, 2 bytes off 16 (cp.async)
+        smallk_attention(flat[1:].view(1, 40, 512), h, h, 0.1,
                          channel_major=True, norm="pre")
     with pytest.raises(ValueError):  # dh past the kernel's 48
         z = torch.zeros(1, 56, 512, device=cuda, dtype=torch.bfloat16)

@@ -1,8 +1,9 @@
-"""The launch plans of the port's two redesigned bf16 kernels, on the CPU.
+"""The launch plans of the port's redesigned bf16 kernels, on the CPU.
 
-`rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, `mma.sync` attention) and
+`rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, `mma.sync` attention),
 `rcdms_tpu_torch/ops/geglu.py::_plan` (kernels C and D, two TMA + `wgmma`
-GEMM passes) are pure Python: they choose the tile shapes and compute the
+GEMM passes) and `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
+studies' whole attention block on `mma.sync`) are pure Python: they choose the tile shapes and compute the
 shared memory that the CUDA kernels lay out (the kernels refuse a plan
 whose bytes differ from their own). Here every shape of the story's main
 path (those `chip_smoke.py` holds the kernels to) must fit one block's
@@ -11,7 +12,7 @@ designs', and shapes the kernels do not take must raise."""
 
 import pytest
 
-from rcdms_tpu_torch.ops import flash, geglu
+from rcdms_tpu_torch.ops import flash, geglu, smallk
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -93,3 +94,38 @@ def test_ff_plan_tiles_of_the_story():
 def test_ff_plan_refuses(rows, c, inner):
     with pytest.raises(ValueError):
         geglu._plan(rows, c, inner, True)
+
+
+# kernel E: (channel_major, dk, split, dscore, smem bytes) of every row of
+# the attention studies at dh 40, and the widest dk of each layout. Bytes:
+# token-major Q (128 rows) and two stages of K (64 rows) of dp + 8 bf16,
+# two stages of V (64 rows of 136); channel-major Q (dp rows of 136 bf16)
+# and two stages of K and V (dp rows of 72), dscore 512 more for its 128
+# fp32 row maxima.
+SMALLK_PLANS = [
+    (False, 128, 1, False, 104448), (False, 40, 1, False, 63488),
+    (False, 48, 1, False, 63488), (True, 40, 1, False, 40704),
+    (True, 40, 2, False, 40704), (True, 40, 4, False, 40704),
+    (True, 40, 1, True, 41216), (True, 48, 1, True, 41216)]
+
+
+@pytest.mark.parametrize("cm,dk,split,dscore,smem", SMALLK_PLANS)
+def test_smallk_plan(cm, dk, split, dscore, smem):
+    plan = smallk._plan(cm, dk, split, dscore)
+    assert plan["smem"] == smem <= SMEM_LIMIT
+    assert plan["bq"] == 128 and plan["kv_tile"] == 64
+    assert plan["dp"] == (48 if dk <= 48 else 128)
+    assert plan["rows_per_warp"] == 16 * split
+    assert plan["threads"] * plan["rows_per_warp"] == 32 * plan["bq"]
+    if cm:  # the output's n8 tiles cover dk inside the padded width
+        assert dk <= 8 * plan["n_tiles"] <= plan["dp"]
+        assert plan["n_tiles"] == (5 if dk <= 40 else 6)
+    else:   # V and o are 128 wide
+        assert plan["n_tiles"] == 16
+
+
+@pytest.mark.parametrize("cm,dk", [(True, 0), (True, 44), (True, 56),
+                                   (False, 44), (False, 136)])
+def test_smallk_plan_refuses(cm, dk):
+    with pytest.raises(ValueError):
+        smallk._plan(cm, dk, 1, False)

@@ -18,6 +18,8 @@ from rcdms_tpu.ops.frame_attention import frame_attention_bfnc
 from rcdms_tpu.ops.geglu import ff_flat, geglu_ff as jgeglu_ff, \
     gelu_ff as jgelu_ff
 from rcdms_tpu_torch import ops
+from rcdms_tpu_torch.ops import attention as attention_ops
+from rcdms_tpu_torch.ops.attention import multihead_attention
 from rcdms_tpu_torch.ops.flash import flash_attention
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
@@ -132,6 +134,27 @@ def test_ff_matches_pallas(geglu, lead, n):
     fn = geglu_ff if geglu else gelu_ff
     out = fn(*_torch_ff_args(x, w1, b1, w2, b2))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [40, 44, 256, 264])
+def test_attention_router(monkeypatch, dtype, dh):
+    """Kernel A takes unmasked sites of at least 256 queries and dh <= 256;
+    in bf16 (the `mma.sync` kernel) dh must also be a multiple of 8."""
+    takes = dh <= 256 and (dtype == torch.float32 or dh % 8 == 0)
+    routed = []
+    monkeypatch.setattr(attention_ops, "flash_attention",
+                        lambda *a: routed.append(a) or a[0])
+    for sq, mask in ((256, None), (255, None),
+                     (256, torch.zeros(1, 1, 256, 8, dtype=dtype))):
+        q = torch.zeros(1, sq, 2 * dh, dtype=dtype)
+        kv = torch.zeros(1, 8, 2 * dh, dtype=dtype)
+        routed.clear()
+        out = multihead_attention(q, kv, kv, 2, mask)
+        assert out.shape == q.shape
+        assert bool(routed) is (takes and sq == 256 and mask is None), \
+            (sq, mask is None)
+    assert attention_ops.uses_kernel(dtype, dh, 256, False) is takes
 
 
 def test_cpu_wrappers_do_not_count():

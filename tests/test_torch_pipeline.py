@@ -210,6 +210,40 @@ def test_generate_cond_cache_and_generator():
     assert frames.min() >= 0 and frames.max() <= 1
 
 
+def test_cached_generate_reads_the_uncond_row_for_the_mask_alone(
+        monkeypatch):
+    """With a cache, the stage-1 uncond mask is the padding mask of
+    `inputs.tokens_s1_u` (as the reference builds it); `mask_clip` and
+    `tokens_s2_u` are not read, and the uncond states are the cache's."""
+    pipe, inputs = build_tiny_pipeline(seed=1, num_steps=1)
+    c = pipe.configs.vision.image_size
+    white, black = torch.full((c, c, 3), 0.75), torch.full((c, c, 3), -0.25)
+    cache = pipe.precompute_cond_cache(inputs.tokens_s1_u[0, 0],
+                                       inputs.tokens_s2_u[0, 0], white, black)
+    seen = []
+    sampler = pipe.prior_sampler
+    monkeypatch.setattr(pipe, "prior_sampler",
+                        lambda cond, *a: seen.append(cond) or sampler(cond,
+                                                                      *a))
+    eos = pipe.configs.text_s1.eos_token_id
+    masks = []
+    for pos in (3, 5):
+        uncond = torch.zeros_like(inputs.tokens_s1_u)
+        uncond[..., pos] = eos
+        pipe.generate(inputs._replace(tokens_s1_u=uncond, tokens_s2_u=None,
+                                      mask_clip=None), cache,
+                      torch.Generator().manual_seed(0))
+        cond = seen[-1]
+        np.testing.assert_array_equal(cond.text_mask_u.numpy(),
+                                      padding_mask(uncond, eos).numpy())
+        torch.testing.assert_close(
+            cond.text_hidden_u, cache.s1_hidden_u.expand_as(cond.text_hidden))
+        torch.testing.assert_close(
+            cond.text_embed_u, cache.s1_embed_u.expand_as(cond.text_embed))
+        masks.append(cond.text_mask_u)
+    assert not torch.equal(masks[0], masks[1])
+
+
 def test_padding_mask():
     ids = torch.tensor([[[1, 2, 63, 0, 0, 0, 0]]])
     assert padding_mask(ids, 63)[0, 0].tolist() == [True] * 3 + [False] * 4
