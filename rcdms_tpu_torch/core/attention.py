@@ -42,7 +42,10 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
+        # a bf16 projection of an fp32 stream (the prior's) takes its input
+        # rounded, as flax's Dense casts it
+        x = x.to(self.to_q.weight.dtype)
+        ctx = x if context is None else context.to(x.dtype)
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if self.frame_axis:
             if context is not None or mask is not None:
@@ -55,7 +58,10 @@ class Attention(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LN -> self-attn -> [LN -> cross-attn] -> LN -> FF, all residual."""
+    """LN -> self-attn -> [LN -> cross-attn] -> LN -> FF, all residual. The
+    residual stream keeps its input's dtype: fp32 in the prior of a bf16
+    model (each branch rounded to the model dtype, then added), as the JAX
+    package's promotion gives it."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None,

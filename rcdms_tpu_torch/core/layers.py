@@ -41,8 +41,28 @@ def sinusoidal_time_embedding(timesteps: torch.Tensor,
     return emb
 
 
-class TimestepEmbedding(nn.Module):
-    """Two-layer SiLU MLP over the sinusoidal projection."""
+class _Fp32Params:
+    """Keeps a module's parameters, its children's too, in fp32 through
+    `.to(dtype)`, `.half()` and the like, as the JAX package holds them
+    (`param_dtype` float32): a bf16 model rounds its activations, never
+    these parameters."""
+
+    def _apply(self, fn, recurse=True):
+        # a conversion rounds: take the values from before it, on the new
+        # device
+        before = [p.data for p in self.parameters()]
+        super()._apply(fn, recurse)
+        for p, data in zip(self.parameters(), before):
+            if p.dtype != torch.float32:
+                p.data = data.to(p.device, torch.float32)
+        return self
+
+
+class TimestepEmbedding(_Fp32Params, nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal projection, in fp32 in any
+    model dtype, as the JAX package builds it (no dtype, so flax's fp32):
+    the caller rounds the sinusoid to the model dtype, this widens it, and
+    the output is fp32."""
 
     def __init__(self, in_dim: int, time_embed_dim: int,
                  out_dim: Optional[int] = None):
@@ -51,7 +71,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        return self.linear_2(F.silu(self.linear_1(sample.float())))
 
 
 def temporal_positional_encoding(num_frames: int, dim: int,
@@ -67,23 +87,6 @@ def temporal_positional_encoding(num_frames: int, dim: int,
     pe[:, 0::2] = torch.sin(args)
     pe[:, 1::2] = torch.cos(args[:, : dim // 2])
     return pe
-
-
-class _Fp32Params:
-    """Keeps a norm's scale and bias in fp32 through `.to(dtype)`,
-    `.half()` and the like, as the JAX package's norms hold them
-    (`param_dtype` float32): a bf16 model rounds its activations, never
-    these parameters."""
-
-    def _apply(self, fn, recurse=True):
-        # a conversion rounds: take the values from before it, on the new
-        # device
-        before = [p.data for p in self.parameters(recurse=False)]
-        super()._apply(fn, recurse)
-        for p, data in zip(self.parameters(recurse=False), before):
-            if p.dtype != torch.float32:
-                p.data = data.to(p.device, torch.float32)
-        return self
 
 
 class GroupNorm(_Fp32Params, nn.Module):
@@ -157,8 +160,9 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = geglu_ff if self.activation == "geglu" else gelu_ff
         proj_in, proj_out = self.net[0].proj, self.net[2]
-        return fn(x, proj_in.weight, proj_in.bias, proj_out.weight,
-                  proj_out.bias)
+        # the JAX package's FF casts its input to the model dtype
+        return fn(x.to(proj_in.weight.dtype), proj_in.weight, proj_in.bias,
+                  proj_out.weight, proj_out.bias)
 
 
 class FrameConv(nn.Conv2d):

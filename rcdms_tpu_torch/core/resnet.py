@@ -34,7 +34,10 @@ class ResnetBlock(nn.Module):
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         if temb is not None:
-            t = self.time_emb_proj(F.silu(temb))
+            # temb is fp32 (the time MLP's); silu in fp32, then the input
+            # cast to the projection's dtype, as flax's Dense casts it
+            proj = self.time_emb_proj
+            t = proj(F.silu(temb).to(proj.weight.dtype))
             h = h + t.reshape(t.shape[:1] + (1,) * (h.dim() - 2)
                               + t.shape[1:])
         h = self.conv2(F.silu(self.norm2(h)))

@@ -71,8 +71,10 @@ class TemporalTransformer3D(nn.Module):
 class TemporalModule(nn.Module):
     """Norm -> proj_in -> blocks -> proj_out -> +residual. prior_mode=True
     takes tokens (b, f, n, c) with a LayerNorm in; otherwise feature maps
-    (b, f, h, w, c) with a GroupNorm(32) in. With zero_init_output the
-    output projection starts at zero, so the module starts as identity."""
+    (b, f, h, w, c) with a GroupNorm(32) in. The blocks run in the model
+    dtype; the output keeps the residual's (fp32 in the prior of a bf16
+    model). With zero_init_output the output projection starts at zero, so
+    the module starts as identity."""
 
     def __init__(self, channels: int, cfg: TemporalConfig,
                  prior_mode: bool = False):
@@ -93,7 +95,7 @@ class TemporalModule(nn.Module):
         else:
             b, f, hh, ww, c = x.shape
             h = tt.norm(x).reshape(b, f, hh * ww, c)
-        h = tt.proj_in(h)
+        h = tt.proj_in(h.to(tt.proj_in.weight.dtype))
         for block in tt.transformer_blocks:
             h = block(h)
         return tt.proj_out(h).reshape(x.shape) + x

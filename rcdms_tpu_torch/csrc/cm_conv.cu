@@ -15,31 +15,43 @@
 //
 // Replaces tools/cm_conv_study.py::_cm_kernel, which multiplies the whole
 // (C, T) frame by each tap's weights and rolls the fp32 partial sums (Mosaic
-// cannot rotate bf16 operands). Here the shift moves to the operand: a block
-// loads one token window per channel chunk, its tokens plus a halo of
-// ha >= wp + 1 on each side, and takes all nine taps from that one window in
-// shared memory, so each x element comes from memory once, not nine times.
+// cannot rotate bf16 operands). Here the shift moves to the operand: each
+// tap reads its own x tile at the shifted token coordinate.
 //
 // What bounds it on the H100: 37.7 GFLOP of real work at the study shape
 // (B 5, C = Cout = 320, 64 x 64) against 14.7 MB of x, so the products, not
-// device memory, are the limit. Two kernels:
+// device memory, are the limit; the tiles' repeated reads of x and the
+// weights come from the 50 MB L2. Two kernels:
 //   * tensor cores (bf16; T and Cout multiples of 8, 16-byte aligned x and
-//     w9): an implicit GEMM with M = Cout, N = tokens, K = 9 taps x C, as
-//     WMMA 16x16x16 bf16 products with fp32 accumulators. A block of 8 warps
-//     owns 160 output channels x 192 tokens (a warp 80 x 48: 5 x 3
-//     accumulator fragments). Per 16-channel chunk it stages the window
-//     token-major ([token][channel], so a tap's shift picks whole rows and
-//     every fragment pointer stays 32-byte aligned) and the chunk's weights
-//     of all nine taps; the next chunk's loads (x through registers, since
-//     the window is transposed on its way in, the weights by cp.async) are
-//     in flight while the current one multiplies.
+//     w9, any C and wp): an implicit GEMM per frame with M = Cout,
+//     N = tokens, K = 9 taps x C, taken in stages of one tap x 64 channels.
+//     A TMA box cannot start at an odd token of the channel-major x (the
+//     H100 raised an illegal instruction for one at a shifted token
+//     coordinate, where the unshifted boxes ran right), so a first kernel
+//     lays x out token-major once per call, xt (B, G + T, Cp): G = wp + 1
+//     zero rows ahead of each frame, the channels padded with zeros to
+//     Cp, a multiple of 8 (a TMA row stride is a multiple of 16 bytes).
+//     Then a tap's x tile is one box of token rows at row
+//     G + t0 + off_s >= 0: the guard rows give the taps that read before
+//     token 0, TMA's zero fill those past T, the partial channel chunk and
+//     the Cout tail. The GEMM kernel: a block owns 64 mt output channels
+//     (mt <= 5, from ops/cm_conv.py::_plan) x 96 tokens, a size chosen for
+//     the waves: at the study shape 225 live blocks fill two waves of the
+//     132 SMs about as well as 170 blocks of 128 tokens, each a quarter
+//     smaller. One producer thread keeps a four-stage ring of TMA loads in
+//     flight: per stage mt boxes of w9 ([64 channels][64 Cout], Cout
+//     contiguous: MN-major) and two of xt ([48 tokens][64 channels]:
+//     K-major). Two consumer warpgroups of 48 tokens each run
+//     wgmma.mma_async m64n48k16 (A transposed), mt fp32 accumulator tiles
+//     in registers (24 mt a thread, setmaxnreg moving registers from the
+//     producer warpgroup to them); the epilogue adds the bias, rounds once,
+//     multiplies by the mask and stores bf16 pairs in token order. A block
+//     whose 96 tokens are all masked writes zeros and loads nothing.
 //   * CUDA cores (fp32, and bf16 shapes the tensor-core kernel does not
 //     take): 64 output channels x 64 tokens a block, 4 x 4 outputs a thread,
 //     fp32 FMA from a shared-memory window of 8 channels.
-#include <mma.h>
-#include <type_traits>
-
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace rcdms {
 namespace {
@@ -169,64 +181,101 @@ cudaError_t launch(const void* x, const void* w9, const void* bias,
   return cudaGetLastError();
 }
 
-// ---- the bf16 tensor-core kernel ------------------------------------------
+// ---- the bf16 tensor-core kernel (TMA + wgmma) ---------------------------
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcBM = 160;          // output channels a block (2 warps x 80)
-constexpr int kTcBN = 192;          // tokens a block (4 warps x 48)
-constexpr int kTcKC = 16;           // channels a chunk: one WMMA depth
-constexpr int kTcLdW = kTcBM + 16;  // bf16 row of a weight tile (32-byte rows)
-constexpr int kTcLdO = kTcBN + 8;   // fp32 row of the output staging tile
-constexpr int kTcXRegs = 3;         // 16-byte x vectors a thread per chunk
+constexpr int kTcBN = 96;        // tokens a block: two warpgroups of 48
+constexpr int kTcKC = 64;        // channels a stage: one 128-byte row
+constexpr int kTcStages = 4;     // depth of the TMA ring
+constexpr int kTcThreads = 384;  // a producer and 2 consumer warpgroups
+// Registers a thread of the producer / a consumer warpgroup keeps after
+// setmaxnreg: 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536 (at 384
+// threads ptxas allots at most 168 a thread). Must agree with
+// cm_conv.py::_plan.
+constexpr int kTcProducerRegs = 40;
+constexpr int kTcConsumerRegs = 232;
+constexpr int kTcTile = 64 * kTcKC * 2;  // a w9 box [64][64], 8 KB
+constexpr int kTcXTile = kTcBN / 2 * kTcKC * 2;  // an xt box [48][64], 6 KB
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// The halo, rounded up to whole 8-token vectors so the window starts on a
-// 16-byte boundary of x.
-__host__ __device__ __forceinline__ int tc_halo(int wp) {
-  return (wp + 1 + 7) / 8 * 8;
+// x (B, C, T) -> xt (B, G + T, Cp), token-major, rows [0, G) and
+// channels [C, Cp) zero: a block moves 64 tokens x 64 channels through
+// shared memory, reading 16-byte vectors along tokens and writing them
+// along channels (T and Cp multiples of 8), so a warp reads and writes
+// whole 128-byte lines. The tile's 16-byte chunks are XOR-swizzled by the
+// channel's eighth, so the transposing reads hit 8 different chunks. The
+// blocks of the first token tile also zero the guard rows.
+__global__ void __launch_bounds__(256)
+    cm_conv_relayout_kernel(const bf16* __restrict__ x, bf16* __restrict__ xt,
+                            int c, int cp, int tokens, int guard) {
+  __shared__ __align__(16) bf16 tile[64][64];  // [channel][token chunks]
+  const int t0 = blockIdx.x * 64, c0 = blockIdx.y * 64, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  bf16* ob = xt + (long)b * (guard + tokens) * cp;
+  if (blockIdx.x == 0)
+    for (int e = tid; e < guard * 8; e += 256) {
+      const int ch = c0 + e % 8 * 8;
+      if (ch < cp) *reinterpret_cast<uint4*>(ob + (long)(e / 8) * cp + ch) =
+          zero;
+    }
+  const bf16* xb = x + (long)b * c * tokens;
+  for (int e = tid; e < 64 * 8; e += 256) {  // 8 lanes along a channel
+    const int k = e / 8, v = e % 8, t = t0 + 8 * v;
+    uint4 val = zero;
+    if (c0 + k < c && t < tokens)
+      val = *reinterpret_cast<const uint4*>(xb + (long)(c0 + k) * tokens + t);
+    *reinterpret_cast<uint4*>(&tile[k][8 * (v ^ (k >> 3))]) = val;
+  }
+  __syncthreads();
+  for (int e = tid; e < 64 * 8; e += 256) {  // 8 lanes along a token's row
+    const int v = e % 8, tt = e / 8, ch = c0 + 8 * v;
+    if (t0 + tt >= tokens || ch >= cp) continue;
+    __align__(16) bf16 val[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      val[u] = tile[8 * v + u][8 * ((tt >> 3) ^ v) + (tt & 7)];
+    *reinterpret_cast<uint4*>(ob + (long)(guard + t0 + tt) * cp + ch) =
+        *reinterpret_cast<const uint4*>(val);
+  }
 }
 
-// Byte layout of one pipeline stage: the token-major x window [rows][16]
-// (32-byte rows) and the weights [9][16][kTcLdW]. Two stages; the output
-// staging tile reuses them after the last chunk.
-struct TcLayout {
-  int rows, x_bytes, stage, total;
-  __host__ __device__ explicit TcLayout(int wp) {
-    rows = kTcBN + 2 * tc_halo(wp);
-    x_bytes = rows * kTcKC * 2;
-    stage = x_bytes + 9 * kTcKC * kTcLdW * 2;
-    const int staging = kTcBM * kTcLdO * 4;
-    total = 2 * stage > staging ? 2 * stage : staging;
-  }
+// Shared memory: a ring of kTcStages stages, each MT w9 boxes and two xt
+// boxes (every box 1024-byte aligned in TMA's 128-byte swizzle), then the
+// full and empty mbarriers of each stage, plus 1024 bytes to align the
+// ring. Must agree with rcdms_tpu_torch/ops/cm_conv.py::_plan.
+template <int MT>
+struct ConvShape {
+  static constexpr int STAGE = MT * kTcTile + 2 * kTcXTile;
+  static constexpr int BARS = kTcStages * STAGE;
+  static constexpr int BYTES = BARS + 2 * kTcStages * 8 + 1024;
+  static_assert(MT >= 1 && MT <= 5, "64 to 320 output channels a block");
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-template <bool SHIFTS>
-__global__ void __launch_bounds__(kThreads, 1)
-    cm_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
+// One block: output channels [d0, d0 + 64 MT) x tokens [t0, t0 + 96) of
+// frame b. Warpgroup 0 is the producer (one thread issues the TMA loads),
+// warpgroups 1 and 2 the consumers (tokens t0 + 48 (wg - 1) ...). Stage
+// i of the K loop is tap i % 9 of channel chunk i / 9. The ring's stage s
+// is filled when full[s] completes (TMA bytes) and free when empty[s]
+// completes (one arrival per consumer warp).
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cm_conv_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
                       const bf16* __restrict__ bias,
                       const bf16* __restrict__ mask, bf16* __restrict__ out,
-                      int c, int cout, int tokens, int wp) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  const TcLayout L(wp);
-  const int ha = tc_halo(wp);
-  const int vecs = L.rows / 8;  // 8-token vectors a window row of x has
-
+                      int c, int cout, int tokens, int wp, int shifts) {
+  // xmap: xt (B, wp + 1 + T, Cp); wmap: w9 (9, C, Cout)
+  using S = ConvShape<MT>;
+  extern __shared__ unsigned char tc_smem[];
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;  // this warp's 80 x 48 piece
-  const int t0 = blockIdx.x * kTcBN, d0 = blockIdx.y * kTcBM, b = blockIdx.z;
-  const bf16* xb = x + (long)b * c * tokens;
+  const int t0 = blockIdx.x * kTcBN, d0 = blockIdx.y * 64 * MT;
+  const int b = blockIdx.z;
   bf16* ob = out + (long)b * cout * tokens;
 
   if (!tile_needed(mask, t0, kTcBN, tokens)) {
-    for (int e = tid; e < kTcBM * kTcBN; e += kThreads) {
+    for (int e = tid; e < 64 * MT * kTcBN; e += kTcThreads) {
       const int d = d0 + e / kTcBN, t = t0 + e % kTcBN;
       if (d < cout && t < tokens)
         ob[(long)d * tokens + t] = from_float<bf16>(0.f);
@@ -234,157 +283,178 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  auto x_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(tc_smem + st * L.stage);
-  };
-  auto w_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(tc_smem + st * L.stage + L.x_bytes);
-  };
+  const uint32_t raw = smem_addr(tc_smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + S::BARS;  // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kTcStages;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nk = 9 * ((c + kTcKC - 1) / kTcKC);
 
-  // x window of chunk c0 into registers: vector e = (channel e % 16,
-  // 8 tokens from e / 16 * 8); lanes 16 apart hold neighbouring vectors of
-  // one channel, so a warp reads whole 32-byte sectors.
-  uint4 xr[kTcXRegs];
-  auto load_x = [&](int c0) {
-#pragma unroll
-    for (int r = 0; r < kTcXRegs; ++r) {
-      const int e = tid + r * kThreads;
-      const int k = e % kTcKC, v = e / kTcKC;
-      const int ch = c0 + k, t = t0 - ha + v * 8;
-      xr[r] = make_uint4(0, 0, 0, 0);
-      if (v < vecs && ch < c && t >= 0 && t < tokens)
-        xr[r] = *reinterpret_cast<const uint4*>(xb + (long)ch * tokens + t);
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-  };
-  // ... and from registers into the token-major window [row][channel]
-  auto store_x = [&](int st) {
-    bf16* xt = x_tile(st);
-#pragma unroll
-    for (int r = 0; r < kTcXRegs; ++r) {
-      const int e = tid + r * kThreads;
-      const int k = e % kTcKC, v = e / kTcKC;
-      if (v >= vecs) continue;
-      const unsigned w[4] = {xr[r].x, xr[r].y, xr[r].z, xr[r].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // token 2j in the low half of word j
-        bf16* row = xt + (v * 8 + 2 * j) * kTcKC + k;
-        row[0] = __ushort_as_bfloat16(static_cast<unsigned short>(w[j]));
-        row[kTcKC] =
-            __ushort_as_bfloat16(static_cast<unsigned short>(w[j] >> 16));
-      }
-    }
-  };
-  // the chunk's weights of all nine taps, [s][k][m], by cp.async
-  auto load_w = [&](int c0, int st) {
-    bf16* wt = w_tile(st);
-    constexpr int kVecs = kTcBM / 8;
-    for (int e = tid; e < 9 * kTcKC * kVecs; e += kThreads) {
-      const int s = e / (kTcKC * kVecs), k = e / kVecs % kTcKC;
-      const int m = e % kVecs * 8;
-      const int ch = c0 + k, d = d0 + m;
-      const bool ok = ch < c && d < cout;
-      cp_async16(wt + (s * kTcKC + k) * kTcLdW + m,
-                 ok ? w9 + ((long)s * c + ch) * cout + d : w9, ok);
-    }
-    cp_async_commit();
-  };
-
-  FragC acc[5][3];
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load_w(0, 0);
-  load_x(0);
-  store_x(0);
-  cp_async_wait<0>();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int chunks = (c + kTcKC - 1) / kTcKC;
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int st = ch & 1;
-    const bool next = ch + 1 < chunks;
-    if (next) {
-      load_w((ch + 1) * kTcKC, st ^ 1);
-      load_x((ch + 1) * kTcKC);
-    }
-    const bf16* xt = x_tile(st);
-    const bf16* wt = w_tile(st);
-#pragma unroll 1
-    for (int s = 0; s < 9; ++s) {
-      const int row0 = ha + (SHIFTS ? tap_offset(s, wp) : 0) + wn * 48;
-      FragA a[5];
+  if (warp < 4) {  // ---- producer warpgroup -------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (warp == 0 && lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kTcStages;
+        const int tap = i % 9, c0 = i / 9 * kTcKC;
+        const int row = wp + 1 + t0 + (shifts ? tap_offset(tap, wp) : 0);
+        mbar_wait(empty + 8 * s, ((i / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, S::STAGE);
+        const uint32_t st = ring + s * S::STAGE;
 #pragma unroll
-      for (int i = 0; i < 5; ++i)
-        wmma::load_matrix_sync(a[i], wt + s * kTcKC * kTcLdW + wm * 80 + i * 16,
-                               kTcLdW);
+        for (int m = 0; m < MT; ++m)
+          tma_load_3d(st + m * kTcTile, &wmap, d0 + 64 * m, c0, tap,
+                      full + 8 * s);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, xt + (row0 + j * 16) * kTcKC, kTcKC);
-#pragma unroll
-        for (int i = 0; i < 5; ++i)
-          wmma::mma_sync(acc[i][j], a[i], fb, acc[i][j]);
+        for (int h = 0; h < 2; ++h)
+          tma_load_3d(st + MT * kTcTile + h * kTcXTile, &xmap, c0,
+                      row + kTcBN / 2 * h, b, full + 8 * s);
       }
     }
-    if (next) store_x(st ^ 1);
-    cp_async_wait<0>();
-    __syncthreads();
+    return;
   }
 
-  // ---- bias, rounding, mask: through an fp32 staging tile, so that a row
-  // of tokens goes out in order -------------------------------------------
-  float* stage_o = reinterpret_cast<float*>(tc_smem);
+  // ---- consumers ----------------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kTcConsumerRegs));
+  const int wg = warp / 4 - 1;
+  constexpr int kAcc = kTcBN / 4;  // n48: 24 accumulators a tile
+  float acc[MT][kAcc];
 #pragma unroll
-  for (int i = 0; i < 5; ++i)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      wmma::store_matrix_sync(
-          stage_o + (wm * 80 + i * 16) * kTcLdO + wn * 48 + j * 16, acc[i][j],
-          kTcLdO, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kTcBM * kTcBN; e += kThreads) {
-    const int m = e / kTcBN, n = e % kTcBN;
-    const int d = d0 + m, t = t0 + n;
-    if (d < cout && t < tokens)
-      ob[(long)d * tokens + t] =
-          epilogue(stage_o[m * kTcLdO + n], bias, mask, d, t);
+    for (int j = 0; j < kAcc; ++j) acc[m][j] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kTcStages;
+    mbar_wait(full + 8 * s, (i / kTcStages) & 1);
+    const uint32_t st = ring + s * S::STAGE;
+    const uint64_t dw = sw128_mn_desc(st);
+    const uint64_t dx = sw128_desc(st + MT * kTcTile + wg * kTcXTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKC / 16; ++kk)  // w9: 16 rows; xt: 32 bytes
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        wgmma<kTcBN / 2, 1, 0>(acc[m], dw + m * (kTcTile >> 4) + 128 * kk,
+                               dx + 2 * kk);
+    wgmma_commit();
+    if (i > 0) {  // the previous stage's products are done: free it
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % kTcStages));
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+
+  // ---- epilogue: bias, one rounding, mask; bf16 pairs in token order -----
+  constexpr int kN8 = kTcBN / 16;  // n8 column blocks of a warpgroup
+  const int t_lo = t0 + kTcBN / 2 * wg + 2 * (lane % 4);
+  float mk[kN8][2];
+#pragma unroll
+  for (int j = 0; j < kN8; ++j) {
+    const int t = t_lo + 8 * j;  // tokens is even, so t < tokens => t + 1 too
+    mk[j][0] = t < tokens ? to_float(mask[t]) : 0.f;
+    mk[j][1] = t < tokens ? to_float(mask[t + 1]) : 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = d0 + 64 * m + 16 * (warp % 4) + lane / 4 + 8 * half;
+      if (d >= cout) continue;
+      const float bd = to_float(bias[d]);
+      bf16* row = ob + (long)d * tokens;
+#pragma unroll
+      for (int j = 0; j < kN8; ++j) {
+        const int t = t_lo + 8 * j;
+        if (t >= tokens) continue;
+        float v[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float r = to_float(
+              from_float<bf16>(acc[m][4 * j + 2 * half + u] + bd));
+          v[u] = mk[j][u] == 0.f ? 0.f : r * mk[j][u];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(row + t) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
   }
 }
 
-template <bool SHIFTS>
-cudaError_t launch_tc(const void* x, const void* w9, const void* bias,
-                      const void* mask, void* out, int batch, int c, int cout,
-                      int tokens, int wp, cudaStream_t stream) {
-  if (tokens % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
-  const TcLayout L(wp);
-  if ((L.rows / 8) * kTcKC > kTcXRegs * kThreads) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(cm_conv_tc_kernel<SHIFTS>, L.total);
+template <int MT>
+cudaError_t launch_tc(int shifts, const void* x, const void* w9,
+                      const void* bias, const void* mask, void* out,
+                      void* xt, int batch, int c, int cout, int tokens,
+                      int wp, int smem, cudaStream_t stream) {
+  using S = ConvShape<MT>;
+  if (smem != S::BYTES) return cudaErrorInvalidValue;
+  const int cp = (c + 7) / 8 * 8, rows = wp + 1 + tokens;
+  const dim3 rgrid((tokens + 63) / 64, (cp + 63) / 64, batch);
+  cm_conv_relayout_kernel<<<rgrid, 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(xt), c, cp, tokens,
+      wp + 1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((tokens + kTcBN - 1) / kTcBN, (cout + kTcBM - 1) / kTcBM,
-                  batch);
-  cm_conv_tc_kernel<SHIFTS><<<grid, kThreads, L.total, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w9),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(mask),
-      static_cast<bf16*>(out), c, cout, tokens, wp);
+  // xt (B, rows, Cp) and w9 (9, C, Cout), innermost dimension first
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[3] = {(uint64_t)cp, (uint64_t)rows, (uint64_t)batch};
+  const uint64_t xstrides[2] = {(uint64_t)cp * 2, (uint64_t)cp * rows * 2};
+  const uint32_t xbox[3] = {(uint32_t)kTcKC, kTcBN / 2, 1};
+  err = make_bf16_map(&xmap, xt, 3, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {(uint64_t)cout, (uint64_t)c, 9};
+  const uint64_t wstrides[2] = {(uint64_t)cout * 2, (uint64_t)cout * c * 2};
+  const uint32_t wbox[3] = {64, (uint32_t)kTcKC, 1};
+  err = make_bf16_map(&wmap, w9, 3, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(cm_conv_tc_kernel<MT>, S::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tokens + kTcBN - 1) / kTcBN,
+                  (cout + 64 * MT - 1) / (64 * MT), batch);
+  cm_conv_tc_kernel<MT><<<grid, kTcThreads, S::BYTES, stream>>>(
+      xmap, wmap, static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(mask), static_cast<bf16*>(out), c, cout,
+      tokens, wp, shifts);
   return cudaGetLastError();
 }
 
+// The block heights (mt) that cm_conv.py::_plan chooses from.
+cudaError_t dispatch_tc(int mt, int shifts, const void* x, const void* w9,
+                        const void* bias, const void* mask, void* out,
+                        void* xt, int batch, int c, int cout, int tokens,
+                        int wp, int smem, cudaStream_t s) {
+  if (tokens % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
+  switch (mt) {
+#define RCDMS_CONV_CASE(MT)                                                  \
+  case MT:                                                                   \
+    return launch_tc<MT>(shifts, x, w9, bias, mask, out, xt, batch, c, cout, \
+                         tokens, wp, smem, s);
+    RCDMS_CONV_CASE(1)
+    RCDMS_CONV_CASE(2)
+    RCDMS_CONV_CASE(3)
+    RCDMS_CONV_CASE(4)
+    RCDMS_CONV_CASE(5)
+#undef RCDMS_CONV_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t dispatch(int tensor, int shifts, const void* x, const void* w9,
+cudaError_t dispatch(int shifts, const void* x, const void* w9,
                      const void* bias, const void* mask, void* out, int batch,
                      int c, int cout, int tokens, int wp, cudaStream_t s) {
-  if (tensor) {
-    if constexpr (std::is_same<T, bf16>::value) {
-      if (shifts)
-        return launch_tc<true>(x, w9, bias, mask, out, batch, c, cout, tokens,
-                               wp, s);
-      return launch_tc<false>(x, w9, bias, mask, out, batch, c, cout, tokens,
-                              wp, s);
-    }
-    return cudaErrorInvalidValue;
-  }
   if (shifts)
     return launch<T, true>(x, w9, bias, mask, out, batch, c, cout, tokens, wp,
                            s);
@@ -397,23 +467,32 @@ cudaError_t dispatch(int tensor, int shifts, const void* x, const void* w9,
 
 // x: (batch, c, tokens); w9: (9, c, cout); bias: (cout,); mask: (tokens,);
 // out: (batch, cout, tokens). All contiguous, one dtype. wp: the padded
-// frame's row width (tap offsets dy * wp + dx). tensor: 1 for the
-// tensor-core kernel (bf16; tokens and cout multiples of 8, x and w9 16-byte
-// aligned), 0 for the CUDA-core one. shifts: 0 drops the tap offsets.
-extern "C" int rcdms_cm_conv_fwd(int dtype, int tensor, int shifts,
+// frame's row width (tap offsets dy * wp + dx). shifts: 0 drops the tap
+// offsets. mt > 0 takes the tensor-core kernels (bf16; tokens and cout
+// multiples of 8, x and w9 16-byte aligned) with blocks of 64 mt output
+// channels and smem bytes of shared memory, the plan of
+// cm_conv.py::_plan, which must be what the kernel lays out, and xt a
+// scratch of (batch, wp + 1 + tokens, c rounded up to 8) bf16, 16-byte
+// aligned; mt = 0 the CUDA-core one (xt unused).
+extern "C" int rcdms_cm_conv_fwd(int dtype, int mt, int smem, int shifts,
                                  const void* x, const void* w9,
                                  const void* bias, const void* mask, void* out,
-                                 int batch, int c, int cout, int tokens,
-                                 int wp, void* stream) {
+                                 void* xt, int batch, int c, int cout,
+                                 int tokens, int wp, void* stream) {
   using namespace rcdms;
   if (batch <= 0 || c <= 0 || cout <= 0 || tokens <= 0 || wp <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mt > 0) {
+    if (dtype != kBFloat16) return cudaErrorInvalidValue;
+    return dispatch_tc(mt, shifts, x, w9, bias, mask, out, xt, batch, c,
+                       cout, tokens, wp, smem, s);
+  }
   if (dtype == kFloat32)
-    return dispatch<float>(tensor, shifts, x, w9, bias, mask, out, batch, c,
-                           cout, tokens, wp, s);
+    return dispatch<float>(shifts, x, w9, bias, mask, out, batch, c, cout,
+                           tokens, wp, s);
   if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(tensor, shifts, x, w9, bias, mask, out,
-                                   batch, c, cout, tokens, wp, s);
+    return dispatch<__nv_bfloat16>(shifts, x, w9, bias, mask, out, batch, c,
+                                   cout, tokens, wp, s);
   return cudaErrorInvalidValue;
 }

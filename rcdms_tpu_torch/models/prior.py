@@ -75,6 +75,8 @@ class FramePrior(nn.Module):
         inner, seq = cfg.inner_dim, cfg.seq_len
         dtype = x_t.dtype
 
+        # the time MLP is fp32, so h (and with it the residual stream of
+        # every block) is fp32 in a bf16 model, as jnp's promotion makes it
         t_emb = sinusoidal_time_embedding(timesteps.reshape(b * f), inner)
         t_emb = self.time_embedding(t_emb.to(dtype)).reshape(b, f, 1, inner)
         h = torch.cat([
@@ -95,7 +97,8 @@ class FramePrior(nn.Module):
         for i in range(0, len(self.transformer_blocks), 2):
             h = self.transformer_blocks[i](h, mask=mask)
             h = self.transformer_blocks[i + 1](h)
-        return self.proj_to_clip_embeddings(self.norm_out(h)[:, :, -1])
+        out = self.proj_to_clip_embeddings
+        return out(self.norm_out(h)[:, :, -1].to(out.weight.dtype))
 
     def denormalize(self, latents: torch.Tensor) -> torch.Tensor:
         """`post_process_latents`: latents * clip_std + clip_mean."""

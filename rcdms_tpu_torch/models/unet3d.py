@@ -112,6 +112,8 @@ class StoryUNet(nn.Module):
         self.conv_out = FrameConv(ch0, cfg.out_channels, 3, padding=1)
 
     def time_embed(self, timesteps: torch.Tensor, dtype) -> torch.Tensor:
+        """(b,) -> (b, ch0 * 4) fp32: the sinusoid rounded to `dtype`, then
+        the fp32 time MLP, as the JAX package computes it."""
         t = sinusoidal_time_embedding(timesteps, self.cfg.block_channels[0])
         return self.time_embedding(t.to(dtype))
 

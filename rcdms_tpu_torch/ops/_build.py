@@ -47,9 +47,10 @@ SIGNATURES = {
     "rcdms_ff_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # mode, bn, smem, x, w, bias, y, M, N, K, stream (bf16)
     "rcdms_ff_gemm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, tensor, shifts, x, w9, bias, mask, out, B, C, Cout, T, wp, stream
-    "rcdms_cm_conv_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P],
+    # dtype, mt, smem, shifts, x, w9, bias, mask, out, xt, B, C, Cout, T,
+    # wp, stream
+    "rcdms_cm_conv_fwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P],
     # dtype, x, mean, mean2, B, N, C, stream
     "rcdms_gn_moments": [_I, _P, _P, _P, _I, _I, _I, _P],
     # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, stream

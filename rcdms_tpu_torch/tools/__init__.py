@@ -12,6 +12,9 @@ formulations:
     python -m rcdms_tpu_torch.tools.pv_overlap_study
     python -m rcdms_tpu_torch.tools.pv_softmax_study
 
+`conv_device_times` prints the conv kernel's device time by kernel beside
+cuDNN's, from `torch.profiler`.
+
 Each module's `run(dev, dtype)` returns its rows (one dict each: the row's
 name and shape, its median time, its rate and its error against the study's
 reference; the attention studies add the row's bound, `bound_ms`) for

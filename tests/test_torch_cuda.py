@@ -119,10 +119,12 @@ def _frame_mask(h, w, tokens, g, dev, dtype):
 def test_cuda_study_kernels_match_plain(cuda, dtype):
     """The conv, moments and fused GroupNorm kernels against their plain
     versions at small ragged shapes: a 10 x 13 frame (wp 15) padded to 200
-    tokens, 24 -> 40 channels (the tensor-core conv in bf16: a partial
-    channel chunk, a token tile past the frame), and 61 tokens with every
-    mask value live, 5 -> 6 channels (the CUDA-core conv; taps read past
-    both ends); moments over 100 and 37 rows (16-byte and scalar loads);
+    tokens, 24 -> 40 channels, and a 20 x 18 frame (wp 20) padded to 512
+    tokens, 100 -> 360 channels (both the tensor-core conv in bf16: partial
+    channel chunks, a Cout tile cut short, token tiles past the frame; the
+    launch-path counter shows they took it), and 61 tokens with every mask
+    value live, 5 -> 6 channels (the CUDA-core conv; taps read past both
+    ends); moments over 100 and 37 rows (16-byte and scalar loads);
     GroupNorm with 3 and 16 channels a group over 50 and 7 rows."""
     g = torch.Generator(cuda).manual_seed(1)
 
@@ -130,9 +132,12 @@ def test_cuda_study_kernels_match_plain(cuda, dtype):
         return (torch.randn(s, generator=g, device=cuda) * scale).to(dtype)
 
     ops.reset_launch_counts()
+    cm_conv3x3.tensor_launches = 0
     conv_cases = [
         (r(2, 24, 200), r(9, 24, 40, scale=0.07), r(40),
          _frame_mask(10, 13, 200, g, cuda, dtype), 15),
+        (r(1, 100, 512), r(9, 100, 360, scale=0.03), r(360),
+         _frame_mask(20, 18, 512, g, cuda, dtype), 20),
         (r(1, 5, 61), r(9, 5, 6, scale=0.15), r(6),
          (0.5 + torch.rand(61, generator=g, device=cuda)).to(dtype), 7),
     ]
@@ -154,8 +159,9 @@ def test_cuda_study_kernels_match_plain(cuda, dtype):
         assert _rel(group_norm_act(*args),
                     group_norm_act_plain(*args)) <= TOL[dtype]
     torch.cuda.synchronize()
+    assert cm_conv3x3.tensor_launches == (4 if dtype == torch.bfloat16 else 0)
     assert ops.launch_counts("studies") == {
-        "cm_conv3x3": 4, "gn_moments": 2, "group_norm_act": 2,
+        "cm_conv3x3": 6, "gn_moments": 2, "group_norm_act": 2,
         "smallk_attention": 0, "attn_scores": 0, "attn_pv": 0,
         "attn_softmax": 0}
     assert set(ops.launch_counts("story").values()) == {0}

@@ -2,17 +2,21 @@
 
 `rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, `mma.sync` attention),
 `rcdms_tpu_torch/ops/geglu.py::_plan` (kernels C and D, two TMA + `wgmma`
-GEMM passes) and `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
-studies' whole attention block on `mma.sync`) are pure Python: they choose the tile shapes and compute the
-shared memory that the CUDA kernels lay out (the kernels refuse a plan
-whose bytes differ from their own). Here every shape of the story's main
-path (those `chip_smoke.py` holds the kernels to) must fit one block's
-232,448 bytes of shared memory on the H100, the padded widths must be the
-designs', and shapes the kernels do not take must raise."""
+GEMM passes), `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
+studies' whole attention block on `mma.sync`) and
+`rcdms_tpu_torch/ops/cm_conv.py::_plan` (the bf16 3x3 conv, an implicit
+GEMM on TMA + `wgmma`) are pure Python: they choose the tile shapes and
+compute the shared memory that the CUDA kernels lay out (the kernels refuse
+a plan whose bytes differ from their own). Here every shape of the story's
+main path and the study shapes (those `chip_smoke.py` and the card tests
+hold the kernels to) must fit one block's 232,448 bytes of shared memory on
+the H100, the padded widths must be the designs', and shapes the kernels do
+not take must raise."""
 
 import pytest
 
-from rcdms_tpu_torch.ops import flash, geglu, smallk
+from rcdms_tpu_torch.ops import cm_conv, flash, geglu, smallk
+from rcdms_tpu_torch.tools import cm_conv_study
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -129,3 +133,60 @@ def test_smallk_plan(cm, dk, split, dscore, smem):
 def test_smallk_plan_refuses(cm, dk):
     with pytest.raises(ValueError):
         smallk._plan(cm, dk, 1, False)
+
+
+# the bf16 conv: (B, C, Cout, T, wp) of the study (5 frames of 64 x 64
+# padded to 4608 tokens, 320 -> 320) and of the card tests' tensor-core
+# cases (a partial channel chunk, a Cout tile cut short, a token tile past
+# the frame)
+CONV_SHAPES = [(5, 320, 320, 4608, 66), (2, 24, 40, 200, 15),
+               (1, 100, 360, 512, 20)]
+
+
+@pytest.mark.parametrize("b,c,cout,t,wp", CONV_SHAPES)
+def test_conv_plan_fits_and_covers(b, c, cout, t, wp):
+    plan = cm_conv._plan(b, c, cout, t, wp)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert 1 <= plan["mt"] <= cm_conv.MAX_MT and plan["bm"] == 64 * plan["mt"]
+    stage = (plan["mt"] * 64 + 2 * 48) * 64 * 2  # mt w9 boxes, two xt boxes
+    assert plan["smem"] == plan["stages"] * stage + 16 * plan["stages"] + 1024
+    # the accumulators fit the register budget the plan states, with room
+    # for the addresses, descriptors and epilogue
+    assert plan["threads"] == 384 and plan["reg_budget"] == 232
+    assert (128 * cm_conv.PRODUCER_REGS + 256 * plan["reg_budget"]
+            <= cm_conv.REGISTERS)
+    assert plan["acc_regs"] == 24 * plan["mt"] <= plan["reg_budget"] - 48
+    # the tiles cover Cout and T, with less than one tile to spare
+    gx, gy, gz = plan["grid"]
+    assert gz == b
+    assert gx * plan["bn"] >= t > (gx - 1) * plan["bn"]
+    assert gy * plan["bm"] >= cout > gy * plan["bm"] - 64
+    assert plan["k_stages"] == 9 * -(-c // 64)
+    # the token-major copy of x: guard rows reach the most negative tap
+    _, rows, cp = plan["scratch"]
+    assert rows == t + wp + 1 and cp % 8 == 0 and c <= cp < c + 8
+    assert min(cm_conv.tap_offsets(wp)) + (rows - t) >= 0
+
+
+def test_conv_plan_study_shape():
+    """All 320 output channels in one block (five m64 tiles, 120
+    accumulators a thread), 48 token tiles of 96 a frame, of which 45 hold
+    a live mask value: 225 blocks compute (two waves of 132 SMs) and 15
+    write zeros."""
+    plan = cm_conv._plan(cm_conv_study.B, cm_conv_study.C,
+                         cm_conv_study.COUT, cm_conv_study.TPAD,
+                         cm_conv_study.WP)
+    assert plan["mt"] == 5 and plan["acc_regs"] == 120
+    assert plan["grid"] == (48, 1, 5) and plan["k_stages"] == 45
+    assert plan["smem"] == 214080
+    # the blocks whose 96 tokens hold a nonzero mask value compute
+    live = cm_conv_study.interior_mask_pad().reshape(-1, plan["bn"]) != 0
+    assert int(live.any(dim=1).sum()) == 45
+
+
+@pytest.mark.parametrize("b,c,cout,t,wp", [
+    (1, 16, 40, 61, 7), (1, 16, 36, 64, 7), (0, 16, 40, 64, 7),
+    (1, 0, 40, 64, 7), (1, 16, 0, 64, 7), (1, 16, 40, 64, 0)])
+def test_conv_plan_refuses(b, c, cout, t, wp):
+    with pytest.raises(ValueError):
+        cm_conv._plan(b, c, cout, t, wp)
