@@ -18,6 +18,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    call that computes the same function where there is one (SDPA beside A,
    B and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
    GN), and the case's bound (its work at the card's published peaks);
+   each bf16 B case must take B's tiled kernel (its launch count is
+   printed), each fp32 one the general kernel;
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3;
@@ -26,7 +28,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    weights: the story-independent conditioning cache, two requests with
    their own generators, and request 1 again. Frames must be finite, in
    [0, 1], of shape (1, 5, 512, 512, 3), the repeat equal to the first run
-   within 1e-3, and every kernel of the story (A-D) must have launched.
+   within 1e-3, every kernel of the story (A-D) must have launched, and
+   every B launch must have taken the tiled kernel.
    Then one more request under `torch.profiler`: the device time of its
    kernels summed by name into A, B, C/D, cuDNN and other, each group's
    seconds and share printed and written to
@@ -144,22 +147,26 @@ def kernel_cases(dev, dtype):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     cases = []
-    # kernel A: UNet self/cross attention per level, CLIP vision attention
-    attn_shapes = [(1, 5, s, skv, c, 8, f"unet {tag} Sq={s} Skv={skv} "
-                    f"dh={c // 8}")
+    # kernel A: UNet self/cross attention per level (the plain version's
+    # l from the rounded P, as `_nt_kernel`), CLIP vision attention (l
+    # from the fp32 P, as `_attn_kernel`)
+    attn_shapes = [(1, 5, s, skv, c, 8, "rounded", f"unet {tag} Sq={s} "
+                    f"Skv={skv} dh={c // 8}")
                    for s, c in ((4096, 320), (1024, 640), (256, 1280))
                    for skv, tag in ((s, "self"), (91, "cross"))]
-    attn_shapes.append((5, 1, 257, 257, 1664, 16, "clip-vision S=257 dh=104"))
-    for b, f, s, skv, c, heads, label in attn_shapes:
+    attn_shapes.append((5, 1, 257, 257, 1664, 16, "fp32",
+                        "clip-vision S=257 dh=104"))
+    for b, f, s, skv, c, heads, row_sum, label in attn_shapes:
         lead = (b, f) if b == 1 else (b,)
         q, k, v = r(*lead, s, c), r(*lead, skv, c), r(*lead, skv, c)
         dh = c // heads
         bh = b * f * heads
         cases.append(Case(
             "attention", label,
-            lambda q=q, k=k, v=v, h=heads: flash_attention(q, k, v, h),
-            lambda q=q, k=k, v=v, h=heads, dh=dh: attention_plain(
-                q, k, v, h, dh ** -0.5),
+            lambda q=q, k=k, v=v, h=heads, rs=row_sum: flash_attention(
+                q, k, v, h, row_sum=rs),
+            lambda q=q, k=k, v=v, h=heads, dh=dh, rs=row_sum: attention_plain(
+                q, k, v, h, dh ** -0.5, row_sum=rs),
             (4 * bh * s * skv * dh, bh * s * skv, 2 * _nbytes(q, k)),
             lambda q=q, k=k, v=v, h=heads, dh=dh:
                 F.scaled_dot_product_attention(
@@ -345,6 +352,7 @@ def check_kernels(dev, card: str) -> dict:
     per-kernel summary (bf16 times at each kernel's first listed shape,
     the largest error over all shapes and both dtypes)."""
     from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
     from rcdms_tpu_torch.tools import bound_ms, median_ms, rel_err
 
     print(f"kernels on {card}: median ms of 10 calls: kernel, plain, "
@@ -354,8 +362,14 @@ def check_kernels(dev, card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in kernel_cases(dev, dtype):
             name, label = case.name, case.label
+            frame_attention.tiled_launches = 0
             out, ref = case.kernel(), case.plain()
             torch.cuda.synchronize()
+            tiled = frame_attention.tiled_launches
+            if name == "frame_attention" and tiled != int(
+                    dtype == torch.bfloat16):
+                raise AssertionError(f"B {label} {dtype}: {tiled} tiled "
+                                     f"launches")
             if isinstance(out, tuple):  # gn_moments: mean, mean of squares
                 err = max(_max_diff(o, p) for o, p in zip(out, ref))
                 rel = max(rel_err(o, p) for o, p in zip(out, ref))
@@ -369,12 +383,16 @@ def check_kernels(dev, card: str) -> dict:
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                        lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+            if name == "frame_attention":
+                row["tiled_launches"] = tiled
             rows.append(row)
-            lib = "-" if lib_ms is None else f"{lib_ms:.3f}"
+            lib = "-" if lib_ms is None else f"{lib_ms:.4f}"
             print(f"kernel {name:16s} {row['dtype']:8s} {label:34s} "
-                  f"rel_err {rel:.2e} kernel {ms:9.3f} ms "
-                  f"plain {plain_ms:9.3f} ms library {lib} ms "
-                  f"bound {bound:.4f} ms ({bound_by})", flush=True)
+                  f"rel_err {rel:.2e} kernel {ms:9.4f} ms "
+                  f"plain {plain_ms:9.4f} ms library {lib} ms "
+                  f"bound {bound:.4f} ms ({bound_by})"
+                  + (f" tiled {tiled}" if name == "frame_attention" else ""),
+                  flush=True)
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"{name} {label} {dtype}: relative "
                                      f"error {rel:.3e} > {TOL[dtype]}")
@@ -491,6 +509,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
     """Phase 5: build, cache, two requests and a repeat; returns the
     per-request seconds and the launch counts of the main path."""
     from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
     from rcdms_tpu_torch.sample.pipeline import build_pipeline
 
     t0 = time.perf_counter()
@@ -522,6 +541,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
               f"{seconds[-1]:.3f} s", flush=True)
         results.append(frames)
     counts = ops.launch_counts("story")
+    counts["frame_attention_tiled"] = frame_attention.tiled_launches
 
     f = configs.prior.num_frames
     for frames in results:
@@ -540,6 +560,10 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    if counts["frame_attention_tiled"] != counts["frame_attention"]:
+        raise AssertionError(f"B took the general kernel on the main path: "
+                             f"{counts['frame_attention_tiled']} of "
+                             f"{counts['frame_attention']} launches tiled")
     print(f"story: repeat max|diff| {repeat_err:.2e}; launches {counts}",
           flush=True)
     profile = profile_request(pipe, requests[1], cache, dev, 12)
@@ -552,7 +576,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
 # norms, elementwise PyTorch kernels, copies)
 KERNEL_GROUPS = (
     ("C/D", ("ff_gemm_kernel", "rcdms::(anonymous namespace)::ff_kernel")),
-    ("B", ("frame_attention_kernel",)),
+    ("B", ("frame_attention_kernel", "frame_attention_tiled_kernel")),
     ("A", ("attention_mma_kernel",
            "rcdms::(anonymous namespace)::attention_kernel")),
     ("cuDNN", ("cudnn", "fprop", "implicit_gemm", "winograd")),
@@ -693,6 +717,8 @@ def main() -> int:
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"], shape=s["shape"]))
+        if name == "frame_attention":
+            kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

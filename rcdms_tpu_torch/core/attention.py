@@ -53,7 +53,8 @@ class Attention(nn.Module):
                                  "without a mask")
             o = frame_attention(q, k, v, self.heads)
         else:
-            o = multihead_attention(q, k, v, self.heads, mask)
+            o = multihead_attention(q, k, v, self.heads, mask,
+                                    row_sum="rounded")
         return self.to_out[0](o)
 
 

@@ -43,7 +43,8 @@ class _SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         o = multihead_attention(self.q_proj(x), self.k_proj(x),
-                                self.v_proj(x), self.heads, mask)
+                                self.v_proj(x), self.heads, mask,
+                                row_sum="fp32")
         return self.out_proj(o)
 
 

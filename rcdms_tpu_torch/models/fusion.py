@@ -41,7 +41,8 @@ class PackedMultiheadAttention(nn.Module):
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         o = multihead_attention(F.linear(x, wq, bq), F.linear(context, wk, bk),
-                                F.linear(context, wv, bv), self.heads)
+                                F.linear(context, wv, bv), self.heads,
+                                row_sum="rounded")
         return self.out_proj(o)
 
 

@@ -52,7 +52,8 @@ class VAEAttnBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
         y = self.group_norm(x).reshape(n, h * w, c)
-        o = multihead_attention(self.to_q(y), self.to_k(y), self.to_v(y), 1)
+        o = multihead_attention(self.to_q(y), self.to_k(y), self.to_v(y), 1,
+                                row_sum="fp32")
         return x + self.to_out[0](o).reshape(x.shape)
 
 

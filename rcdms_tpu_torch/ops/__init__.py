@@ -42,8 +42,12 @@ KERNELS = {name: fn for kernels in PATHS.values()
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's count, and the counts of a kernel's redesigned
+    path (`frame_attention.tiled_launches`, `cm_conv3x3.tensor_launches`)."""
     for fn in KERNELS.values():
-        fn.launches = 0
+        for name in ("launches", "tiled_launches", "tensor_launches"):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
 
 
 def launch_counts(path: str | None = None) -> dict:

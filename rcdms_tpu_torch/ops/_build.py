@@ -40,9 +40,10 @@ SIGNATURES = {
     # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq, smem, stream
     "rcdms_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                             _I, _I, _I, _P],
-    # dtype, q, k, v, o, b, f, n, c, heads, scale, stream
+    # dtype, q, k, v, o, b, f, n, c, heads, scale, tokens, group, split,
+    # smem, grid, stream
     "rcdms_frame_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                  _P],
+                                  _I, _I, _I, _I, _I, _P],
     # geglu, x, w1, b1, w2, b2, y, rows, c, inner, stream (fp32)
     "rcdms_ff_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # mode, bn, smem, x, w, bias, y, M, N, K, stream (bf16)

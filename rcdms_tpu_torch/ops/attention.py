@@ -45,13 +45,17 @@ def uses_kernel(dtype: torch.dtype, dh: int, queries: int,
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        heads: int,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        heads: int, mask: Optional[torch.Tensor] = None, *,
+                        row_sum: str) -> torch.Tensor:
     """Attention over token-major projections (..., S, heads*dh) ->
-    (..., Sq, heads*dh), routed as the module docstring says."""
+    (..., Sq, heads*dh), routed as the module docstring says. `row_sum`
+    names the TPU kernel family whose bf16 rounding a kernel site follows
+    (`ops.flash.attention_plain`): "rounded" where the JAX package's layer
+    calls `flash_attention_nt` (`core/attention.py`), "fp32" where it calls
+    `ops.attention.dot_product_attention` (CLIP, the VAE)."""
     dh = q.shape[-1] // heads
     if uses_kernel(q.dtype, dh, q.shape[-2], mask is not None):
-        return flash_attention(q, k, v, heads)
+        return flash_attention(q, k, v, heads, row_sum=row_sum)
     o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), mask)
     return o.transpose(-3, -2).reshape(q.shape[:-1] + (heads * dh,))

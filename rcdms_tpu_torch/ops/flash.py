@@ -17,6 +17,16 @@ runs the `mma.sync` kernel with the launch plan of `_plan` (dh a multiple
 of 8 up to 256, 16-byte aligned operands: every site of the main path),
 fp32 the CUDA-core kernel (dh up to 256). `flash_attention.launches`
 counts launches.
+
+In bf16 the two TPU kernels round alike (P = exp(s - max) to bf16 before
+P.V) but take the row sum l from different P: `_nt_kernel` from the rounded
+P, `_attn_kernel` from the fp32 P. Each call site names its family with
+`row_sum` ("rounded": the UNet's spatial sites, which the JAX package sends
+to `_nt_kernel`; "fp32": the CLIP vision tower's, which go to
+`_attn_kernel`), and the plain version follows it. The `mma.sync` kernel
+rounds P as both do (against its running maximum) and sums l from the
+fp32 P at every site: summing the rounded P cost more time at UNet level 0
+than the spread between runs (PERF.md).
 """
 
 from __future__ import annotations
@@ -66,20 +76,42 @@ def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(t.shape[:-1] + (heads, -1)).transpose(-3, -2)
 
 
+ROW_SUMS = ("rounded", "fp32")
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    heads: int, scale: float) -> torch.Tensor:
-    """Plain PyTorch version of kernel A: fp32 scores, softmax and product,
-    result in q.dtype."""
+                    heads: int, scale: float, *,
+                    row_sum: str) -> torch.Tensor:
+    """Plain PyTorch version of kernel A, result in q.dtype. fp32: fp32
+    scores, softmax and product. bf16 rounds as the TPU kernels do: the
+    unnormalised P = exp(s - max) is rounded to bf16 before the fp32 P.V,
+    and the row sum l comes, by `row_sum`, from the rounded P ("rounded":
+    `rcdms_tpu/ops/flash.py::_nt_kernel` :153-163, the UNet's spatial
+    sites, output times 1 / l) or from the fp32 P ("fp32": `_attn_kernel`
+    :70-75, the CLIP vision sites, output over l)."""
+    if row_sum not in ROW_SUMS:
+        raise ValueError(f"attention: row_sum {row_sum!r}, not one of "
+                         f"{ROW_SUMS}")
     qh, kh, vh = (_split_heads(t.float(), heads) for t in (q, k, v))
-    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
-    o = torch.matmul(p, vh).transpose(-3, -2)
-    return o.reshape(q.shape).to(q.dtype)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if q.dtype == torch.float32:
+        o = torch.matmul(torch.softmax(s, dim=-1), vh)
+    else:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        pr = p.to(q.dtype).float()
+        o = torch.matmul(pr, vh)
+        o = (o * (1.0 / pr.sum(-1, keepdim=True)) if row_sum == "rounded"
+             else o / p.sum(-1, keepdim=True))
+    return o.transpose(-3, -2).reshape(q.shape).to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    heads: int, scale: float | None = None) -> torch.Tensor:
+                    heads: int, scale: float | None = None, *,
+                    row_sum: str) -> torch.Tensor:
     """Fused attention over token-major, head-interleaved operands (see the
-    module docstring). scale defaults to dh ** -0.5."""
+    module docstring). scale defaults to dh ** -0.5; `row_sum` names the
+    TPU kernel family whose bf16 rounding the site follows
+    (`attention_plain`)."""
     c = q.shape[-1]
     if c % heads or k.shape[-1] != c or v.shape != k.shape \
             or q.shape[:-2] != k.shape[:-2]:
@@ -89,8 +121,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh = c // heads
     if scale is None:
         scale = dh ** -0.5
+    if row_sum not in ROW_SUMS:
+        raise ValueError(f"flash_attention: row_sum {row_sum!r}, not one "
+                         f"of {ROW_SUMS}")
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, heads, scale)
+        return attention_plain(q, k, v, heads, scale, row_sum=row_sum)
     dtype = _build.cuda_operands("flash_attention", q, k, v)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")

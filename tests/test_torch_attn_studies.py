@@ -428,3 +428,22 @@ def test_sass_mix_counts_opcodes():
                               "FFMA": 1, "total": 5}
     assert mix["_Z3mmav"] == {"HMMA": 1, "total": 2}
     assert mix["_Z5wgmmav"] == {"HGMMA": 1, "total": 2}
+
+
+_SASS_COPIES = """
+        Function : _Z5framev
+        /*0000*/                   UBLKCP.S.G [UR4], [UR6], UR8 ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   HMUL2.BF16_V2 R6, R4, R5 ;
+        /*0030*/                   STS.128 [R2], R4 ;
+        /*0040*/                   SHFL.BFLY PT, R3, R2, 0x10, 0x1f ;
+        /*0050*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R6.64] ;
+"""
+
+
+def test_sass_mix_counts_copies_and_shuffles():
+    """The opcodes that tell kernel B's tiled kernel from its general one:
+    bulk copies and bf16x2 products against shuffles."""
+    mix = instruction_mix(_SASS_COPIES)["_Z5framev"]
+    assert mix == {"UBLKCP": 1, "LDS": 1, "HMUL2": 1, "STS": 1, "SHFL": 1,
+                   "LDGSTS": 1, "total": 6}

@@ -54,6 +54,7 @@ from rcdms_tpu.io import convert
 from rcdms_tpu.models import prior as jprior
 from rcdms_tpu.models import unet3d as junet
 from rcdms_tpu.ops import flash as jflash
+from rcdms_tpu.ops.frame_attention import frame_attention_bfnc as jflash_frame
 from rcdms_tpu.ops.attention import set_default_attention_impl
 from rcdms_tpu.ops.geglu import geglu_ff as jgeglu_ff, gelu_ff as jgelu_ff
 from rcdms_tpu_torch.core.attention import BasicTransformerBlock
@@ -68,6 +69,8 @@ from rcdms_tpu_torch.core.temporal import TemporalModule
 from rcdms_tpu_torch.io import bridge
 from rcdms_tpu_torch.models import prior as tprior
 from rcdms_tpu_torch.models import unet3d as tunet
+from rcdms_tpu_torch.ops.flash import attention_plain
+from rcdms_tpu_torch.ops.frame_attention import frame_attention
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
 from rcdms_tpu_torch.sample.pipeline import build_pipeline, tiny_configs
 from tests.test_torch_configs import port_config
@@ -336,3 +339,97 @@ def test_bf16_prior_matches_jax(jax_kernels):
           f"{diff.mean() / top:.3g} of max|ref|")
     assert diff.max() <= 2e-2 * top
     assert diff.mean() <= 5e-3 * top
+
+
+def _strict(call, *args):
+    """`call` jitted with excess precision off, so XLA rounds every bf16
+    intermediate the kernel body rounds (as in
+    tests/test_torch_attn_studies.py)."""
+    return jax.jit(call).lower(*args).compile(
+        {"xla_allow_excess_precision": False})(*args)
+
+
+def _bf16_pair(ref, out):
+    """max|out - ref| / max|ref| and the share of outputs off ref's bits."""
+    out = out.float().numpy()
+    return (np.abs(out - ref).max() / np.abs(ref).max(),
+            float((out != ref).mean()))
+
+
+@pytest.mark.parametrize("f,dh,n", [(5, 40, 37), (5, 80, 37), (5, 160, 19),
+                                    (5, 256, 11), (3, 40, 37), (8, 80, 13)])
+def test_bf16_frame_attention_rounds_like_the_tpu_kernel(jax_kernels, f, dh,
+                                                         n):
+    """Kernel B's plain version against `frame_attention_bfnc` in bf16 (the
+    interpret-mode Pallas kernel, 8 heads, n ragged against its token
+    block, pad lanes zero): the scale, q * scale and every per-channel
+    product q_i k_j round to bf16 before the fp32 head sums, as in
+    `_kernel_bfnc`. The two sides differ in the order of fp32 sums only;
+    the parent's fp32 products and scale moved about 37% of the outputs."""
+    heads, b = 8, 2
+    c = heads * dh
+    c_pad = -(-c // 128) * 128
+    rng = np.random.default_rng(dh + f)
+    qkv = [rng.standard_normal((b, f, n, c)).astype(np.float32)
+           for _ in range(3)]
+    padded = [jnp.asarray(np.pad(a, ((0, 0),) * 3 + ((0, c_pad - c),)))
+              .astype(jnp.bfloat16) for a in qkv]
+    ref = _strict(lambda q, k, v: jflash_frame(q, k, v, heads, c),
+                  *padded)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert not ref[..., c:].any()
+    out = frame_attention(*(torch.from_numpy(a).bfloat16() for a in qkv),
+                          heads)
+    assert out.dtype == torch.bfloat16
+    worst, off = _bf16_pair(ref[..., :c], out)
+    # `pytest -s` shows the error, e.g. to compare two versions of the port
+    print(f"bf16 B vs the TPU kernel, f {f} dh {dh}: max {worst:.3g} of "
+          f"max|ref|, {off:.3g} of the outputs off")
+    assert worst <= 2.0 ** -7
+    assert off <= 1e-3
+
+
+@pytest.mark.parametrize("family", ["nt", "token_major"])
+@pytest.mark.parametrize("dh", [40, 80])
+def test_bf16_attention_plain_rounds_p_like_the_tpu_kernels(jax_kernels,
+                                                            family, dh):
+    """Kernel A's plain version against both TPU attention kernels in bf16,
+    in interpret mode: `flash_attention_nt` (the UNet's sites; 91 real keys
+    in its 128-row pad, row_sum "rounded": l from the bf16 P) and
+    `flash_attention` (the CLIP vision sites; row_sum "fp32": l from the
+    fp32 P). Both round the unnormalised P to bf16 before P.V. The
+    parent's fp32 P moved 21-39% of the outputs."""
+    b, heads, sq, kv_len = 2, 2, 256, 91
+    c = heads * dh
+    rng = np.random.default_rng(dh)
+    q = rng.standard_normal((b, sq, c)).astype(np.float32) * 2
+    k = rng.standard_normal((b, kv_len, c)).astype(np.float32) * 2
+    v = rng.standard_normal((b, kv_len, c)).astype(np.float32)
+    scale = dh ** -0.5
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    if family == "nt":
+        qt, kt, vt = (jnp.swapaxes(a, 1, 2) for a in bf)
+        pad = ((0, 0), (0, 0), (0, 128 - kv_len))
+        ref = _strict(lambda a, b_, c_: jflash.flash_attention_nt(
+            a, b_, c_, heads, scale, 128, kv_len), qt, jnp.pad(kt, pad),
+            jnp.pad(vt, pad))
+        ref = np.asarray(jnp.swapaxes(ref, 1, 2).astype(jnp.float32))
+        row_sum = "rounded"
+    else:
+        def split(a):  # (b, s, c) -> (b, heads, s, dh)
+            return jnp.swapaxes(a.reshape(b, -1, heads, dh), 1, 2)
+
+        ref = _strict(lambda a, b_, c_: jflash.flash_attention(
+            a, b_, c_, scale, 128, True), *map(split, bf))
+        ref = np.asarray(jnp.swapaxes(ref, 1, 2).reshape(b, sq, c)
+                         .astype(jnp.float32))
+        row_sum = "fp32"
+    out = attention_plain(*(torch.from_numpy(a).bfloat16()
+                            for a in (q, k, v)), heads, scale,
+                          row_sum=row_sum)
+    assert out.dtype == torch.bfloat16
+    worst, off = _bf16_pair(ref, out)
+    print(f"bf16 A's plain version vs the TPU kernel, {family} dh {dh}: "
+          f"max {worst:.3g} of max|ref|, {off:.3g} of the outputs off")
+    assert worst <= 2.0 ** -7
+    assert off <= 2e-3

@@ -8,11 +8,14 @@ no JAX (the repository's conftest.py configures JAX, hence --noconftest):
 
 Tolerance: max|kernel - plain| / max|plain| <= 1e-4 in fp32 (TF32 off: the
 two differ in summation order only) and 2e-2 in bf16 (kernel A rounds the
-attention probabilities to bf16 where its plain version keeps them in
-fp32; the FF kernels round where their plain versions round, and sum in
-another order; the conv and GroupNorm kernels round once, as their plain
-versions do; the small-head-dim kernels E-H take bf16 only and round where
-their plain versions round)."""
+attention probabilities to bf16 as its plain version does, but in an
+online softmax, against a running maximum; B and the FF kernels round
+where their plain versions round, and sum in another order; the conv and
+GroupNorm kernels round once, as their plain versions do; the
+small-head-dim kernels E-H take bf16 only and round where their plain
+versions round)."""
+
+import math
 
 import pytest
 import torch
@@ -77,11 +80,15 @@ def test_cuda_kernels_match_plain(cuda, dtype):
 
     ops.reset_launch_counts()
     q, k, v = r(3, 200, 80), r(3, 91, 80), r(3, 91, 80)
-    # bf16 runs the mma kernel (dh 80 and 40), fp32 the CUDA-core one
-    for heads in (1, 2) if dtype == torch.bfloat16 else (2, 4):
+    # bf16 runs the mma kernel (dh 80 and 40), fp32 the CUDA-core one; one
+    # site of each row-sum family
+    for heads, row_sum in zip((1, 2) if dtype == torch.bfloat16 else (2, 4),
+                              ("rounded", "fp32")):
         dh = 80 // heads
-        assert _rel(flash_attention(q, k, v, heads),
-                    attention_plain(q, k, v, heads, dh ** -0.5)) <= TOL[dtype]
+        assert _rel(flash_attention(q, k, v, heads, row_sum=row_sum),
+                    attention_plain(q, k, v, heads, dh ** -0.5,
+                                    row_sum=row_sum)) <= TOL[dtype]
+    # bf16 runs the tiled kernel (dh 32), fp32 the general one
     q, k, v = r(2, 5, 97, 96), r(2, 5, 97, 96), r(2, 5, 97, 96)
     assert _rel(frame_attention(q, k, v, 3),
                 frame_attention_plain(q, k, v, 3, 32 ** -0.5)) <= TOL[dtype]
@@ -219,11 +226,70 @@ def test_cuda_attention_tile_edges(cuda, dh):
     ops.reset_launch_counts()
     for skv in (91, 200):
         q, k, v = r(3, 200, 2 * dh), r(3, skv, 2 * dh), r(3, skv, 2 * dh)
-        out = flash_attention(q, k, v, 2)
-        assert _rel(out, attention_plain(q, k, v, 2, dh ** -0.5)) \
-            <= TOL[torch.bfloat16], (dh, skv)
+        for row_sum in ("rounded", "fp32"):
+            out = flash_attention(q, k, v, 2, row_sum=row_sum)
+            assert _rel(out, attention_plain(q, k, v, 2, dh ** -0.5,
+                                             row_sum=row_sum)) \
+                <= TOL[torch.bfloat16], (dh, skv, row_sum)
     torch.cuda.synchronize()
-    assert ops.launch_counts("story")["attention"] == 2
+    assert ops.launch_counts("story")["attention"] == 4
+
+
+# kernel B: (b, f, n, c) with 8 heads: the story's five sites at a cut n
+# (UNet levels 0-3 as tiles of 4 and 2 token rows and of one token and 4
+# heads and 1 head, the prior's dh 256 as one token and 4 heads), one
+# token and 2 heads, level 0 whole (each block walks about four tiles
+# through the ring), then n = 1, an n one row past a whole number of
+# 4-row tiles, dh 8, and f 1, 3 and 8
+FRAME_CASES = [(1, 5, 1056, 320), (1, 5, 528, 640), (1, 5, 132, 1280),
+               (1, 5, 64, 1280), (2, 5, 97, 2048), (1, 5, 66, 1280),
+               (1, 5, 4096, 320), (1, 5, 1, 320), (1, 5, 1057, 320),
+               (1, 5, 200, 64), (1, 1, 300, 320), (1, 3, 200, 640),
+               (2, 8, 50, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FRAME_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_frame_attention_tiles(cuda, dtype, shape):
+    """B against its plain version: bf16 takes the tiled kernel (its
+    launch counter shows it), fp32 the general one."""
+    g = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    dh = shape[-1] // 8
+    ops.reset_launch_counts()
+    out = frame_attention(q, k, v, 8)
+    assert _rel(out, frame_attention_plain(q, k, v, 8, dh ** -0.5)) \
+        <= TOL[dtype], shape
+    torch.cuda.synchronize()
+    assert frame_attention.launches == 1
+    assert frame_attention.tiled_launches == int(dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_frame_attention_general_shapes(cuda):
+    """bf16 operands the tiled kernel does not take run the general kernel
+    with the same rounding: views 2 bytes off 16-byte alignment, and a
+    head dim (12) that is no multiple of 8."""
+    g = torch.Generator(cuda).manual_seed(6)
+
+    def r(shape, offset=0):
+        flat = torch.randn(math.prod(shape) + offset, generator=g,
+                           device=cuda).bfloat16()
+        return flat[offset:].view(shape)
+
+    ops.reset_launch_counts()
+    for shape, heads, offset in (((1, 5, 130, 320), 8, 1),
+                                 ((2, 5, 97, 96), 8, 0)):
+        q, k, v = r(shape, offset), r(shape, offset), r(shape, offset)
+        assert q.is_contiguous()
+        dh = shape[-1] // heads
+        assert _rel(frame_attention(q, k, v, heads),
+                    frame_attention_plain(q, k, v, heads, dh ** -0.5)) \
+            <= TOL[torch.bfloat16], shape
+    torch.cuda.synchronize()
+    assert frame_attention.tiled_launches == 0
 
 
 @pytest.mark.gpu
@@ -258,10 +324,10 @@ def test_cuda_ff_tile_edges(cuda, rows, c, geglu):
 def test_cuda_wrappers_raise_on_bad_operands(cuda):
     x = torch.zeros(2, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        flash_attention(x, x, x, 2)
+        flash_attention(x, x, x, 2, row_sum="rounded")
     y = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
-        flash_attention(y, y, y, 2)
+        flash_attention(y, y, y, 2, row_sum="rounded")
     f = torch.zeros(4, 16, device=cuda)
     with pytest.raises(ValueError):  # w1 is (inner, c), not (c, inner)
         gelu_ff(f, torch.zeros(16, 64, device=cuda),
@@ -271,14 +337,14 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda):
     ops.reset_launch_counts()
     h = torch.zeros(2, 8, 40, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # dh 20: not a multiple of 8
-        flash_attention(h, h, h, 2)
+        flash_attention(h, h, h, 2, row_sum="rounded")
     wide = torch.zeros(1, 8, 528, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # dh 264 > 256
-        flash_attention(wide, wide, wide, 2)
+        flash_attention(wide, wide, wide, 2, row_sum="rounded")
     flat = torch.zeros(2 * 8 * 32 + 1, device=cuda, dtype=torch.bfloat16)
     odd = flat[1:].view(2, 8, 32)  # contiguous, 2 bytes off 16
     with pytest.raises(ValueError):
-        flash_attention(odd, odd, odd, 1)
+        flash_attention(odd, odd, odd, 1, row_sum="rounded")
     xb = torch.zeros(4, 100, device=cuda, dtype=torch.bfloat16)
     w1 = torch.zeros(400, 100, device=cuda, dtype=torch.bfloat16)
     b1 = torch.zeros(400, device=cuda, dtype=torch.bfloat16)

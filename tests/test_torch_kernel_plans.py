@@ -5,7 +5,9 @@
 GEMM passes), `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
 studies' whole attention block on `mma.sync`) and
 `rcdms_tpu_torch/ops/cm_conv.py::_plan` (the bf16 3x3 conv, an implicit
-GEMM on TMA + `wgmma`) are pure Python: they choose the tile shapes and
+GEMM on TMA + `wgmma`) and `rcdms_tpu_torch/ops/frame_attention.py::_plan`
+(kernel B's tiled bf16 kernel: TMA bulk copies, one thread a (token, head,
+frame) and channel slice) are pure Python: they choose the tile shapes and
 compute the shared memory that the CUDA kernels lay out (the kernels refuse
 a plan whose bytes differ from their own). Here every shape of the story's
 main path and the study shapes (those `chip_smoke.py` and the card tests
@@ -13,10 +15,16 @@ hold the kernels to) must fit one block's 232,448 bytes of shared memory on
 the H100, the padded widths must be the designs', and shapes the kernels do
 not take must raise."""
 
+import importlib
+
 import pytest
 
 from rcdms_tpu_torch.ops import cm_conv, flash, geglu, smallk
 from rcdms_tpu_torch.tools import cm_conv_study
+
+# the module, which `rcdms_tpu_torch.ops` shadows with its wrapper
+frame_attention_ops = importlib.import_module(
+    "rcdms_tpu_torch.ops.frame_attention")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -190,3 +198,75 @@ def test_conv_plan_study_shape():
 def test_conv_plan_refuses(b, c, cout, t, wp):
     with pytest.raises(ValueError):
         cm_conv._plan(b, c, cout, t, wp)
+
+
+# kernel B: (b, f, n, c) of every temporal-attention site of a story, 8
+# heads: UNet levels 0-3 and the prior (CFG batch 2, 97 tokens, dh 256)
+FRAME_SITES = [(1, 5, 4096, 320), (1, 5, 1024, 640), (1, 5, 256, 1280),
+               (1, 5, 64, 1280), (2, 5, 97, 2048)]
+
+
+def _frame_layout_bytes(f, dh, tokens, group, split):
+    """The tiled kernel's shared memory (csrc/frame_attention.cu
+    TiledLayout): two stages of 3 f frame slots, each the tile's rows
+    rounded up to 128 bytes plus 16 x split mod 128; the split threads'
+    fp32 partial scores; two mbarriers."""
+    threads = tokens * group * f * split
+    slot = -(-tokens * group * dh * 2 // 128) * 128 + 16 * split % 128
+    partials = threads * f * 4 if split > 1 else 0
+    return 2 * 3 * f * slot + partials + 16
+
+
+@pytest.mark.parametrize("f", range(1, frame_attention_ops.MAX_FRAMES + 1))
+@pytest.mark.parametrize("b,f5,n,c", FRAME_SITES)
+def test_frame_plan_fits(b, f5, n, c, f):
+    plan = frame_attention_ops._plan(b, f, n, c, 8)
+    dh = c // 8
+    tokens, group, split = plan["tokens"], plan["group"], plan["split"]
+    assert plan["smem"] == _frame_layout_bytes(f, dh, tokens, group, split)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert plan["threads"] == tokens * group * f * split
+    assert plan["threads"] <= frame_attention_ops.MAX_THREADS
+    # a stage's q, k, v fit, and each thread takes at most 5 chunks
+    assert 3 * f * tokens * group * dh * 2 <= frame_attention_ops.STAGE_MAX
+    assert -(-dh // 8 // split) <= frame_attention_ops.MAX_CHUNKS
+    assert split == 1 or -(-dh // 8 // (split // 2)) > 5
+    assert tokens == 1 or group == 8  # token rows are whole but for one
+    assert 8 % group == 0
+    assert plan["tiles"] == b * -(-n // tokens) * (8 // group)
+    assert plan["grid"] == min(plan["tiles"], 132 * plan["blocks_per_sm"])
+    # the blocks that share an SM fit its shared memory
+    assert plan["blocks_per_sm"] * (plan["smem"] + 1024) <= 233472
+
+
+def test_frame_plan_story_shapes():
+    """Level 0 in tiles of 4 token rows (2 blocks an SM walk 1024 tiles),
+    level 1 of 2; levels 2 and 3 and the prior split each token's heads
+    so that every SM gets two tiles: 512, 512 and 388 blocks, not 256, 64
+    and 194."""
+    plans = [frame_attention_ops._plan(*site, 8) for site in FRAME_SITES]
+    assert [(p["tokens"], p["group"], p["split"]) for p in plans] == [
+        (4, 8, 1), (2, 8, 2), (1, 4, 4), (1, 1, 4), (1, 4, 8)]
+    assert [p["threads"] for p in plans] == [160, 160, 80, 20, 160]
+    assert [p["grid"] for p in plans] == [264, 264, 512, 512, 388]
+    assert [p["tiles"] for p in plans] == [1024, 512, 512, 512, 388]
+    assert all(p["tiles"] >= 2 * 132 for p in plans)
+
+
+@pytest.mark.parametrize("b,f,n,c,heads", [
+    (1, 5, 64, 300, 8), (1, 0, 64, 320, 8), (1, 9, 64, 320, 8),
+    (1, 5, 64, 320, 3), (1, 5, 0, 320, 8), (1, 5, 64, 520, 1)])
+def test_frame_plan_refuses(b, f, n, c, heads):
+    with pytest.raises(ValueError):
+        frame_attention_ops._plan(b, f, n, c, heads)
+
+
+def test_frame_plan_every_taken_width_fits():
+    """Every head dim the tiled kernel takes, at 1 and 8 frames: a stage
+    holds a (token, head) and the split threads of a head share a warp."""
+    for dh in range(8, frame_attention_ops.MAX_TILED_DH + 1, 8):
+        for f in (1, 8):
+            plan = frame_attention_ops._plan(1, f, 97, 4 * dh, 4)
+            assert plan["split"] <= 32 and 32 % plan["split"] == 0
+            assert plan["smem"] <= SMEM_LIMIT, (dh, f)
+            assert plan["threads"] <= frame_attention_ops.MAX_THREADS

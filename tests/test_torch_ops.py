@@ -62,7 +62,7 @@ def test_attention_matches_flash_nt(b, heads, dh, sq, skv, kv_len):
     q = torch.from_numpy(qt).transpose(1, 2).contiguous()
     k = torch.from_numpy(kt[..., :kv_len]).transpose(1, 2).contiguous()
     v = torch.from_numpy(vt[..., :kv_len]).transpose(1, 2).contiguous()
-    out = flash_attention(q, k, v, heads)
+    out = flash_attention(q, k, v, heads, row_sum="rounded")
     np.testing.assert_allclose(out.transpose(1, 2).numpy(), np.asarray(ref),
                                **TOL)
 
@@ -78,7 +78,7 @@ def test_attention_matches_token_major_flash():
     def tm(a):  # (b, heads, s, dh) -> (b, s, heads*dh)
         return torch.from_numpy(a).permute(0, 2, 1, 3).reshape(b, s, -1)
 
-    out = flash_attention(tm(q), tm(k), tm(v), heads)
+    out = flash_attention(tm(q), tm(k), tm(v), heads, row_sum="fp32")
     np.testing.assert_allclose(
         out.reshape(b, s, heads, dh).permute(0, 2, 1, 3).numpy(),
         np.asarray(ref), **TOL)
@@ -144,13 +144,13 @@ def test_attention_router(monkeypatch, dtype, dh):
     takes = dh <= 256 and (dtype == torch.float32 or dh % 8 == 0)
     routed = []
     monkeypatch.setattr(attention_ops, "flash_attention",
-                        lambda *a: routed.append(a) or a[0])
+                        lambda *a, **kw: routed.append(a) or a[0])
     for sq, mask in ((256, None), (255, None),
                      (256, torch.zeros(1, 1, 256, 8, dtype=dtype))):
         q = torch.zeros(1, sq, 2 * dh, dtype=dtype)
         kv = torch.zeros(1, 8, 2 * dh, dtype=dtype)
         routed.clear()
-        out = multihead_attention(q, kv, kv, 2, mask)
+        out = multihead_attention(q, kv, kv, 2, mask, row_sum="rounded")
         assert out.shape == q.shape
         assert bool(routed) is (takes and sq == 256 and mask is None), \
             (sq, mask is None)
@@ -160,5 +160,5 @@ def test_attention_router(monkeypatch, dtype, dh):
 def test_cpu_wrappers_do_not_count():
     ops.reset_launch_counts()
     x = torch.zeros(1, 4, 8)
-    flash_attention(x, x, x, 2)
+    flash_attention(x, x, x, 2, row_sum="rounded")
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
