@@ -40,18 +40,36 @@ Phases, in order; any failure raises and the exit code is nonzero:
    attention studies (flash_smallk, pv_overlap, pv_softmax) in bf16; every
    row within the tolerance of phase 3 of its study's reference (the
    pv_overlap rows also within 0.02 of its fp32 oracle), and every study
-   kernel launched.
+   kernel launched;
+7. entry points (`rcdms_tpu_torch/cli/`): (a) `cli.generate.run` at full
+   width in bf16 with seeded random init (the Flintstones DatasetConfig,
+   so no h5 is opened; crc32 tokens; five fixed captions, one seeded
+   128 x 128 known frame; 20 steps, CFG 2.0, seed 42): frames finite, in
+   [0, 1], of shape (1, 5, 512, 512, 3), each of A-D launched and every B
+   launch tiled, the grid written by `save_story_grid` to
+   chiprun_out/chip_smoke_story.png with a valid PNG signature and IHDR
+   size; (b) checkpoint ingest at full width: the same build's prior
+   saved as a stage-1 blob and its UNet and fusion stacks as a stage-2
+   DeepSpeed directory (`latest` tag), in bf16, under chiprun_out/, loaded
+   by `load_rcdms_stage1` / `load_rcdms_stage2` into towers built from
+   another seed; every tensor must equal its source bit for bit, and the
+   loaded pipeline's request, on (a)'s inputs and generator, (a)'s frames
+   within 1e-3 (phase 5's repeat tolerance); the blobs are deleted
+   afterwards; (c) `python -m rcdms_tpu_torch.cli.evaluate --synthetic` in
+   fp32 on the card, two stories, continue mode: every metric of the
+   JSONL and the summary finite.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
-phase 6 only the studies' (`ops.PATHS["studies"]`): each path's counts are
-set to 0 just before it and read just after. The line before the last is
-a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
+again: each path's counts are set to 0 just before it and read just after.
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -505,6 +523,27 @@ def story_request(configs, seed: int, pixels: int, dev):
                        source_pixels=px, frame_known=known)
 
 
+def _check_frames(frames: torch.Tensor, f: int, pixels: int) -> None:
+    if frames.shape != (1, f, pixels, pixels, 3):
+        raise AssertionError(f"frames shape {tuple(frames.shape)}")
+    if not torch.isfinite(frames).all():
+        raise AssertionError("non-finite frames")
+    if frames.min() < 0 or frames.max() > 1:
+        raise AssertionError("frames outside [0, 1]")
+
+
+def _check_story_launches(counts: dict, where: str) -> None:
+    """Each story kernel launched, and every B launch took the tiled
+    kernel."""
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched {where}: {missing}")
+    if counts["frame_attention_tiled"] != counts["frame_attention"]:
+        raise AssertionError(f"B took the general kernel {where}: "
+                             f"{counts['frame_attention_tiled']} of "
+                             f"{counts['frame_attention']} launches tiled")
+
+
 def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
     """Phase 5: build, cache, two requests and a repeat; returns the
     per-request seconds and the launch counts of the main path."""
@@ -543,27 +582,14 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
     counts = ops.launch_counts("story")
     counts["frame_attention_tiled"] = frame_attention.tiled_launches
 
-    f = configs.prior.num_frames
     for frames in results:
-        if frames.shape != (1, f, pixels, pixels, 3):
-            raise AssertionError(f"frames shape {tuple(frames.shape)}")
-        if not torch.isfinite(frames).all():
-            raise AssertionError("non-finite frames")
-        if frames.min() < 0 or frames.max() > 1:
-            raise AssertionError("frames outside [0, 1]")
+        _check_frames(frames, configs.prior.num_frames, pixels)
     repeat_err = (results[2] - results[0]).abs().max().item()
     if repeat_err > 1e-3:
         raise AssertionError(f"repeat differs by {repeat_err}")
     if (results[1] - results[0]).abs().max().item() == 0:
         raise AssertionError("two different requests gave equal frames")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    if counts["frame_attention_tiled"] != counts["frame_attention"]:
-        raise AssertionError(f"B took the general kernel on the main path: "
-                             f"{counts['frame_attention_tiled']} of "
-                             f"{counts['frame_attention']} launches tiled")
+    _check_story_launches(counts, "on the main path")
     print(f"story: repeat max|diff| {repeat_err:.2e}; launches {counts}",
           flush=True)
     profile = profile_request(pipe, requests[1], cache, dev, 12)
@@ -674,6 +700,192 @@ def run_studies(dev, card: str) -> dict:
     return counts
 
 
+# phase 7's request: five Flintstones captions and one known frame
+ENTRY_CAPTIONS = [
+    "Fred and Barney stand in the living room talking.",
+    "Wilma walks into the kitchen holding a plate.",
+    "Betty and Wilma laugh together on the couch.",
+    "Dino runs across the yard after Pebbles.",
+    "Mr. Slate shouts at Fred in the quarry office.",
+]
+
+
+def _png_size(path: str) -> tuple:
+    """(width, height) from a PNG's IHDR; raises unless the file starts
+    with the PNG signature and an IHDR chunk."""
+    import struct
+
+    from rcdms_tpu_torch.sample.eval import PNG_SIGNATURE
+
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def entry_generate(dev, args, frame0) -> torch.Tensor:
+    """Phase 7a: `cli.generate.run` at full width; returns its frames."""
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import generate
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
+    from rcdms_tpu_torch.sample.eval import save_story_grid
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames, embeds = generate.run(args, ENTRY_CAPTIONS, [frame0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts("story")
+    counts["frame_attention_tiled"] = frame_attention.tiled_launches
+    _check_frames(frames, len(ENTRY_CAPTIONS), PIXELS)
+    if not torch.isfinite(embeds).all():
+        raise AssertionError("non-finite stage-1 embeds")
+    _check_story_launches(counts, "in generate.run")
+    path = os.path.join(OUT_DIR, "chip_smoke_story.png")
+    t0 = time.perf_counter()
+    save_story_grid(path, frames[0].cpu().numpy())
+    png_s = time.perf_counter() - t0
+    size = _png_size(path)
+    if size != (len(ENTRY_CAPTIONS) * PIXELS, PIXELS):
+        raise AssertionError(f"grid PNG is {size}")
+    print(f"entry 7a: generate.run {seconds:.3f} s (build, protocol and "
+          f"request), frames in [{frames.min().item():.3f}, "
+          f"{frames.max().item():.3f}]; launches {counts}; grid {path} "
+          f"{size[0]} x {size[1]}, {os.path.getsize(path)} bytes, written "
+          f"in {png_s:.3f} s", flush=True)
+    return frames
+
+
+def entry_checkpoints(dev, args, frame0, frames_a: torch.Tensor) -> dict:
+    """Phase 7b: the 7a build's prior, UNet and fusion stacks through
+    reference blobs into towers built from another seed, bit for bit; the
+    loaded pipeline's request against 7a's frames."""
+    import shutil
+    import tempfile
+
+    from rcdms_tpu_torch.cli import common, evaluate
+    from rcdms_tpu_torch.sample.pipeline import StoryPipeline
+
+    src, dataset, ds_cfg = evaluate.build_pipeline(args)
+    cfg = src.configs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=OUT_DIR)
+    try:
+        t0 = time.perf_counter()
+        stage1 = os.path.join(tmp, "stage1.pt")
+        torch.save({"module": {f"module.{k}": v for k, v in
+                               src.prior.state_dict().items()}}, stage1)
+        stage2 = os.path.join(tmp, "stage2")
+        os.makedirs(os.path.join(stage2, "global_step1"))
+        blob = {f"unet.{k}": v for k, v in src.unet.state_dict().items()}
+        blob.update(src.fusion.state_dict())  # seen_module. / unseen_module.
+        stage2_file = os.path.join(stage2, "global_step1",
+                                   "mp_rank_00_model_states.pt")
+        torch.save({"module": blob}, stage2_file)
+        with open(os.path.join(stage2, "latest"), "w") as fh:
+            fh.write("global_step1")
+        del blob
+        save_s = time.perf_counter() - t0
+        nbytes = (os.path.getsize(stage1), os.path.getsize(stage2_file))
+
+        kw = dict(dtype=src.dtype, device=dev, seed=1)
+        towers = dict(prior=common.build_prior(cfg.prior, None, **kw),
+                      unet=common.build_unet(cfg.unet, None, **kw),
+                      fusion=common.build_fusion(cfg.fusion, **kw))
+        if torch.equal(towers["unet"].conv_in.weight, src.unet.conv_in.weight):
+            raise AssertionError("the other seed built the same UNet")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        common.load_rcdms_stage1(stage1, towers["prior"])
+        common.load_rcdms_stage2(stage2, towers["unet"], towers["fusion"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    n_tensors = 0
+    for name, tower in towers.items():
+        want = getattr(src, name).state_dict()
+        got = tower.state_dict()
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: keys differ")
+        for k, v in want.items():
+            if got[k].dtype != v.dtype or not torch.equal(got[k], v):
+                raise AssertionError(f"{name}.{k} differs from its source")
+        n_tensors += len(want)
+
+    loaded = StoryPipeline(
+        cfg, num_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale,
+        towers=dict(text_s1=src.text_s1, text_s2=src.text_s2,
+                    vision=src.vision, vae=src.vae, **towers)).eval()
+    dtype = str(src.dtype)[6:]
+    del src
+    t0 = time.perf_counter()
+    inputs = common.build_story_inputs(ENTRY_CAPTIONS, [frame0], "", dataset,
+                                       ds_cfg, dev)
+    frames, _ = loaded.generate(inputs, generator=torch.Generator(
+        dev).manual_seed(common.story_seed(args.seed, 0)))
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    _check_frames(frames, len(ENTRY_CAPTIONS), PIXELS)
+    err = (frames - frames_a).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"the loaded pipeline's frames differ from "
+                             f"7a's by {err}")
+    print(f"entry 7b: blobs stage-1 {nbytes[0]} bytes, stage-2 {nbytes[1]} "
+          f"bytes ({dtype}), saved in {save_s:.2f} s, loaded in {load_s:.2f} s; "
+          f"{n_tensors} tensors equal their source bit for bit; request on "
+          f"the loaded pipeline {request_s:.3f} s, frames max|diff| vs 7a "
+          f"{err:.2e}", flush=True)
+    return dict(stage1_bytes=nbytes[0], stage2_bytes=nbytes[1],
+                save_s=save_s, load_s=load_s, request_s=request_s, err=err)
+
+
+def entry_evaluate(dev) -> dict:
+    """Phase 7c: the evaluate CLI on synthetic stories in fp32 on the card;
+    returns its summary."""
+    from rcdms_tpu_torch.cli import evaluate
+
+    out = os.path.join(OUT_DIR, "chip_smoke_eval")
+    t0 = time.perf_counter()
+    summary = evaluate.main(["--synthetic", "--device", str(dev), "--dtype",
+                             "float32", "--mode", "continue",
+                             "--num-stories", "2", "--num-inference-steps",
+                             str(STEPS), "--output-dir", out])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics_0.jsonl")) as fh:
+        metrics = [json.loads(line) for line in fh if line.strip()]
+    with open(os.path.join(out, "summary_0.json")) as fh:
+        if json.load(fh) != summary:
+            raise AssertionError("summary_0.json differs from the summary")
+    values = [v for m in metrics for v in m.values()] + list(summary.values())
+    if len(metrics) != 2 or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"evaluate metrics {metrics} {summary}")
+    print(f"entry 7c: evaluate --synthetic, 2 stories in {seconds:.2f} s "
+          f"(build included): {metrics}; summary {summary}", flush=True)
+    return summary
+
+
+def run_entry_points(dev, card: str) -> dict:
+    """Phase 7: the CLIs' entry points on the card (module docstring)."""
+    import numpy as np
+
+    from rcdms_tpu_torch.cli import evaluate
+
+    print(f"entry points on {card}", flush=True)
+    args = evaluate.parse_args([
+        "--dataset", "flintstones", "--dtype", "bfloat16",
+        "--num-inference-steps", str(STEPS), "--guidance-scale", "2.0",
+        "--seed", "42", "--device", "cuda"])
+    frame0 = np.random.RandomState(0).randint(0, 256, (128, 128, 3),
+                                              np.uint8)
+    frames = entry_generate(dev, args, frame0)
+    ckpt = entry_checkpoints(dev, args, frame0, frames)
+    del frames
+    torch.cuda.empty_cache()
+    return dict(checkpoints=ckpt, evaluate=entry_evaluate(dev))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -707,6 +919,7 @@ def main() -> int:
           f"{[round(s, 3) for s in story['seconds']]} at {STEPS} steps",
           flush=True)
     launches = {**story["counts"], **run_studies(dev, card)}
+    run_entry_points(dev, card)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -1,15 +1,16 @@
 """The port's config dataclasses: the seven frozen model configs the port
 builds from, with their defaults and the presets it calls (`tiny()`,
-`CLIPTextConfig.sd15` / `.bigg`). A copy of `rcdms_tpu/configs`, field for
-field, so the port imports nothing of the JAX package; the dataset,
-optimizer, mesh and train configs wait for a training slice.
+`CLIPTextConfig.sd15` / `.bigg`), and the dataset protocol's config. A
+copy of `rcdms_tpu/configs`, field for field, so the port imports nothing
+of the JAX package; the optimizer, mesh and train configs wait for a
+training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 
 def _replace(cfg, **kw):
@@ -184,3 +185,34 @@ class FusionConfig:
     def tiny(cls, **kw) -> "FusionConfig":
         return _replace(cls(text_dim=24, seen_vis_dim=16, unseen_vis_dim=16,
                             hidden_dim=24, num_heads=2), **kw)
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Dataset protocol config: the (max_len, vocab, character-token) table
+    of each dataset, in one place."""
+
+    name: str = "flintstones"
+    h5_path: str = "./datasets/ARLDM/flintstones.h5"
+    image_size: int = 512
+    clip_size: int = 224
+    num_frames: int = 5
+    text_drop_rate: float = 0.1
+    sr_dir: Optional[str] = None
+
+    @property
+    def max_text_len(self) -> int:
+        return {"flintstones": 91, "pororosv": 85}[self.name]
+
+    @property
+    def vocab_size(self) -> int:
+        return {"flintstones": 49412, "pororosv": 49416}[self.name]
+
+    @property
+    def new_tokens(self) -> Sequence[str]:
+        return {
+            "flintstones": ("fred", "barney", "wilma", "betty", "pebbles",
+                            "dino", "slate"),
+            "pororosv": ("pororo", "loopy", "eddy", "harry", "poby",
+                         "tongtong", "crong", "rody", "petty"),
+        }[self.name]

@@ -1,1 +1,2 @@
-"""Parameter bridges between the JAX package and the port."""
+"""Parameter bridges between the JAX package and the port, and the
+checkpoint converters."""

@@ -15,7 +15,7 @@ Public tensors keep the JAX package's layouts ((b, f, H, W, 3) images,
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -30,6 +30,7 @@ from rcdms_tpu_torch.configs import (
     VAEConfig,
 )
 from rcdms_tpu_torch.core.layers import init_like_flax_
+from rcdms_tpu_torch.core.schedulers import DDIMSchedule
 from rcdms_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder
 from rcdms_tpu_torch.models.fusion import FusionModule
 from rcdms_tpu_torch.models.prior import FramePrior
@@ -145,29 +146,46 @@ def padding_mask(tokens: torch.Tensor, eos_token_id: int) -> torch.Tensor:
                        torch.ones_like(mask))
 
 
+# the towers of a pipeline: attribute (the JAX package's parameter key) ->
+# module class, built from the config of the same name
+_TOWERS = {"text_s1": CLIPTextEncoder, "text_s2": CLIPTextEncoder,
+           "vision": CLIPVisionEncoder, "vae": VAE, "prior": FramePrior,
+           "unet": StoryUNet, "fusion": FusionModule}
+
+
 class StoryPipeline(nn.Module):
     """The five towers (text_s1, text_s2, vision, vae, prior, unet, fusion —
     the JAX package's parameter keys) and the two samplers."""
 
     vae_scale = 0.18215  # SD's latent scaling factor
 
-    def __init__(self, configs: PipelineConfigs, num_steps: int = 20):
+    def __init__(self, configs: PipelineConfigs, num_steps: int = 20,
+                 guidance_scale: float = 2.0,
+                 schedule: Optional[DDIMSchedule] = None,
+                 towers: Optional[Mapping[str, nn.Module]] = None):
+        """`towers`: prebuilt towers by name (the CLIs' builders, a loaded
+        checkpoint); the others are built from `configs`. `schedule`
+        replaces the stage-2 DDIM schedule (a `--config` YAML's)."""
         super().__init__()
         self.configs = configs
-        self.text_s1 = CLIPTextEncoder(configs.text_s1)
-        self.text_s2 = CLIPTextEncoder(configs.text_s2)
-        self.vision = CLIPVisionEncoder(configs.vision)
-        self.vae = VAE(configs.vae)
-        self.prior = FramePrior(configs.prior)
-        self.unet = StoryUNet(configs.unet)
-        self.fusion = FusionModule(configs.fusion)
-        self.prior_sampler = PriorSampler(self.prior, num_steps=num_steps)
-        self.story_sampler = StorySampler(self.unet, self.fusion,
-                                          num_steps=num_steps)
+        towers = towers or {}
+        for name, cls in _TOWERS.items():
+            setattr(self, name, towers[name] if name in towers
+                    else cls(getattr(configs, name)))
+        self.prior_sampler = PriorSampler(self.prior, num_steps=num_steps,
+                                          guidance_scale=guidance_scale)
+        self.story_sampler = StorySampler(
+            self.unet, self.fusion,
+            schedule=schedule or DDIMSchedule.stage2_inference(),
+            num_steps=num_steps, guidance_scale=guidance_scale)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.unet.conv_in.weight.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.unet.conv_in.weight.device
 
     def _encode_text(self, encoder, tokens: torch.Tensor):
         b, f, t = tokens.shape
@@ -277,10 +295,16 @@ def build_pipeline(configs: PipelineConfigs, device, dtype=torch.float32,
     with device:
         pipe = StoryPipeline(configs, num_steps=num_steps)
     init_like_flax_(pipe, torch.Generator(device).manual_seed(seed))
-    pipe = pipe.to(dtype).eval().requires_grad_(False)
-    if device.type == "cuda":
-        pipe = pipe.to(memory_format=torch.channels_last)
-    return pipe
+    return for_inference(pipe, dtype)
+
+
+def for_inference(module: nn.Module, dtype=torch.float32) -> nn.Module:
+    """`module` in `dtype` (norm parameters stay fp32), in eval mode,
+    without gradients, and channels-last on a card."""
+    module = module.to(dtype).eval().requires_grad_(False)
+    if next(module.parameters()).device.type == "cuda":
+        module = module.to(memory_format=torch.channels_last)
+    return module
 
 
 def tiny_inputs(configs: PipelineConfigs, seed: int = 0) -> StoryInputs:

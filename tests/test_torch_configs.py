@@ -38,7 +38,7 @@ def _fields(cls):
             for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ("DatasetConfig",))
 def test_fields_types_and_defaults_match(name):
     jcls, pcls = getattr(jconfigs, name), getattr(pconfigs, name)
     assert _fields(pcls) == _fields(jcls)
@@ -68,6 +68,15 @@ def test_prior_properties_match():
         assert isinstance(pcfg.temporal, pconfigs.TemporalConfig)
         assert (pcfg.inner_dim, pcfg.additional_tokens, pcfg.seq_len) == (
             jcfg.inner_dim, jcfg.additional_tokens, jcfg.seq_len)
+
+
+@pytest.mark.parametrize("dataset", ["flintstones", "pororosv"])
+def test_dataset_properties_match(dataset):
+    jcfg = jconfigs.DatasetConfig(name=dataset, image_size=64, clip_size=28)
+    pcfg = port_config(jcfg)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+    assert (pcfg.max_text_len, pcfg.vocab_size, tuple(pcfg.new_tokens)) == (
+        jcfg.max_text_len, jcfg.vocab_size, tuple(jcfg.new_tokens))
 
 
 _BLOCKED = textwrap.dedent("""
