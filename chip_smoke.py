@@ -22,7 +22,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
    printed), each fp32 one the general kernel;
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
-   noise: stage-1 embeds within 5e-4, frames within 1e-3;
+   noise: stage-1 embeds within 5e-4, frames within 1e-3; the same for
+   the sampling opt-ins (DDIM eta 0.5 on injected step noise, batched
+   CFG, encoder propagation k = 2, the autoregressive stage 1); the int8
+   route: `torch._int_mm` equal to the CPU's integer matmul on the same
+   int8 operands at the tiny and full-width UNet's conv shapes, an int8
+   conv module within 1e-6 of the CPU's on the same input, and a whole
+   int8 tiny story with its frames' mean |diff| within 2e-2;
 5. story: the full-width two-stage pipeline (Flintstones configs: 91
    tokens, vocab 49412, 512 px, 5 frames) in bf16 with seeded random
    weights: the story-independent conditioning cache, two requests with
@@ -57,11 +63,25 @@ Phases, in order; any failure raises and the exit code is nonzero:
    within 1e-3 (phase 5's repeat tolerance); the blobs are deleted
    afterwards; (c) `python -m rcdms_tpu_torch.cli.evaluate --synthetic` in
    fp32 on the card, two stories, continue mode: every metric of the
-   JSONL and the summary finite.
+   JSONL and the summary finite;
+8. serve (`rcdms_tpu_torch/cli/serve.py`) at full width in bf16 (7a's
+   model flags, --max-batch 2, --max-wait-ms 200, 20 steps) on
+   127.0.0.1:0: built and warmed, then three concurrent POST /generate
+   (seeds 1, 2, 3; seed 2 with a PNG reference frame): three 200s of 5
+   PNGs of 512 x 512 x 3 (read back by `decode_png`), the batch sizes
+   printed, every story kernel launched and every B launch tiled; then
+   `_run` at batch 1 (seed 1) and batch 2 (seeds 1, 2): the same
+   launches, seconds a story at each, seed 1's frames within a mean
+   |diff| of 2e-2 of its lone run, finite, in [0, 1]; one request with
+   encoder propagation k = 2 (the UNet encodes 20 times against 40);
+   7a's request again exact (within 1e-3 of 7a) and with --quantize int8:
+   finite, its int8 convs counted, its seconds and SSIM against 7a's
+   frames printed.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
-again: each path's counts are set to 0 just before it and read just after.
+again, phase 8 the story's in the served requests: each path's counts are
+set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -425,48 +445,171 @@ def check_kernels(dev, card: str) -> dict:
     return summary
 
 
+def _with_sampler(pipe, **options):
+    """A pipeline over `pipe`'s towers, steps, guidance and schedule, with
+    the story sampler's `options` (`StoryPipeline`'s constructor)."""
+    from rcdms_tpu_torch.sample.pipeline import StoryPipeline
+
+    s = pipe.story_sampler
+    return StoryPipeline(pipe.configs, num_steps=s.num_steps,
+                         guidance_scale=s.guidance_scale, schedule=s.schedule,
+                         towers=dict(pipe.named_children()), **options)
+
+
+def check_int8_products(dev, unet_cpu) -> dict:
+    """Phase 4's int8 route: `torch._int_mm` on the card against the CPU's
+    integer matmul on the same int8 operands (exact: its int32 sums are
+    the route's result before the fp32 epilogue), at the tiny UNet's int8
+    conv and at the full-width UNet's (level 0's 320 channels, level 3's
+    1280, the up path's 2560 from a skip concat, conv_out's 4 output
+    channels padded to 8); then the tiny UNet's
+    first int8 conv module on the card against the CPU on the same fp32
+    input (the same quantization, so the same sums and epilogue)."""
+    import copy
+
+    from rcdms_tpu_torch.core.layers import FrameConv
+    from rcdms_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(11)
+    shapes = [(5 * 8 * 8, 9 * 64, 64), (5 * 64 * 64, 9 * 320, 320),
+              (5 * 64 * 64, 9 * 320, 8), (5 * 8 * 8, 9 * 1280, 1280),
+              (5 * 8 * 8, 9 * 2560, 1280)]
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        want = quant.int_matmul(a, b)
+        got = quant.int_matmul(a.to(dev), b.to(dev)).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"torch._int_mm ({m}, {k}) @ ({k}, {n}) "
+                                 f"differs from the CPU integer matmul by "
+                                 f"{(got - want).abs().max().item()}")
+    conv = next(m for m in unet_cpu.modules() if isinstance(m, FrameConv)
+                and m.in_channels % 64 == 0 and m.kernel_size == (3, 3)
+                and m.stride == (1, 1))
+    x = torch.randn((1, 5, 8, 8, conv.in_channels), generator=g)
+    quant.set_quant_mode("int8")
+    try:
+        calls = quant.int8_conv3x3.calls
+        with torch.no_grad():
+            want = conv(x)
+            got = copy.deepcopy(conv).to(dev)(x.to(dev)).cpu()
+        if quant.int8_conv3x3.calls != calls + 2:
+            raise AssertionError("the int8 conv route did not run")
+    finally:
+        quant.set_quant_mode(None)
+    conv_err = ((got - want).abs().max() / want.abs().max()).item()
+    if not conv_err <= 1e-6:
+        raise AssertionError(f"the int8 conv on the card differs from the "
+                             f"CPU's by {conv_err:.2e} relative")
+    return dict(int_mm_shapes=shapes, conv_rel_err=conv_err)
+
+
 def check_tiny_reference(dev) -> dict:
     """Phase 4: the tiny pipeline (fp32, seeded weights, 2 steps) on the
     card, through the kernels, against the same pipeline on the CPU, where
     every wrapper runs its plain version, on the same explicit noise.
     Tolerances as the CPU tests hold the port against the JAX package:
     5e-4 on the stage-1 embeds, 1e-3 on the frames (fp32 on both sides,
-    TF32 off; sums in another order, compounded over the steps)."""
+    TF32 off; sums in another order, compounded over the steps). Then the
+    sampling opt-ins the same way: DDIM eta 0.5 on injected step noise,
+    batched CFG, encoder propagation k = 2 (the card's UNet encodes only
+    on step 0) and the autoregressive stage 1; and the int8 route
+    (`check_int8_products`). A whole int8 story's frames are held by
+    their mean |diff| (2e-2, phase 8's batch tolerance), not their
+    maximum: an activation that the card and the CPU round to the two
+    sides of a quantization step moves the frames of a tiny random story
+    by far more than 1e-3."""
     import copy
 
     from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops import quant
     from rcdms_tpu_torch.sample.pipeline import StoryNoise, build_tiny_pipeline
 
     pipe, inputs = build_tiny_pipeline(seed=0, num_steps=2)
-    cfg = pipe.configs
-    b, f = inputs.frame_known.shape
-    d = cfg.prior.embedding_dim
-    h8 = inputs.source_pixels.shape[2] // 2 ** (len(cfg.vae.block_channels)
-                                                 - 1)
-    g = torch.Generator().manual_seed(5)
-    noise = StoryNoise(*(torch.randn(s, generator=g) for s in (
-        (b, f, d), (2, b, f, d), (b * f, h8, h8, 4), (b, f, h8, h8, 4))))
-    frames, embeds = pipe.generate(inputs, noise=noise)
-
+    size = inputs.source_pixels.shape[2]
     card = copy.deepcopy(pipe).to(dev)
+    card_inputs = type(inputs)(*(t.to(dev) for t in inputs))
+    f = pipe.configs.prior.num_frames
+
+    def story(pipe=pipe, card=card):
+        # the CPU pipeline's draws, the same on both sides
+        noise = StoryNoise.draw(pipe, 1, torch.Generator().manual_seed(5),
+                                size)
+        frames, embeds = pipe.generate(inputs, noise=noise)
+        frames_c, embeds_c = card.generate(card_inputs, noise=StoryNoise(
+            *(None if t is None else t.to(dev) for t in noise)))
+        torch.cuda.synchronize()
+        return ((embeds_c.cpu() - embeds).abs().max().item(),
+                (frames_c.cpu() - frames).abs())
+
+    def autoreg():
+        csize = pipe.configs.vision.image_size
+        white = torch.full((csize, csize, 3), 1.5)
+        passes = pipe.prior_sampler.draw_passes(
+            1, f, torch.Generator().manual_seed(6))
+        embeds = pipe.generate_stage1_autoreg(inputs, white, noise=passes)
+        embeds_c = card.generate_stage1_autoreg(
+            card_inputs, white.to(dev),
+            noise=[(a.to(dev), b.to(dev)) for a, b in passes])
+        torch.cuda.synchronize()
+        return (embeds_c.cpu() - embeds).abs().max().item(), None
+
+    results = {}
+
+    def check(label, run, frame_stat="max"):
+        embed_err, frame_diff = run()
+        r = dict(embed_err=embed_err)
+        if frame_diff is not None:
+            r.update(frame_err=frame_diff.max().item(),
+                     frame_mean_err=frame_diff.mean().item())
+        results[label] = r
+        print(f"reference: tiny story ({label}) on the card vs the CPU: "
+              f"embeds max|diff| {embed_err:.2e}" + (
+                  "" if frame_diff is None else
+                  f", frames max|diff| {r['frame_err']:.2e}, mean |diff| "
+                  f"{r['frame_mean_err']:.2e}"), flush=True)
+        frames_ok = frame_diff is None or (
+            r["frame_err"] <= 1e-3 if frame_stat == "max"
+            else r["frame_mean_err"] <= 2e-2)
+        if not (embed_err <= 5e-4 and frames_ok):
+            raise AssertionError(f"the tiny story ({label}) on the card "
+                                 f"disagrees with the CPU's plain versions")
+
     ops.reset_launch_counts()
-    frames_c, embeds_c = card.generate(
-        type(inputs)(*(t.to(dev) for t in inputs)),
-        noise=StoryNoise(*(t.to(dev) for t in noise)))
-    torch.cuda.synchronize()
+    check("exact", story)
     counts = ops.launch_counts("story")
-    embed_err = (embeds_c.cpu() - embeds).abs().max().item()
-    frame_err = (frames_c.cpu() - frames).abs().max().item()
-    print(f"reference: tiny story on the card vs the CPU: embeds max|diff| "
-          f"{embed_err:.2e}, frames max|diff| {frame_err:.2e}; launches "
-          f"{counts}", flush=True)
-    if not (embed_err <= 5e-4 and frame_err <= 1e-3):
-        raise AssertionError("the tiny story on the card disagrees with the "
-                             "CPU's plain versions")
+    print(f"reference: launches {counts}", flush=True)
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"tiny story launched no {missing}")
-    return dict(embed_err=embed_err, frame_err=frame_err)
+    def variant(**options):
+        return lambda: story(*(_with_sampler(p, **options)
+                               for p in (pipe, card)))
+
+    check("eta 0.5", variant(eta=0.5))
+    check("batched cfg", variant(sequential_cfg=False))
+    encodes = card.unet.encode_calls
+    check("encoder propagation 2", variant(encoder_propagation=2))
+    if card.unet.encode_calls - encodes != 2:
+        raise AssertionError(f"k = 2 over 2 steps encoded "
+                             f"{card.unet.encode_calls - encodes} times, "
+                             f"not 2 (step 0, both CFG branches)")
+    check("autoregressive stage 1", autoreg)
+    products = results["int8 products"] = check_int8_products(dev,
+                                                               pipe.unet)
+    print(f"reference: int8 route: torch._int_mm equals the CPU integer "
+          f"matmul at {products['int_mm_shapes']}; the int8 conv on the "
+          f"card vs the CPU {products['conv_rel_err']:.2e} relative",
+          flush=True)
+    quant.set_quant_mode("int8")
+    try:
+        calls = quant.int8_conv3x3.calls
+        check("int8", story, frame_stat="mean")
+        if quant.int8_conv3x3.calls == calls:
+            raise AssertionError("the int8 story ran no int8 conv")
+    finally:
+        quant.set_quant_mode(None)
+    return results
 
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -881,9 +1024,229 @@ def run_entry_points(dev, card: str) -> dict:
                                               np.uint8)
     frames = entry_generate(dev, args, frame0)
     ckpt = entry_checkpoints(dev, args, frame0, frames)
+    frames_a = frames.cpu()
     del frames
     torch.cuda.empty_cache()
-    return dict(checkpoints=ckpt, evaluate=entry_evaluate(dev))
+    return dict(checkpoints=ckpt, evaluate=entry_evaluate(dev),
+                frames_a=frames_a, frame0=frame0)
+
+
+def _serve_args(*extra):
+    """The serve CLI's flags of phase 8: phase 7a's model flags."""
+    from rcdms_tpu_torch.cli import serve
+
+    return serve.parse_args([
+        "--host", "127.0.0.1", "--port", "0", "--max-batch", "2",
+        "--max-wait-ms", "200", "--dataset", "flintstones", "--dtype",
+        "bfloat16", "--num-inference-steps", str(STEPS), "--guidance-scale",
+        "2.0", "--seed", "42", "--device", "cuda", *extra])
+
+
+def _story_counts() -> dict:
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
+
+    counts = ops.launch_counts("story")
+    counts["frame_attention_tiled"] = frame_attention.tiled_launches
+    return counts
+
+
+def serve_requests(url: str, frame0) -> list:
+    """Three concurrent POST /generate requests (seeds 1, 2, 3; seed 2
+    with `frame0` as a PNG reference frame); returns their replies, frames
+    still base64 PNGs (the client shares the server's process, so decoding
+    them now would hold the interpreter lock the dispatch thread needs)."""
+    import base64
+    import threading
+    import urllib.request
+
+    from rcdms_tpu_torch.sample.eval import encode_png
+
+    replies = [None] * 3
+    errors = []
+
+    def post(i, seed):
+        body = {"captions": ENTRY_CAPTIONS, "seed": seed}
+        if seed == 2:
+            body["reference_frames"] = [
+                base64.b64encode(encode_png(frame0)).decode()]
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                reply = json.loads(r.read())
+                reply["status"] = r.status
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"seed {seed}: {type(e).__name__}: {e}")
+            return
+        replies[i] = reply
+
+    threads = [threading.Thread(target=post, args=(i, seed))
+               for i, seed in enumerate((1, 2, 3))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(r is None for r in replies):
+        raise AssertionError(f"serve requests failed: {errors}")
+    return replies
+
+
+def run_serve(dev, card: str, entry: dict) -> dict:
+    """Phase 8: `cli.serve` at full width in bf16 (phase 7a's model flags,
+    --max-batch 2, --max-wait-ms 200): three concurrent HTTP requests,
+    then `_run` at batch 1 and 2 (seed 1's frames alone and beside seed
+    2), one request with encoder propagation k = 2, and 7a's request
+    exact and with --quantize int8."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import common, serve
+    from rcdms_tpu_torch.ops import quant
+    from rcdms_tpu_torch.sample.eval import decode_png, ssim
+
+    print(f"serve on {card}", flush=True)
+    args = _serve_args()
+    ready, box = threading.Event(), []
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=serve.serve, args=(args,),
+                              kwargs=dict(ready_event=ready, httpd_box=box),
+                              daemon=True)
+    thread.start()
+    if not ready.wait(timeout=900):
+        raise AssertionError("the server did not start")
+    httpd, srv = box[0]
+    print(f"serve: {card}: built, warmed and listening in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    replies = serve_requests(url, entry["frame0"])
+    http_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _story_counts()
+    httpd.shutdown()
+    srv.stop()
+    srv.worker.join(timeout=60)
+    thread.join(timeout=60)
+    for r in replies:
+        r["frames"] = [decode_png(base64.b64decode(x)) for x in r["frames"]]
+        if r["status"] != 200 or len(r["frames"]) != len(ENTRY_CAPTIONS) \
+                or any(x.shape != (PIXELS, PIXELS, 3) for x in r["frames"]):
+            raise AssertionError(f"a serve reply is off: status "
+                                 f"{r['status']}, {len(r['frames'])} frames")
+    _check_story_launches(counts, "in the served requests")
+    print(f"serve: {card}: 3 concurrent requests answered 200 in "
+          f"{http_s:.3f} s; batch sizes {[r['batch_size'] for r in replies]}, "
+          f"latencies {[r['latency_s'] for r in replies]} s; launches "
+          f"{counts}", flush=True)
+
+    def request(seed):
+        return serve._Request(srv.story_inputs(ENTRY_CAPTIONS, [], ""), seed)
+
+    runs = {}
+    for label, seeds in (("batch 1", (1,)), ("batch 2", (1, 2))):
+        ops.reset_launch_counts()
+        encodes = srv.pipeline.unet.encode_calls
+        t0 = time.perf_counter()
+        frames = srv._run([request(s) for s in seeds])
+        seconds = time.perf_counter() - t0
+        runs[label] = dict(frames=frames, seconds=seconds,
+                           per_story_s=seconds / len(seeds),
+                           counts=_story_counts(),
+                           encodes=srv.pipeline.unet.encode_calls - encodes)
+        print(f"serve: {card}: _run {label}: {seconds:.3f} s, "
+              f"{seconds / len(seeds):.3f} s a story; UNet encodes "
+              f"{runs[label]['encodes']}; launches {runs[label]['counts']}",
+              flush=True)
+    one, two = runs["batch 1"], runs["batch 2"]
+    if one["counts"] != two["counts"]:
+        raise AssertionError(f"batch 2 launched {two['counts']}, batch 1 "
+                             f"{one['counts']}")
+    diff = (two["frames"][0] - one["frames"][0]).abs()
+    batch_err = dict(max=diff.max().item(), mean=diff.mean().item())
+    for frames in (one["frames"], two["frames"]):
+        if not torch.isfinite(frames).all() or frames.min() < 0 \
+                or frames.max() > 1:
+            raise AssertionError("served frames non-finite or off [0, 1]")
+    print(f"serve: seed 1 alone vs beside seed 2: max|diff| "
+          f"{batch_err['max']:.3e}, mean |diff| {batch_err['mean']:.3e}",
+          flush=True)
+    if not batch_err["mean"] <= 2e-2:
+        raise AssertionError(f"seed 1's frames moved by {batch_err} in a "
+                             f"batch")
+
+    exact_pipe = srv.pipeline
+    srv.pipeline = _with_sampler(exact_pipe, encoder_propagation=2)
+    encodes = srv.pipeline.unet.encode_calls
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        frames = srv._run([request(1)])
+        prop_s = time.perf_counter() - t0
+        prop_counts = _story_counts()
+    finally:
+        srv.pipeline = exact_pipe
+    prop_encodes = srv.pipeline.unet.encode_calls - encodes
+    prop_err = (frames[0] - one["frames"][0]).abs().max().item()
+    if not torch.isfinite(frames).all() or prop_encodes != STEPS \
+            or one["encodes"] != 2 * STEPS:
+        raise AssertionError(f"encoder propagation: {prop_encodes} encodes "
+                             f"against {one['encodes']}, or frames "
+                             f"non-finite")
+    print(f"serve: {card}: encoder propagation k = 2: {prop_s:.3f} s, UNet "
+          f"encodes {prop_encodes} against {one['encodes']}; frames "
+          f"max|diff| vs k = 0 {prop_err:.3e}; launches {prop_counts}",
+          flush=True)
+
+    # 7a's request (its inputs, no cond cache, its generator) exact and
+    # with the int8 mode --quantize sets
+    inputs = common.build_story_inputs(ENTRY_CAPTIONS, [entry["frame0"]], "",
+                                       srv.dataset, srv.ds_cfg, dev)
+    seed = common.story_seed(args.eval.seed, 0)
+    exact, _ = srv.pipeline.generate(
+        inputs, generator=torch.Generator(dev).manual_seed(seed))
+    exact_err = (exact.cpu() - entry["frames_a"]).abs().max().item()
+    if not exact_err <= 1e-3:
+        raise AssertionError(f"the server's pipeline is not 7a's: "
+                             f"{exact_err}")
+    quant.set_quant_mode(_serve_args("--quantize", "int8").eval.quantize)
+    try:
+        calls = quant.int8_conv3x3.calls
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames_q, _ = srv.pipeline.generate(
+            inputs, generator=torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        int8_s = time.perf_counter() - t0
+        int8_counts = _story_counts()
+        int8_convs = quant.int8_conv3x3.calls - calls
+    finally:
+        quant.set_quant_mode(None)
+    if not torch.isfinite(frames_q).all() or int8_convs == 0:
+        raise AssertionError("the int8 request is non-finite or ran no "
+                             "int8 conv")
+    a = frames_q[0].cpu().numpy().astype(np.float64)
+    b = entry["frames_a"][0].numpy().astype(np.float64)
+    int8_ssim = float(np.mean([ssim(a[i], b[i]) for i in range(len(a))]))
+    print(f"serve: {card}: --quantize int8: {int8_s:.3f} s, {int8_convs} "
+          f"int8 convs a request, SSIM vs 7a's exact frames {int8_ssim:.4f} "
+          f"(the exact rerun max|diff| vs 7a {exact_err:.2e}); launches "
+          f"{int8_counts}", flush=True)
+    del srv, exact, frames_q
+    torch.cuda.empty_cache()
+    return dict(batch_sizes=[r["batch_size"] for r in replies],
+                http_s=http_s, launches=counts,
+                batch1_s=one["per_story_s"], batch2_s=two["per_story_s"],
+                batch_err=batch_err, propagation_s=prop_s,
+                propagation_encodes=prop_encodes,
+                propagation_launches=prop_counts, int8_launches=int8_counts,
+                int8_s=int8_s,
+                int8_convs=int8_convs, int8_ssim=int8_ssim)
 
 
 def main() -> int:
@@ -919,7 +1282,11 @@ def main() -> int:
           f"{[round(s, 3) for s in story['seconds']]} at {STEPS} steps",
           flush=True)
     launches = {**story["counts"], **run_studies(dev, card)}
-    run_entry_points(dev, card)
+    entry = run_entry_points(dev, card)
+    served = run_serve(dev, card, entry)
+    print(f"serve: {card}: seconds a story at batch 1 "
+          f"{served['batch1_s']:.3f}, at batch 2 {served['batch2_s']:.3f}",
+          flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -930,6 +1297,8 @@ def main() -> int:
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"], shape=s["shape"]))
+        if name in served["launches"]:
+            kernels[-1]["serve_launches"] = served["launches"][name]
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,15 @@ Each story draws its noise from its own `torch.Generator` on the device,
 seeded from (--seed, story index) (`common.story_seed`), so a story's
 frames depend neither on its shard nor on its neighbours. The JAX CLI
 folds the index into a jax key instead, so the two CLIs' noise differs by
-design.
+design. `--eval-batch n` stacks n stories per `generate` call (the tail
+chunk padded with its last story, whose copies are discarded), each with
+its own noise (`StoryNoise.draw` / `cat`), so a story's outputs equal
+`--eval-batch 1`'s up to the batch's rounding. That is stricter than the
+JAX CLI, whose batch shares one key.
+
+Opt-ins as the JAX CLI's: `--autoreg` (stage 1 only, one prior pass per
+frame; cosine metrics only), `--encoder-propagation k` and
+`--quantize int8`, which both change the numbers.
 
     python -m rcdms_tpu_torch.cli.evaluate --dataset pororosv \
         --mode continue --h5-path .../pororo.h5 --sd-pretrained ... \
@@ -45,6 +53,8 @@ from rcdms_tpu_torch.configs import (
     TemporalConfig,
     VAEConfig,
 )
+from rcdms_tpu_torch.data.protocol import clip_preprocess, white_image
+from rcdms_tpu_torch.ops.quant import set_quant_mode
 from rcdms_tpu_torch.sample.eval import (
     Stage1EvalAccumulator,
     save_story_grid,
@@ -54,6 +64,7 @@ from rcdms_tpu_torch.sample.eval import (
 from rcdms_tpu_torch.sample.pipeline import (
     PipelineConfigs,
     StoryInputs,
+    StoryNoise,
     StoryPipeline,
 )
 
@@ -69,6 +80,11 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=512)
     p.add_argument("--mode", default="continue",
                    choices=["visualization", "continue"])
+    p.add_argument("--autoreg", action="store_true",
+                   help="stage-1-only autoregressive eval: one sampling "
+                        "pass per frame, committing each predicted embedding "
+                        "as a known condition (reference "
+                        "stage1_batchtest:186-242)")
     p.add_argument("--synthetic", action="store_true",
                    help="tiny random models on random stories (smoke)")
     p.add_argument("--sd-pretrained", default=None,
@@ -94,6 +110,10 @@ def parse_args(argv=None):
     p.add_argument("--guidance-scale", type=float, default=2.0)
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                    help="compute dtype")
+    p.add_argument("--encoder-propagation", type=int, default=0,
+                   help="OPT-IN approximate fast sampling: recompute the "
+                        "UNet encoder every k-th step (k>=2 changes "
+                        "numerics; keep 0 for reference parity)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--shard-id", type=int, default=0)
     p.add_argument("--num-shards", type=int, default=1)
@@ -102,6 +122,14 @@ def parse_args(argv=None):
                         "schema, needs PyYAML): unet_additional_kwargs "
                         "applied to the UNet/prior temporal modules, "
                         "noise_scheduler_kwargs to the DDIM schedule")
+    p.add_argument("--eval-batch", type=int, default=1,
+                   help="stories per generate call; each story keeps its "
+                        "own noise, so per-story outputs equal "
+                        "--eval-batch 1's")
+    p.add_argument("--quantize", default=None, choices=["int8"],
+                   help="OPT-IN w8a8 int8 inference (ops/quant.py) of the "
+                        "UNet's 3x3 convs; CHANGES NUMERICS — never use "
+                        "for parity runs")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda never falls back to the CPU")
     return p.parse_args(argv)
@@ -155,6 +183,8 @@ def build_pipeline(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device "
                            "(pass --device cpu to run on the CPU)")
+    if args.quantize:
+        set_quant_mode(args.quantize)
     dataset, ds_cfg, cfg = _configs(args)
     schedule = None
     if args.config:
@@ -190,23 +220,26 @@ def build_pipeline(args):
     if args.rcdms_stage2_ckpt:
         common.load_rcdms_stage2(args.rcdms_stage2_ckpt, towers["unet"],
                                  towers["fusion"])
-    pipeline = StoryPipeline(cfg, num_steps=args.num_inference_steps,
-                             guidance_scale=args.guidance_scale,
-                             schedule=schedule, towers=towers).eval()
+    pipeline = StoryPipeline(
+        cfg, num_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale, schedule=schedule, towers=towers,
+        encoder_propagation=args.encoder_propagation).eval()
     return pipeline, dataset, ds_cfg
 
 
-def _example_inputs(ex, uncond_ids, device) -> StoryInputs:
-    """A dataset example as a batch-1 StoryInputs on `device`."""
-    def put(key, dtype=None):
-        return torch.from_numpy(np.asarray(ex[key]))[None].to(device, dtype)
+def _batch_inputs(exs, uncond_ids, device) -> StoryInputs:
+    """Dataset examples stacked as one StoryInputs on `device`."""
+    def stack(key, dtype=None):
+        return torch.from_numpy(np.stack([np.asarray(e[key]) for e in exs])
+                                ).to(device, dtype)
 
-    ids = put("input_ids", torch.long)
-    u_ids = torch.from_numpy(uncond_ids)[None].to(device, torch.long)
+    ids = stack("input_ids", torch.long)
+    u_ids = torch.from_numpy(np.stack([uncond_ids] * len(exs))).to(
+        device, torch.long)
     return StoryInputs(
         tokens_s1=ids, tokens_s1_u=u_ids, tokens_s2=ids, tokens_s2_u=u_ids,
-        source_clip=put("source_clip"), mask_clip=put("mask_clip"),
-        source_pixels=put("source"), frame_known=put("frame_known"))
+        source_clip=stack("source_clip"), mask_clip=stack("mask_clip"),
+        source_pixels=stack("source"), frame_known=stack("frame_known"))
 
 
 def main(argv=None):
@@ -216,9 +249,13 @@ def main(argv=None):
     device = pipeline.device
 
     known_length = 1 if args.mode == "continue" else 0
-    # story-independent conditioning (uncond captions, white/black mask
-    # embeds), once for all stories
-    cache = common.build_cond_cache(pipeline, dataset, ds_cfg)
+    if args.autoreg:
+        white_clip = torch.from_numpy(clip_preprocess(
+            white_image(args.image_size), ds_cfg.clip_size)).to(device)
+    else:
+        # story-independent conditioning (uncond captions, white/black
+        # mask embeds), once for all stories
+        cache = common.build_cond_cache(pipeline, dataset, ds_cfg)
 
     rng = np.random.RandomState(args.seed)
     s1_acc = Stage1EvalAccumulator()
@@ -227,33 +264,64 @@ def main(argv=None):
 
     n = min(args.num_stories, len(dataset))
     indices = split_indices(n, args.shard_id, args.num_shards)
+    eb = max(1, args.eval_batch)
     metrics_path = os.path.join(args.output_dir,
                                 f"metrics_{args.shard_id}.jsonl")
     uncond_ids = dataset.tokenizer([""] * ds_cfg.num_frames)["input_ids"]
     with open(metrics_path, "w") as mf, torch.no_grad():
-        for idx in indices:
-            ex = dataset.example(idx, rng, known_length=known_length)
-            inputs = _example_inputs(ex, uncond_ids, device)
-            generator = torch.Generator(device).manual_seed(
+        for start in range(0, len(indices), eb):
+            chunk = list(indices[start:start + eb])
+            exs = [dataset.example(idx, rng, known_length=known_length)
+                   for idx in chunk]
+            # pad the tail chunk to the batch; the padded rows are
+            # generated and discarded
+            pad = eb - len(chunk)
+            inputs = _batch_inputs(exs + [exs[-1]] * pad, uncond_ids, device)
+            generators = [torch.Generator(device).manual_seed(
                 common.story_seed(args.seed, idx))
-            frames, pred_embeds = pipeline.generate(inputs, cache, generator)
-            # stage-1 metric: cosine of the predicted vs the real frames'
-            # CLIP image embeds
-            ref = torch.from_numpy(ex["reference_clip"]).to(device,
-                                                            pipeline.dtype)
-            _, gt_embeds = pipeline.vision(ref)
-            sim = s1_acc.update(pred_embeds[0].float().cpu().numpy(),
-                                gt_embeds.float().cpu().numpy())
-            generated = frames[0].float().cpu().numpy()
-            gt = (np.asarray(ex["target"]) + 1) / 2
-            m = story_metrics(generated, gt)
-            m.update({"story": idx, "clip_cosine": sim})
-            all_metrics.append(m)
-            mf.write(json.dumps(m) + "\n")
-            save_story_grid(os.path.join(args.output_dir,
-                                         f"story_{idx}.png"), generated, gt)
-            print(f"story {idx}: cosine {sim:.4f} ssim {m['ssim']:.4f}",
-                  flush=True)
+                for idx in chunk + [chunk[-1]] * pad]
+            if args.autoreg:
+                passes = [pipeline.prior_sampler.draw_passes(
+                    1, ds_cfg.num_frames, g) for g in generators]
+                noise = [(torch.cat([p[i][0] for p in passes]),
+                          torch.cat([p[i][1] for p in passes], dim=1))
+                         for i in range(ds_cfg.num_frames)]
+                pred_embeds = pipeline.generate_stage1_autoreg(
+                    inputs, white_clip, noise=noise)
+            else:
+                noise = StoryNoise.cat(
+                    StoryNoise.draw(pipeline, 1, g, ds_cfg.image_size)
+                    for g in generators)
+                frames_b, pred_embeds = pipeline.generate(inputs, cache,
+                                                          noise=noise)
+                frames_b = frames_b.float().cpu().numpy()
+            pred_embeds = pred_embeds.float().cpu().numpy()
+            for bi, idx in enumerate(chunk):
+                ex = exs[bi]
+                # stage-1 metric: cosine of the predicted vs the real
+                # frames' CLIP image embeds
+                ref = torch.from_numpy(ex["reference_clip"]).to(
+                    device, pipeline.dtype)
+                _, gt_embeds = pipeline.vision(ref)
+                sim = s1_acc.update(pred_embeds[bi],
+                                    gt_embeds.float().cpu().numpy())
+                if args.autoreg:
+                    m = {"story": idx, "clip_cosine": sim}
+                    all_metrics.append(m)
+                    mf.write(json.dumps(m) + "\n")
+                    print(f"story {idx}: cosine {sim:.4f} (autoreg)",
+                          flush=True)
+                    continue
+                gt = (np.asarray(ex["target"]) + 1) / 2
+                m = story_metrics(frames_b[bi], gt)
+                m.update({"story": idx, "clip_cosine": sim})
+                all_metrics.append(m)
+                mf.write(json.dumps(m) + "\n")
+                save_story_grid(os.path.join(args.output_dir,
+                                             f"story_{idx}.png"),
+                                frames_b[bi], gt)
+                print(f"story {idx}: cosine {sim:.4f} ssim {m['ssim']:.4f}",
+                      flush=True)
 
     elapsed = time.perf_counter() - t_start
     summary = {
@@ -261,9 +329,12 @@ def main(argv=None):
         "mean_clip_cosine": s1_acc.mean,
         "elapsed_s": elapsed,
         "stories_per_s": len(indices) / elapsed,
-        "mean_ssim": float(np.mean([m["ssim"] for m in all_metrics])),
-        "mean_psnr": float(np.mean([m["psnr"] for m in all_metrics])),
     }
+    if not args.autoreg:
+        summary["mean_ssim"] = float(np.mean([m["ssim"]
+                                              for m in all_metrics]))
+        summary["mean_psnr"] = float(np.mean([m["psnr"]
+                                              for m in all_metrics]))
     print(json.dumps(summary))
     with open(os.path.join(args.output_dir,
                            f"summary_{args.shard_id}.json"), "w") as f:

@@ -10,10 +10,12 @@ through the full two-stage pipeline.
         --sd-pretrained ... --prior-pretrained ... --vision-pretrained ... \
         --out story.png
 
-Known frames are given in order with --reference (0 to 4 of them; reading
-the files needs Pillow). Every model and sampling flag (--synthetic,
---dtype, --device, --rcdms-stage{1,2}-ckpt, --seed, ...) is the evaluate
-CLI's. The story's generator is seeded as the evaluate CLI seeds story 0.
+Known frames are given in order with --reference (0 to 4 of them), as
+PNG files (8-bit grey, RGB or with alpha, read by `sample/eval.py::
+decode_png`, no Pillow; other formats are refused). Every model and
+sampling flag (--synthetic, --dtype, --device, --rcdms-stage{1,2}-ckpt,
+--seed, ...) is the evaluate CLI's. The story's generator is seeded as
+the evaluate CLI seeds story 0.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from rcdms_tpu_torch.cli import common
 from rcdms_tpu_torch.cli.evaluate import build_pipeline
 from rcdms_tpu_torch.cli.evaluate import parse_args as eval_parse_args
-from rcdms_tpu_torch.sample.eval import save_story_grid
+from rcdms_tpu_torch.sample.eval import decode_png, save_story_grid
 
 
 def parse_args(argv=None):
@@ -35,7 +37,7 @@ def parse_args(argv=None):
     p.add_argument("--caption", action="append", required=True,
                    help="one per frame, in order (repeat 5x)")
     p.add_argument("--reference", action="append", default=[],
-                   help="known frame image paths (prefix order)")
+                   help="known frame PNG paths (prefix order)")
     p.add_argument("--negative-prompt", default="",
                    help="text for the unconditional CFG branch")
     p.add_argument("--out", default="story.png")
@@ -77,9 +79,8 @@ def main(argv=None):
     check_counts(ev, len(args.caption), len(args.reference))
     frames = []
     for path in args.reference:
-        from PIL import Image
-
-        frames.append(np.asarray(Image.open(path).convert("RGB")))
+        with open(path, "rb") as fh:
+            frames.append(decode_png(fh.read()))
     images, _ = run(ev, list(args.caption), frames, args.negative_prompt)
     save_story_grid(args.out, images[0].cpu().numpy())
     print(f"wrote {args.out} ({len(args.caption)} frames, {len(frames)} "

@@ -7,7 +7,8 @@ PyTorch's channels_last format, so no copy is made around the conv.
 
 Not ported: `PaddedDense`, `DenseNT`/`DenseTN`, `_taps9_conv`, the `cm_*`
 formulations and their gates. They exist only for Mosaic's lane tiling and
-GSPMD and have no job on a GPU.
+GSPMD and have no job on a GPU. The int8 conv (`_taps9_conv_int8`) is
+ported as `FrameConv`'s opt-in route (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
+from rcdms_tpu_torch.ops.quant import (
+    conv_weight_int8,
+    int8_conv3x3,
+    int8_enabled,
+)
 
 # flax's lecun_normal: a normal truncated at 2 sigma, rescaled to keep the
 # variance 1 / fan_in (stddev of the unit normal truncated at +-2)
@@ -165,15 +171,45 @@ class FeedForward(nn.Module):
                   proj_out.weight, proj_out.bias)
 
 
-class FrameConv(nn.Conv2d):
+class Conv(nn.Conv2d):
     """Conv2d over channels-last images (..., h, w, c): the leading dims
-    fold into the batch (the reference's per-frame `InflatedConv3d`)."""
+    fold into the batch (the JAX package's `nn.Conv` over NHWC)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
         y = super().forward(x.reshape((-1,) + x.shape[-3:])
                             .permute(0, 3, 1, 2))
         y = y.permute(0, 2, 3, 1)
+        return y.reshape(lead + y.shape[1:])
+
+
+class FrameConv(Conv):
+    """The story UNet's per-frame conv (the reference's `InflatedConv3d`),
+    with the JAX `FrameConv`'s opt-in int8 route: in int8 quant mode
+    (`ops/quant.py`) a 3x3, stride-1, padding-1 conv with Cin % 64 == 0
+    runs `int8_conv3x3`. The int8 weight is quantized once and kept until
+    the weight changes (keyed on its `_version`, storage and dtype)."""
+
+    def _takes_int8(self) -> bool:
+        return (int8_enabled() and self.kernel_size == (3, 3)
+                and self.stride == (1, 1) and self.padding == (1, 1)
+                and self.in_channels % 64 == 0)
+
+    def _int8_weight(self):
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.device, w.dtype)
+        cached = getattr(self, "_int8_cache", None)
+        if cached is None or cached[0] != key:
+            cached = (key,) + conv_weight_int8(w)
+            self._int8_cache = cached
+        return cached[1:]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._takes_int8():
+            return super().forward(x)
+        lead = x.shape[:-3]
+        y = int8_conv3x3(x.reshape((-1,) + x.shape[-3:]),
+                         *self._int8_weight(), self.bias, x.dtype)
         return y.reshape(lead + y.shape[1:])
 
 

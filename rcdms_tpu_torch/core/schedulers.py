@@ -6,7 +6,8 @@ samplers of the serving path:
   * stage 1: UnCLIP (squaredcos_cap_v2 betas, prediction 'sample',
     fixed_small_log variance, clip 10) with an explicit `prev_timestep`;
   * stage 2: DDIM (linear 0.00085 -> 0.012, 'leading' spacing,
-    set_alpha_to_one, clip 1), eta = 0.
+    set_alpha_to_one, clip 1), eta = 0 by default; eta > 0 adds the
+    stochastic term, on noise the caller supplies.
 
 Timesteps are plain ints (PyTorch runs eagerly), so every per-step
 coefficient is a Python float taken from the float64 tables; only the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import cached_property
+from typing import Optional
 
 import numpy as np
 import torch
@@ -83,7 +85,7 @@ class DiffusionSchedule:
 
 @dataclass(frozen=True)
 class DDIMSchedule(DiffusionSchedule):
-    """diffusers `DDIMScheduler`, 'leading' spacing, eta = 0."""
+    """diffusers `DDIMScheduler`, 'leading' spacing."""
 
     clip_sample: bool = True
 
@@ -102,13 +104,25 @@ class DDIMSchedule(DiffusionSchedule):
                 - self.num_train_timesteps // num_inference_steps)
 
     def step(self, model_output: torch.Tensor, t: int, prev_t: int,
-             sample: torch.Tensor) -> torch.Tensor:
-        """One DDIM step x_t -> x_{prev_t}; prev_t < 0 on the last step."""
+             sample: torch.Tensor, eta: float = 0.0,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One DDIM step x_t -> x_{prev_t}; prev_t < 0 on the last step.
+        eta > 0 takes sigma = eta * sqrt(var) off the direction term and
+        adds sigma * noise; it raises without `noise`."""
         acp_t, acp_prev = self._acp(t), self._acp(prev_t)
+        omacp_t, omacp_prev = 1.0 - acp_t, 1.0 - acp_prev
         x0 = self.pred_x0(model_output, sample, t)
         # epsilon re-derived from the (clipped) x0, as diffusers does
-        eps = (sample - math.sqrt(acp_t) * x0) / math.sqrt(1.0 - acp_t)
-        return math.sqrt(acp_prev) * x0 + math.sqrt(1.0 - acp_prev) * eps
+        eps = (sample - math.sqrt(acp_t) * x0) / math.sqrt(omacp_t)
+        sigma = 0.0
+        if eta > 0.0:
+            if noise is None:
+                raise ValueError("eta>0 requires externally supplied noise")
+            var = (omacp_prev / omacp_t) * (1.0 - acp_t / acp_prev)
+            sigma = eta * math.sqrt(var)
+        prev = math.sqrt(acp_prev) * x0 + math.sqrt(
+            omacp_prev - sigma ** 2) * eps
+        return prev + sigma * noise if eta > 0.0 else prev
 
 
 @dataclass(frozen=True)

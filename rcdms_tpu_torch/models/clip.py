@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.configs import CLIPTextConfig, CLIPVisionConfig
-from rcdms_tpu_torch.core.layers import FrameConv, LayerNorm
+from rcdms_tpu_torch.core.layers import Conv, LayerNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 
 
@@ -133,8 +133,8 @@ class _VisionEmbeddings(nn.Module):
         super().__init__()
         n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
         self.class_embedding = nn.Parameter(torch.zeros(cfg.width))
-        self.patch_embedding = FrameConv(3, cfg.width, cfg.patch_size,
-                                         stride=cfg.patch_size, bias=False)
+        self.patch_embedding = Conv(3, cfg.width, cfg.patch_size,
+                                    stride=cfg.patch_size, bias=False)
         self.position_embedding = nn.Embedding(n_pos, cfg.width)
 
     def flax_init_(self, generator: torch.Generator) -> None:

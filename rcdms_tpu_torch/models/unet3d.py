@@ -60,7 +60,10 @@ class _Level(nn.Module):
 
 class StoryUNet(nn.Module):
     """forward(sample (b, f, h, w, 9), timesteps (b,), context
-    (b, f, T, cross_attention_dim)) -> (b, f, h, w, 4) epsilon."""
+    (b, f, T, cross_attention_dim)) -> (b, f, h, w, 4) epsilon, as
+    `decode(*encode(sample, temb, context), temb, context)` under
+    `temb = time_embed(timesteps, dtype)`: the split the story sampler's
+    encoder propagation reuses."""
 
     def __init__(self, cfg: StoryUNetConfig):
         super().__init__()
@@ -110,6 +113,7 @@ class StoryUNet(nn.Module):
 
         self.conv_norm_out = GroupNorm(cfg.norm_groups, ch0, cfg.norm_eps)
         self.conv_out = FrameConv(ch0, cfg.out_channels, 3, padding=1)
+        self.encode_calls = 0
 
     def time_embed(self, timesteps: torch.Tensor, dtype) -> torch.Tensor:
         """(b,) -> (b, ch0 * 4) fp32: the sinusoid rounded to `dtype`, then
@@ -117,9 +121,11 @@ class StoryUNet(nn.Module):
         t = sinusoidal_time_embedding(timesteps, self.cfg.block_channels[0])
         return self.time_embedding(t.to(dtype))
 
-    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        temb = self.time_embed(timesteps, sample.dtype)
+    def encode(self, sample: torch.Tensor, temb: torch.Tensor,
+               context: torch.Tensor):
+        """conv_in and the down path -> (bottleneck h, skip stack). Counts
+        its calls in `encode_calls`."""
+        self.encode_calls += 1
         h = self.conv_in(sample)
         skips = [h]
         for blk in self.down_blocks:
@@ -129,7 +135,13 @@ class StoryUNet(nn.Module):
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
+        return h, skips
 
+    def decode(self, h: torch.Tensor, skips, temb: torch.Tensor,
+               context: torch.Tensor) -> torch.Tensor:
+        """The mid block, the up path and the output head; reads the skip
+        stack without consuming it, so a cached encoding decodes again."""
+        skips = list(skips)
         mb = self.mid_block
         h = mb.resnets[0](h, temb)
         h = mb.attentions[0](h, context)
@@ -144,3 +156,8 @@ class StoryUNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        temb = self.time_embed(timesteps, sample.dtype)
+        return self.decode(*self.encode(sample, temb, context), temb, context)

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.configs import VAEConfig
-from rcdms_tpu_torch.core.layers import FrameConv, GroupNorm
+from rcdms_tpu_torch.core.layers import Conv, GroupNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 
 
@@ -24,10 +24,10 @@ class VAEResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, groups: int):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_ch, 1e-6)
-        self.conv1 = FrameConv(in_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv(in_ch, out_ch, 3, padding=1)
         self.norm2 = GroupNorm(groups, out_ch, 1e-6)
-        self.conv2 = FrameConv(out_ch, out_ch, 3, padding=1)
-        self.conv_shortcut = (FrameConv(in_ch, out_ch, 1)
+        self.conv2 = Conv(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (Conv(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +72,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chans, g = cfg.block_channels, cfg.norm_groups
-        self.conv_in = FrameConv(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv(cfg.in_channels, chans[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         prev = chans[0]
         for level, ch in enumerate(chans):
@@ -82,13 +82,13 @@ class Encoder(nn.Module):
                 for j in range(cfg.layers_per_block)])
             if level != len(chans) - 1:
                 down = nn.Module()
-                down.conv = FrameConv(ch, ch, 3, stride=2, padding=0)
+                down.conv = Conv(ch, ch, 3, stride=2, padding=0)
                 blk.downsamplers = nn.ModuleList([down])
             self.down_blocks.append(blk)
             prev = ch
         self.mid_block = _MidBlock(chans[-1], g)
         self.conv_norm_out = GroupNorm(g, chans[-1], 1e-6)
-        self.conv_out = FrameConv(chans[-1], 2 * cfg.latent_channels, 3,
+        self.conv_out = Conv(chans[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +108,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev, g = list(reversed(cfg.block_channels)), cfg.norm_groups
-        self.conv_in = FrameConv(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = _MidBlock(rev[0], g)
         self.up_blocks = nn.ModuleList()
         prev = rev[0]
@@ -119,12 +119,12 @@ class Decoder(nn.Module):
                 for j in range(cfg.layers_per_block + 1)])
             if level != len(rev) - 1:
                 up = nn.Module()
-                up.conv = FrameConv(ch, ch, 3, padding=1)
+                up.conv = Conv(ch, ch, 3, padding=1)
                 blk.upsamplers = nn.ModuleList([up])
             self.up_blocks.append(blk)
             prev = ch
         self.conv_norm_out = GroupNorm(g, rev[-1], 1e-6)
-        self.conv_out = FrameConv(rev[-1], cfg.in_channels, 3, padding=1)
+        self.conv_out = Conv(rev[-1], cfg.in_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.mid_block(self.conv_in(z))
@@ -148,8 +148,8 @@ class VAE(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         lc = cfg.latent_channels
-        self.quant_conv = FrameConv(2 * lc, 2 * lc, 1)
-        self.post_quant_conv = FrameConv(lc, lc, 1)
+        self.quant_conv = Conv(2 * lc, 2 * lc, 1)
+        self.post_quant_conv = Conv(lc, lc, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)

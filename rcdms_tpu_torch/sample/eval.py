@@ -8,7 +8,8 @@
     (`save_story_grid`).
 
 The PNGs are written by a small encoder of its own (8-bit RGB, no filter,
-`zlib`), so writing a story needs no Pillow.
+`zlib`) and read by a small decoder (`decode_png`), so writing a story or
+reading a reference frame needs no Pillow.
 """
 
 from __future__ import annotations
@@ -120,6 +121,118 @@ def encode_png(rgb: np.ndarray) -> bytes:
     return (PNG_SIGNATURE + _png_chunk(b"IHDR", header)
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
+
+
+# the most pixels decode_png takes by default: the size above which Pillow
+# refuses an image as a decompression bomb (2 * Image.MAX_IMAGE_PIXELS)
+MAX_PNG_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+# channels of the PNG colour types decode_png takes: grey, RGB, grey +
+# alpha, RGBA (palette images, type 3, are refused)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_chunks(data: bytes):
+    """(kind, payload) of each chunk up to IEND; raises ValueError on a bad
+    signature, a truncated chunk or a CRC mismatch."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG (bad signature)")
+    pos = 8
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG (no IEND chunk)")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 8 + length
+        if end + 4 > len(data):
+            raise ValueError(f"truncated PNG chunk {kind!r}")
+        payload = data[pos + 8:end]
+        (crc,) = struct.unpack(">I", data[end:end + 4])
+        if zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos = end + 4
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, ch: int) -> np.ndarray:
+    """Undo the per-row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth)
+    of 8-bit rows. A pixel depends on its left, upper and upper-left
+    neighbours, so one anti-diagonal of pixels is reconstructed at a
+    time, every row with its own filter."""
+    rows = raw.reshape(h, 1 + w * ch)
+    kind = rows[:, 0].astype(np.int16)
+    if kind.max(initial=0) > 4:
+        raise ValueError(f"PNG filter type {int(kind.max())} is not 0-4")
+    filt = rows[:, 1:].reshape(h, w, ch).astype(np.int16)
+    # padded with a zero row above and a zero column on the left; int16
+    # holds every sum and Paeth difference of two bytes
+    out = np.zeros((h + 1, w + 1, ch), np.int16)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(d, h - 1) + 1)
+        xs = d - ys
+        a, b, c = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]
+        t = kind[ys, None]
+        pred = np.select([t == 1, t == 2, t == 3, t == 4],
+                         [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        out[ys + 1, xs + 1] = (filt[ys, xs] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def decode_png(data: bytes, max_pixels: int = MAX_PNG_PIXELS) -> np.ndarray:
+    """A PNG's pixels as uint8 (h, w, 3) RGB, as Pillow's
+    `Image.open(...).convert("RGB")` gives them: bit depth 8, colour types
+    0 (grey, widened to RGB), 2 (RGB), 4 and 6 (alpha dropped),
+    non-interlaced, filters 0-4, any number of IDAT chunks. Raises
+    ValueError on anything else: another format, palette or 16-bit
+    images, interlacing, a bad signature or CRC, corrupt data, or a
+    header of more than `max_pixels` pixels. The image data is never
+    inflated past the size its header declares."""
+    header, idat = None, []
+    for kind, payload in _png_chunks(bytes(data)):
+        if kind == b"IHDR":
+            header = payload
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None or len(header) != 13:
+        raise ValueError("PNG without a valid IHDR chunk")
+    w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB",
+                                                               header)
+    if color not in _PNG_CHANNELS:
+        raise ValueError(f"PNG colour type {color} is not taken (grey, RGB, "
+                         f"grey + alpha or RGBA; no palette)")
+    if depth != 8:
+        raise ValueError(f"PNG bit depth {depth}: only 8 is taken")
+    if interlace != 0 or comp != 0 or filt != 0:
+        raise ValueError("interlaced or non-standard PNG is not taken")
+    if w == 0 or h == 0:
+        raise ValueError("PNG of zero size")
+    if w * h > max_pixels:
+        raise ValueError(f"PNG of {w} x {h} pixels is over the limit of "
+                         f"{max_pixels}")
+    ch = _PNG_CHANNELS[color]
+    size = h * (1 + w * ch)
+    try:
+        # one byte past the declared size shows data that runs over it
+        raw = zlib.decompressobj().decompress(b"".join(idat), size + 1)
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from e
+    if len(raw) > size:
+        raise ValueError(f"PNG image data runs past the {size} bytes its "
+                         f"header declares")
+    if len(raw) < size:
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, not "
+                         f"{size}")
+    px = _unfilter(np.frombuffer(raw, np.uint8), h, w, ch)
+    if ch in (1, 2):  # grey (+ alpha): widen the grey to RGB
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def _write_png(path: str, rgb: np.ndarray) -> None:

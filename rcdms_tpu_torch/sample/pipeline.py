@@ -7,9 +7,12 @@ frame prior. Stage 2 encodes the captions again (SD text tower), encodes
 the known frames' pixels with the VAE, samples the story latents with the
 UNet, and decodes them frame by frame.
 
-`generate` takes a per-request `torch.Generator` or explicit `StoryNoise`.
-Public tensors keep the JAX package's layouts ((b, f, H, W, 3) images,
-(b, f, T) token ids).
+`generate` takes a per-request `torch.Generator` or explicit `StoryNoise`;
+`StoryNoise.draw` draws one request's noise as `generate` would draw it,
+and `StoryNoise.cat` stacks requests into a batch, so a request gets the
+same noise alone and inside a batch. `generate_stage1_autoreg` is the
+stage-1-only autoregressive protocol. Public tensors keep the JAX
+package's layouts ((b, f, H, W, 3) images, (b, f, T) token ids).
 """
 
 from __future__ import annotations
@@ -78,12 +81,45 @@ class CondCache(NamedTuple):
 
 
 class StoryNoise(NamedTuple):
-    """Every random draw of one `generate` call, fp32 standard normal."""
+    """Every random draw of one `generate` call, fp32 standard normal; the
+    story sampler's step noise only where it has eta > 0."""
 
     prior_init: torch.Tensor   # (b, f, d)
     prior_steps: torch.Tensor  # (num_steps, b, f, d)
     vae: torch.Tensor          # (b*f, h8, w8, 4)
     story_init: torch.Tensor   # (b, f, h8, w8, 4)
+    story_steps: Optional[torch.Tensor] = None  # (num_steps, b, f, h8, w8, 4)
+
+    @classmethod
+    def draw(cls, pipeline: "StoryPipeline", b: int,
+             generator: Optional[torch.Generator], image_size
+             ) -> "StoryNoise":
+        """The noise of one `pipeline.generate` call on a batch of b
+        stories of `image_size` pixels (an int or (H, W)), drawn from
+        `generator` in this order: the prior sampler's (`draw`: init, one
+        draw a step), the VAE's, the story sampler's (`draw`: init and,
+        with eta > 0, one draw a step)."""
+        cfg = pipeline.configs
+        f = cfg.prior.num_frames
+        hh, ww = ((image_size, image_size) if isinstance(image_size, int)
+                  else image_size)
+        down = 2 ** (len(cfg.vae.block_channels) - 1)
+        lat = (b, f, hh // down, ww // down, 4)
+        prior = pipeline.prior_sampler.draw(b, f, generator)
+        vae = draw_noise((b * f,) + lat[2:], generator, pipeline.device)
+        return cls(*prior, vae,
+                   *pipeline.story_sampler.draw(lat, generator))
+
+    @classmethod
+    def cat(cls, noises) -> "StoryNoise":
+        """Requests' noise stacked along b, in order."""
+        noises = list(noises)
+        steps = [n.story_steps for n in noises]
+        return cls(torch.cat([n.prior_init for n in noises]),
+                   torch.cat([n.prior_steps for n in noises], dim=1),
+                   torch.cat([n.vae for n in noises]),
+                   torch.cat([n.story_init for n in noises]),
+                   None if steps[0] is None else torch.cat(steps, dim=1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,10 +198,14 @@ class StoryPipeline(nn.Module):
     def __init__(self, configs: PipelineConfigs, num_steps: int = 20,
                  guidance_scale: float = 2.0,
                  schedule: Optional[DDIMSchedule] = None,
-                 towers: Optional[Mapping[str, nn.Module]] = None):
+                 towers: Optional[Mapping[str, nn.Module]] = None,
+                 eta: float = 0.0, encoder_propagation: int = 0,
+                 sequential_cfg: bool = True):
         """`towers`: prebuilt towers by name (the CLIs' builders, a loaded
         checkpoint); the others are built from `configs`. `schedule`
-        replaces the stage-2 DDIM schedule (a `--config` YAML's)."""
+        replaces the stage-2 DDIM schedule (a `--config` YAML's). `eta`,
+        `encoder_propagation` and `sequential_cfg` are the story
+        sampler's options (`sample/story_sampler.py`)."""
         super().__init__()
         self.configs = configs
         towers = towers or {}
@@ -177,7 +217,9 @@ class StoryPipeline(nn.Module):
         self.story_sampler = StorySampler(
             self.unet, self.fusion,
             schedule=schedule or DDIMSchedule.stage2_inference(),
-            num_steps=num_steps, guidance_scale=guidance_scale)
+            num_steps=num_steps, guidance_scale=guidance_scale, eta=eta,
+            sequential_cfg=sequential_cfg,
+            encoder_propagation=encoder_propagation)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -218,8 +260,8 @@ class StoryPipeline(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[StoryNoise] = None):
         """Returns (frames in [0, 1] (b, f, H, W, 3) fp32, stage-1 embeds
-        (b, f, d) fp32). Random draws come from `noise` if given, else from
-        `generator` in the order prior init, prior steps, VAE, story init.
+        (b, f, d) fp32). Random draws come from `noise` if given, else
+        `StoryNoise.draw` draws them from `generator`.
 
         With a `cond_cache`, `inputs.mask_clip` and `inputs.tokens_s2_u`
         are not read: the mask embeds are the cache's white/black embeds
@@ -229,6 +271,9 @@ class StoryPipeline(nn.Module):
         uncond states still comes from `inputs.tokens_s1_u`, as the
         reference builds it."""
         b, f = inputs.frame_known.shape
+        if noise is None:
+            noise = StoryNoise.draw(self, b, generator,
+                                    tuple(inputs.source_pixels.shape[2:4]))
         known = inputs.frame_known.bool()
         eos1 = self.configs.text_s1.eos_token_id
 
@@ -251,9 +296,8 @@ class StoryPipeline(nn.Module):
             text_embed_u=te_u, text_hidden_u=th_u,
             text_mask_u=padding_mask(inputs.tokens_s1_u, eos1),
             image_embed=src_embed, mask_embed=mask_embed)
-        pred_embeds = self.prior_sampler(
-            cond1, None if noise is None else noise.prior_init,
-            None if noise is None else noise.prior_steps, generator)
+        pred_embeds = self.prior_sampler(cond1, noise.prior_init,
+                                         noise.prior_steps)
         image_proj = torch.where(known[..., None], src_embed,
                                  pred_embeds.to(src_embed.dtype))
 
@@ -264,10 +308,8 @@ class StoryPipeline(nn.Module):
         px = inputs.source_pixels
         mean, logvar = self.vae.encode(
             px.reshape((b * f,) + px.shape[2:]).to(self.dtype))
-        vae_noise = (noise.vae if noise is not None
-                     else draw_noise(mean.shape, generator, mean.device))
         masked = VAE.sample_latent(mean.float(), logvar.float(),
-                                   vae_noise.float()) * self.vae_scale
+                                   noise.vae.float()) * self.vae_scale
         masked = masked.reshape((b, f) + masked.shape[1:])
         h8, w8 = masked.shape[2:4]
         mask_label = known[:, :, None, None, None].float().expand(
@@ -276,8 +318,8 @@ class StoryPipeline(nn.Module):
             text_hidden=th2_c, text_hidden_u=th2_u, image_tokens=src_tokens,
             image_proj=image_proj, frame_known=known,
             masked_latents=masked, mask_label=mask_label)
-        latents = self.story_sampler(
-            cond2, None if noise is None else noise.story_init, generator)
+        latents = self.story_sampler(cond2, noise.story_init,
+                                     step_noise=noise.story_steps)
 
         # ---- decode one frame at a time (bounds the decoder's memory) -------
         z = (latents / self.vae_scale).reshape((b * f,) + latents.shape[2:])
@@ -286,14 +328,47 @@ class StoryPipeline(nn.Module):
         frames = frames.reshape((b, f) + frames.shape[1:])
         return (frames / 2 + 0.5).clamp(0.0, 1.0), pred_embeds
 
+    @torch.no_grad()
+    def generate_stage1_autoreg(self, inputs: StoryInputs,
+                                white_clip: torch.Tensor,
+                                generator: Optional[torch.Generator] = None,
+                                noise: Optional[list] = None
+                                ) -> torch.Tensor:
+        """Stage-1-only autoregressive generation (the reference's
+        `--autoreg` protocol): one full prior sampling pass per frame;
+        after pass i, frame i's predicted embedding becomes a known-image
+        condition and its mask embed the white image's, unless frame i
+        was known. `white_clip`: (c, c, 3) CLIP-preprocessed white image.
+        `noise`: the passes' noise, else `PriorSampler.draw_passes` draws
+        it from `generator`. Returns (b, f, d) embeddings."""
+        eos1 = self.configs.text_s1.eos_token_id
+        th_c, te_c = self._encode_text(self.text_s1, inputs.tokens_s1)
+        th_u, te_u = self._encode_text(self.text_s1, inputs.tokens_s1_u)
+        _, src_embed = self._encode_images(inputs.source_clip)
+        _, mask_embed = self._encode_images(inputs.mask_clip)
+        _, white_embed = self.vision(white_clip[None].to(self.dtype))
+        cond1 = PriorConditioning(
+            text_embed=te_c, text_hidden=th_c,
+            text_mask=padding_mask(inputs.tokens_s1, eos1),
+            text_embed_u=te_u, text_hidden_u=th_u,
+            text_mask_u=padding_mask(inputs.tokens_s1_u, eos1),
+            image_embed=src_embed, mask_embed=mask_embed)
+        b = src_embed.shape[0]
+        return self.prior_sampler.autoregressive(
+            cond1, white_embed.expand(b, -1), inputs.frame_known, generator,
+            noise)
+
 
 def build_pipeline(configs: PipelineConfigs, device, dtype=torch.float32,
-                   seed: int = 0, num_steps: int = 20) -> StoryPipeline:
+                   seed: int = 0, num_steps: int = 20,
+                   **sampler_options) -> StoryPipeline:
     """A pipeline with seeded random weights drawn like flax's initializers
-    (no checkpoint), on `device` in `dtype`, ready for inference."""
+    (no checkpoint), on `device` in `dtype`, ready for inference.
+    `sampler_options`: `StoryPipeline`'s `eta`, `encoder_propagation`,
+    `sequential_cfg`."""
     device = torch.device(device)
     with device:
-        pipe = StoryPipeline(configs, num_steps=num_steps)
+        pipe = StoryPipeline(configs, num_steps=num_steps, **sampler_options)
     init_like_flax_(pipe, torch.Generator(device).manual_seed(seed))
     return for_inference(pipe, dtype)
 
@@ -324,10 +399,12 @@ def tiny_inputs(configs: PipelineConfigs, seed: int = 0) -> StoryInputs:
         frame_known=(torch.arange(f) < 1)[None])
 
 
-def build_tiny_pipeline(seed: int = 0, num_steps: int = 2):
+def build_tiny_pipeline(seed: int = 0, num_steps: int = 2,
+                        **sampler_options):
     """Tiny random-weight pipeline and example inputs on the CPU (the
     counterpart of the JAX `build_tiny_pipeline`, for tests and smoke
-    runs)."""
+    runs); `sampler_options` as `build_pipeline`'s."""
     configs = tiny_configs()
-    pipe = build_pipeline(configs, "cpu", torch.float32, seed, num_steps)
+    pipe = build_pipeline(configs, "cpu", torch.float32, seed, num_steps,
+                          **sampler_options)
     return pipe, tiny_inputs(configs, seed)

@@ -5,13 +5,17 @@ scheduler.
 
 Noise is explicit: pass `init_latents` (b, f, d) and `step_noise`
 (num_steps, b, f, d), as the JAX sampler takes them, or a
-`torch.Generator` that draws them (init first, then one draw per step).
+`torch.Generator` that `draw` draws them from (init first, then one draw
+a step).
+
+`autoregressive` is the reference's `--autoreg` protocol: one full
+sampling pass per frame, each committing its frame's prediction.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,11 +59,13 @@ class PriorSampler:
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Returns (b, f, d) denormalized embeddings, fp32."""
         b, f, _ = cond.text_embed.shape
-        d = self.model.cfg.embedding_dim
         dev = cond.text_embed.device
         dtype = cond.text_embed.dtype
-        if init_latents is None:
-            init_latents = draw_noise((b, f, d), generator, dev)
+        if init_latents is None and step_noise is None:
+            init_latents, step_noise = self.draw(b, f, generator)
+        elif init_latents is None or step_noise is None:
+            raise ValueError("pass both init_latents and step_noise, or "
+                             "neither and a generator")
         latents = init_latents.float()  # the schedule's init sigma is 1
         do_cfg = self.guidance_scale > 1.0
 
@@ -80,7 +86,60 @@ class PriorSampler:
                               text_mask).float()
             if do_cfg:
                 pred = cfg_combine(*pred.chunk(2), self.guidance_scale)
-            noise = (step_noise[i].float() if step_noise is not None
-                     else draw_noise(latents.shape, generator, dev))
-            latents = self.schedule.step(pred, t, prev_t, latents, noise)
+            latents = self.schedule.step(pred, t, prev_t, latents,
+                                         step_noise[i].float())
         return self.model.denormalize(latents)
+
+    def draw(self, b: int, f: int, generator: Optional[torch.Generator]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One pass's noise from `generator`, on the model's device: the
+        init (b, f, d), then one (b, f, d) draw a step, stacked to
+        (num_steps, b, f, d)."""
+        shape = (b, f, self.model.cfg.embedding_dim)
+        dev = next(self.model.parameters()).device
+        init = draw_noise(shape, generator, dev)
+        return init, torch.stack([draw_noise(shape, generator, dev)
+                                  for _ in range(self.num_steps)])
+
+    def draw_passes(self, b: int, f: int,
+                    generator: Optional[torch.Generator]
+                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """The noise of `autoregressive`'s f passes: one `draw` a pass."""
+        return [self.draw(b, f, generator) for _ in range(f)]
+
+    @torch.no_grad()
+    def autoregressive(self, cond: PriorConditioning,
+                       white_mask_embed: torch.Tensor,
+                       frame_known: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[list] = None) -> torch.Tensor:
+        """One-frame-at-a-time generation (`PriorSampler.autoregressive` of
+        the JAX package): after pass i, frame i's predicted embedding is
+        committed as a known-frame condition, and its mask embed flipped to
+        `white_mask_embed` (b, d), unless frame i was known. `frame_known`
+        (b, f) defaults to the frames whose mask embed equals the white
+        one. `noise`: f pairs (init (b, f, d), steps (num_steps, b, f, d)),
+        one a pass; else `draw_passes` draws them from `generator`.
+
+        Returns (b, f, d) embeddings in `cond.image_embed`'s dtype: the
+        known frames' conditions unchanged, the others predicted."""
+        b, f = cond.image_embed.shape[:2]
+        if noise is None:
+            noise = self.draw_passes(b, f, generator)
+        image_embed = cond.image_embed.clone()
+        mask_embed = cond.mask_embed.clone()
+        white = white_mask_embed.to(mask_embed.dtype)
+        known = (frame_known.bool() if frame_known is not None else
+                 torch.isclose(mask_embed, white[:, None, :]).all(-1))
+        result = image_embed.clone()
+        for i in range(f):
+            c = cond._replace(image_embed=image_embed.clone(),
+                              mask_embed=mask_embed.clone())
+            pred = self(c, *noise[i])
+            commit = ~known[:, i, None]
+            new = torch.where(commit, pred[:, i].to(image_embed.dtype),
+                              image_embed[:, i])
+            result[:, i] = new
+            image_embed[:, i] = new
+            mask_embed[:, i] = torch.where(commit, white, mask_embed[:, i])
+        return result

@@ -1,18 +1,29 @@
 """Stage-2 sampler — the counterpart of `rcdms_tpu/sample/story_sampler.py`:
-the story latents come from the UNet under DDIM (eta = 0) and
-classifier-free guidance 2.0, with the two CFG branches run one after the
-other (the JAX package's single-chip default) and the 9-channel input
-[noisy | mask | masked-source latents] built each step. The fused
-conditioning is computed once, outside the loop.
+the story latents come from the UNet under DDIM and classifier-free
+guidance 2.0, with the 9-channel input [noisy | mask | masked-source
+latents] built each step. The fused conditioning is computed once, outside
+the loop.
 
-The initial latents are explicit (`init_latents`, raw randn) or drawn from
-a `torch.Generator`.
+Options, as the JAX sampler's fields:
+  * `sequential_cfg` (default): the two CFG branches run one after the
+    other (the JAX package's single-chip default); False runs one UNet
+    call on the CFG-doubled batch [uncond | cond], side inputs doubled;
+  * `eta` > 0: stochastic DDIM, one noise draw a step;
+  * `encoder_propagation` k >= 2: the UNet's down path runs only on steps
+    i with i % k == 0; each CFG branch keeps its own cached (h, skips),
+    and the decoder runs every step under that step's time embedding.
+    This changes the numbers; k <= 1 (default 0) is the exact path.
+
+The initial latents and the step noise are explicit (`init_latents`, raw
+randn; `step_noise` (num_steps, b, f, h8, w8, 4)) or drawn from a
+`torch.Generator` by `draw`: the init first, then, with eta > 0, one draw
+a step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,34 +51,83 @@ class StorySampler:
         default_factory=DDIMSchedule.stage2_inference)
     num_steps: int = 20
     guidance_scale: float = 2.0
+    eta: float = 0.0
+    sequential_cfg: bool = True
+    encoder_propagation: int = 0
+
+    def _unet(self, x, t: int, ctx, cache, is_key: bool):
+        """One UNet call at timestep t -> (prediction fp32, cache). With
+        encoder propagation the down path runs only when `is_key`, else
+        the cached encoding is decoded under this step's embedding."""
+        tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+        if self.encoder_propagation < 2:
+            return self.unet(x, tb, ctx).float(), cache
+        temb = self.unet.time_embed(tb, x.dtype)
+        if is_key:
+            cache = self.unet.encode(x, temb, ctx)
+        return self.unet.decode(*cache, temb, ctx).float(), cache
 
     @torch.no_grad()
     def __call__(self, cond: StoryConditioning,
                  init_latents: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Returns (b, f, h8, w8, 4) fp32 latents (still VAE-scaled)."""
         b, f, h8, w8, _ = cond.masked_latents.shape
-        dev = cond.masked_latents.device
         dtype = cond.text_hidden.dtype
-        contexts = [self.fusion(cond.image_tokens, cond.image_proj,
-                                cond.text_hidden, cond.frame_known)]
+        ctx_c = self.fusion(cond.image_tokens, cond.image_proj,
+                            cond.text_hidden, cond.frame_known)
         do_cfg = self.guidance_scale > 1.0
+        contexts = [ctx_c]
         if do_cfg:
             contexts.insert(0, self.fusion(cond.image_tokens, cond.image_proj,
                                            cond.text_hidden_u,
                                            cond.frame_known))
-        if init_latents is None:
-            init_latents = draw_noise((b, f, h8, w8, 4), generator, dev)
+        if init_latents is None and step_noise is None:
+            init_latents, step_noise = self.draw((b, f, h8, w8, 4),
+                                                 generator)
+        elif init_latents is None:
+            raise ValueError("pass init_latents with step_noise, or neither "
+                             "and a generator")
+        if self.eta > 0.0 and step_noise is None:
+            raise ValueError("eta > 0 needs step_noise with init_latents")
         latents = init_latents.float()  # the schedule's init sigma is 1
-        side = torch.cat([cond.mask_label, cond.masked_latents], dim=-1)
+        side = torch.cat([cond.mask_label, cond.masked_latents],
+                         dim=-1).float()
+        batched = do_cfg and not self.sequential_cfg
+        if batched:
+            contexts = [torch.cat(contexts)]
+            side = torch.cat([side, side])
+        caches = [None] * len(contexts)
 
+        k = self.encoder_propagation
         ts = self.schedule.timesteps(self.num_steps)
         prev_ts = self.schedule.prev_timesteps(self.num_steps)
-        for t, prev_t in zip(ts.tolist(), prev_ts.tolist()):
-            x = torch.cat([latents, side.float()], dim=-1).to(dtype)
-            tb = torch.full((b,), t, dtype=torch.int64, device=dev)
-            preds = [self.unet(x, tb, ctx).float() for ctx in contexts]
+        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            lat = torch.cat([latents, latents]) if batched else latents
+            x = torch.cat([lat, side], dim=-1).to(dtype)
+            preds = []
+            for j, ctx in enumerate(contexts):
+                pred, caches[j] = self._unet(x, t, ctx, caches[j],
+                                             k < 2 or i % k == 0)
+                preds.append(pred)
+            if batched:
+                preds = list(preds[0].chunk(2))
             pred = (cfg_combine(preds[0], preds[1], self.guidance_scale)
                     if do_cfg else preds[0])
-            latents = self.schedule.step(pred, t, prev_t, latents)
+            noise = step_noise[i].float() if self.eta > 0.0 else None
+            latents = self.schedule.step(pred, t, prev_t, latents,
+                                         eta=self.eta, noise=noise)
         return latents
+
+    def draw(self, shape, generator: Optional[torch.Generator]
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The noise of one call from `generator`, on the UNet's device:
+        the init latents of `shape` (b, f, h8, w8, 4), then, with eta > 0,
+        one draw a step stacked to (num_steps,) + shape (else None)."""
+        dev = self.unet.conv_in.weight.device
+        init = draw_noise(shape, generator, dev)
+        steps = (torch.stack([draw_noise(shape, generator, dev)
+                              for _ in range(self.num_steps)])
+                 if self.eta > 0.0 else None)
+        return init, steps

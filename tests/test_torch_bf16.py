@@ -73,7 +73,10 @@ from rcdms_tpu_torch.ops.flash import attention_plain
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
 from rcdms_tpu_torch.sample.pipeline import build_pipeline, tiny_configs
-from tests.test_torch_configs import port_config
+from tests.test_torch_configs import (  # noqa: F401 (autouse fixture)
+    one_torch_thread,
+    port_config,
+)
 
 NORMS = (GroupNorm, LayerNorm)
 FP32_MODULES = NORMS + (TimestepEmbedding,)

@@ -27,7 +27,10 @@ from rcdms_tpu_torch.core import layers as tlayers
 from rcdms_tpu_torch.core import resnet as tresnet
 from rcdms_tpu_torch.core import temporal as ttemporal
 from rcdms_tpu_torch.io import bridge
-from tests.test_torch_configs import port_config
+from tests.test_torch_configs import (  # noqa: F401 (autouse fixture)
+    one_torch_thread,
+    port_config,
+)
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 

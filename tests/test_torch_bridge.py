@@ -41,7 +41,10 @@ from rcdms_tpu_torch.models import fusion as tfusion
 from rcdms_tpu_torch.models import prior as tprior
 from rcdms_tpu_torch.models import unet3d as tunet
 from rcdms_tpu_torch.models import vae as tvae
-from tests.test_torch_configs import port_config
+from tests.test_torch_configs import (  # noqa: F401 (autouse fixture)
+    one_torch_thread,
+    port_config,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

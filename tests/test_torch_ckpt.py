@@ -37,7 +37,10 @@ from rcdms_tpu_torch.models import clip as tclip
 from rcdms_tpu_torch.models import prior as tprior
 from rcdms_tpu_torch.models import unet3d as tunet
 from rcdms_tpu_torch.models import vae as tvae
-from tests.test_torch_configs import port_config
+from tests.test_torch_configs import (  # noqa: F401 (autouse fixture)
+    one_torch_thread,
+    port_config,
+)
 from tests.test_torch_models import _apply, _weights, _x
 
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -46,7 +46,10 @@ from rcdms_tpu_torch.models.prior import FramePrior
 from rcdms_tpu_torch.models.unet3d import StoryUNet
 from rcdms_tpu_torch.models.vae import VAE
 from rcdms_tpu_torch.sample.pipeline import StoryNoise
-from tests.test_torch_configs import port_config
+from tests.test_torch_configs import (  # noqa: F401 (autouse fixture)
+    one_torch_thread,
+    port_config,
+)
 from tests.test_torch_models import _weights
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -309,9 +312,8 @@ def test_generate_checks_counts_before_the_build(monkeypatch, captions,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--autoreg"], ["--encoder-propagation", "2"], ["--quantize", "int8"],
-    ["--eval-batch", "2"], ["--shard-story"], ["--stage1-ckpt", "x"],
-    ["--stage2-ckpt", "x"], ["--converted-ckpt", "x"]])
+    ["--shard-story"], ["--stage1-ckpt", "x"], ["--stage2-ckpt", "x"],
+    ["--converted-ckpt", "x"]])
 def test_flags_left_for_later_are_rejected(flag, capsys):
     with pytest.raises(SystemExit) as e:
         pevaluate.parse_args(CPU + flag)

@@ -1,10 +1,12 @@
 """The port's own config dataclasses (rcdms_tpu_torch/configs.py) against
 the JAX package's (rcdms_tpu/configs): the same fields, types, defaults and
-presets, and the port's import boundary: with `rcdms_tpu` and `jax`
-blocked, every module of the port and chip_smoke.py imports.
+presets, and the port's import boundary: with `rcdms_tpu`, `jax`, `flax`
+and Pillow blocked, every module of the port and chip_smoke.py imports.
 
 `port_config` turns a JAX config into the port's, field by field; the
-tests that build JAX configs hand the port its own copy through it."""
+tests that build JAX configs hand the port its own copy through it.
+`one_torch_thread`, imported by the port's heavier test modules, runs
+each such module's torch work on one intra-op thread."""
 
 import dataclasses
 import os
@@ -13,6 +15,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
 from rcdms_tpu import configs as jconfigs
 from rcdms_tpu_torch import configs as pconfigs
@@ -20,6 +23,18 @@ from rcdms_tpu_torch import configs as pconfigs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("TemporalConfig", "PriorConfig", "StoryUNetConfig", "VAEConfig",
          "CLIPTextConfig", "CLIPVisionConfig", "FusionConfig")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the module: the suite runs several
+    pytest workers on the CPU's cores at once, and the tiny towers gain
+    nothing from threads that then contend for those cores (a module that
+    took seconds alone took minutes beside five others)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_config(cfg):
@@ -84,17 +99,21 @@ _BLOCKED = textwrap.dedent("""
     import pkgutil
     import sys
 
-    sys.modules["rcdms_tpu"] = None
-    sys.modules["jax"] = None
+    blocked = ("rcdms_tpu", "jax", "flax", "PIL")
+    for name in blocked:
+        sys.modules[name] = None
 
     import rcdms_tpu_torch
 
     names = ["chip_smoke"] + [
         m.name for m in pkgutil.walk_packages(rcdms_tpu_torch.__path__,
                                               "rcdms_tpu_torch.")]
+    assert {"rcdms_tpu_torch.cli.serve", "rcdms_tpu_torch.ops.quant"} \
+        <= set(names)
     for name in names:
         importlib.import_module(name)
-    del sys.modules["rcdms_tpu"], sys.modules["jax"]
+    for name in blocked:
+        del sys.modules[name]
     leaked = sorted(k for k in sys.modules
                     if k == "rcdms_tpu" or k.startswith("rcdms_tpu."))
     assert not leaked, leaked

@@ -270,3 +270,56 @@ def test_frame_plan_every_taken_width_fits():
             assert plan["split"] <= 32 and 32 % plan["split"] == 0
             assert plan["smem"] <= SMEM_LIMIT, (dh, f)
             assert plan["threads"] <= frame_attention_ops.MAX_THREADS
+
+
+# the serve path at --max-batch 4 with the CFG branches batched
+# (`sequential_cfg=False`): 4 stories x 2 branches x 5 frames = 40 UNet
+# frames, 8 prior rows of 5 frames, 20 CLIP images
+SERVE_FRAMES = 40
+GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+INT32_MAX = 2 ** 31 - 1
+
+
+def _fits_grid(grid):
+    grid = tuple(grid) + (1,) * (3 - len(tuple(grid)))
+    return all(1 <= g <= lim for g, lim in zip(grid, GRID_LIMITS))
+
+
+@pytest.mark.parametrize("batch,heads,sq,skv,dh", [
+    (SERVE_FRAMES, 8, s, skv, dh)
+    for s, dh in ((4096, 40), (1024, 80), (256, 160)) for skv in (s, 91)
+] + [(20, 16, 257, 257, 104)])
+def test_attention_plan_at_the_serve_shapes(batch, heads, sq, skv, dh):
+    """Kernel A's grid (query blocks, batch x heads) and its operands'
+    element counts stay within the grid limits and int32."""
+    plan = flash._plan(dh)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert _fits_grid((-(-sq // plan["bq"]), batch * heads))
+    assert batch * max(sq, skv) * heads * dh <= INT32_MAX
+
+
+@pytest.mark.parametrize("b,f,n,c", [
+    (8, 5, 4096, 320), (8, 5, 1024, 640), (8, 5, 256, 1280),
+    (8, 5, 64, 1280), (8, 5, 97, 2048)])
+def test_frame_plan_at_the_serve_shapes(b, f, n, c):
+    plan = frame_attention_ops._plan(b, f, n, c, 8)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert plan["tiles"] <= 2 ** 30  # the C entry point's own bound
+    assert _fits_grid((plan["grid"],))
+    assert b * f * n * c <= INT32_MAX
+
+
+@pytest.mark.parametrize("rows,c,geglu_", [
+    (SERVE_FRAMES * 4096, 320, True), (SERVE_FRAMES * 1024, 640, True),
+    (SERVE_FRAMES * 256, 1280, True), (SERVE_FRAMES * 64, 1280, True),
+    (8 * 5 * 97, 2048, True), (8 * 5 * 97, 2048, False)])
+def test_ff_plan_at_the_serve_shapes(rows, c, geglu_):
+    """Level 0's 163,840 rows: pass 1's 1280 row blocks fit grid.y, and
+    the widest operand (rows x the GEGLU's 2 x inner) stays in int32."""
+    inner = 4 * c
+    plan = geglu._plan(rows, c, inner, geglu_)
+    for name in ("pass1", "pass2"):
+        assert plan[name]["smem"] <= SMEM_LIMIT
+        assert _fits_grid(plan[name]["grid"]), (name, plan[name]["grid"])
+    assert plan["pass1"]["grid"][1] == -(-rows // 128)
+    assert rows * (2 if geglu_ else 1) * inner <= INT32_MAX

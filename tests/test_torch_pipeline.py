@@ -47,6 +47,7 @@ from rcdms_tpu_torch.sample.pipeline import (
 )
 from rcdms_tpu_torch.sample.prior_sampler import PriorConditioning
 from rcdms_tpu_torch.sample.story_sampler import StoryConditioning
+from tests.test_torch_configs import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import capture_ref_noise  # noqa: E402
@@ -220,6 +221,9 @@ def test_cached_generate_reads_the_uncond_row_for_the_mask_alone(
     white, black = torch.full((c, c, 3), 0.75), torch.full((c, c, 3), -0.25)
     cache = pipe.precompute_cond_cache(inputs.tokens_s1_u[0, 0],
                                        inputs.tokens_s2_u[0, 0], white, black)
+    # drawn before the sampler is wrapped: the stand-in has no `draw`
+    noise = StoryNoise.draw(pipe, 1, torch.Generator().manual_seed(0),
+                            tuple(inputs.source_pixels.shape[2:4]))
     seen = []
     sampler = pipe.prior_sampler
     monkeypatch.setattr(pipe, "prior_sampler",
@@ -232,7 +236,7 @@ def test_cached_generate_reads_the_uncond_row_for_the_mask_alone(
         uncond[..., pos] = eos
         pipe.generate(inputs._replace(tokens_s1_u=uncond, tokens_s2_u=None,
                                       mask_clip=None), cache,
-                      torch.Generator().manual_seed(0))
+                      noise=noise)
         cond = seen[-1]
         np.testing.assert_array_equal(cond.text_mask_u.numpy(),
                                       padding_mask(uncond, eos).numpy())
