@@ -17,9 +17,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
    2e-2 (bf16), with the median time of each side, of one PyTorch library
    call that computes the same function where there is one (SDPA beside A,
    B and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
-   GN), and the case's bound (its work at the card's published peaks);
-   each bf16 B case must take B's tiled kernel (its launch count is
-   printed), each fp32 one the general kernel;
+   GN with SiLU, F.group_norm beside it without; the first port's fused
+   GN kernel timed beside the cluster kernel where it takes the shape),
+   and the case's bound (its work at the card's published peaks); each
+   bf16 B case must take B's tiled kernel (its launch count is printed),
+   each fp32 one the general kernel; A's share of bf16 outputs off the
+   plain version's bits is printed, and must be below 0.38 at UNet level
+   0 (A rounds P against the row's final maximum, as the TPU kernels);
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3; the same for
@@ -144,14 +148,16 @@ KERNEL_INFO = {
 class Case(NamedTuple):
     """One phase-3 case: a kernel call, its plain version, the work its
     inputs need (flops, exponentials, bytes read once and written once),
-    and one PyTorch library call of the same function, where there is
-    one (timed only)."""
+    one PyTorch library call of the same function, where there is one,
+    and (label, call) pairs of other versions to time beside it (both
+    timed only)."""
     name: str
     label: str
     kernel: Callable
     plain: Callable
     work: tuple
     library: Optional[Callable] = None
+    baselines: tuple = ()
 
 
 def _nbytes(*tensors) -> int:
@@ -254,7 +260,9 @@ def study_kernel_cases(r, dev, dtype):
     """The study kernels at their studies' full shapes: the level-0 conv
     (5 frames of 64 x 64, 320 -> 320, padded to 4608 tokens) with and
     without the tap offsets, the moments of (50, 4096, 320), and the fused
-    GroupNorm + SiLU at the four UNet shapes."""
+    GroupNorm with and without SiLU at the study's four UNet shapes and
+    (5, 4096, 960)."""
+    from rcdms_tpu_torch.ops import group_norm as gn
     from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3, cm_conv3x3_plain
     from rcdms_tpu_torch.ops.group_norm import (
         gn_moments,
@@ -285,17 +293,34 @@ def study_kernel_cases(r, dev, dtype):
     cases.append(Case("gn_moments", "50x4096x320", lambda: gn_moments(xm),
                       lambda: gn_moments_plain(xm),
                       (0, 0, _nbytes(xm) + 2 * 50 * 320 * 4)))
-    for shape in gs.SHAPES:
-        c = shape[-1]
-        args = (r(*shape), (r(c, scale=0.5) + 1.0).float(),
-                r(c, scale=0.2).float(), gs.GROUPS, gs.EPS, "silu")
-        x_cf = args[0].transpose(1, 2)
-        cases.append(Case(
-            "group_norm_act", "x".join(map(str, shape)),
-            lambda a=args: group_norm_act(*a),
-            lambda a=args: group_norm_act_plain(*a),
-            (0, args[0].numel(), 2 * _nbytes(args[0])),
-            lambda x_cf=x_cf, a=args: gs.torch_gn(x_cf, a[1], a[2])))
+    # the fused GroupNorm at the study's shapes and up level 0's first
+    # ResNet block, with SiLU (beside F.group_norm + F.silu) and without
+    # (beside F.group_norm), and the first port's kernel timed beside it
+    # where its one-block group slab fits
+    for shape in gs.SHAPES + [(5, 4096, 960)]:
+        b, n, c = shape
+        xg = r(*shape)
+        x_cf = xg.transpose(1, 2)
+        gscale = (r(c, scale=0.5) + 1.0).float()
+        gbias = r(c, scale=0.2).float()
+        slab_fits = (n * (c // gs.GROUPS) * xg.element_size()
+                     <= gn.SMEM_MAX - gn._SLAB_RESERVED)
+        for act in ("silu", "none"):
+            args = (xg, gscale, gbias, gs.GROUPS, gs.EPS, act)
+            library = (
+                (lambda x_cf=x_cf, sc=gscale, bi=gbias: gs.torch_gn(x_cf, sc,
+                                                                    bi))
+                if act == "silu" else
+                (lambda x_cf=x_cf, sc=gscale.to(dtype), bi=gbias.to(dtype):
+                    F.group_norm(x_cf, gs.GROUPS, sc, bi, gs.EPS)))
+            cases.append(Case(
+                "group_norm_act", f"{b}x{n}x{c} {act}",
+                lambda a=args: group_norm_act(*a),
+                lambda a=args: group_norm_act_plain(*a),
+                (0, xg.numel() if act == "silu" else 0, 2 * _nbytes(xg)),
+                library,
+                (("first kernel", lambda a=args: gn.group_norm_act_slab(*a)),)
+                if slab_fits else ()))
     return cases
 
 
@@ -413,14 +438,22 @@ def check_kernels(dev, card: str) -> dict:
                 rel = max(rel_err(o, p) for o, p in zip(out, ref))
             else:
                 err, rel = _max_diff(out, ref), rel_err(out, ref)
+            # A rounds P as its plain version: the share of bf16 outputs
+            # off the plain version's bits
+            bits_off = ((out != ref).float().mean().item()
+                        if name == "attention" and dtype == torch.bfloat16
+                        else None)
             del out, ref
             ms, plain_ms = median_ms(case.kernel), median_ms(case.plain)
             lib_ms = None if case.library is None else median_ms(
                 case.library)
+            others = {other: median_ms(fn) for other, fn in case.baselines}
             bound, bound_by = bound_ms(*case.work, dtype=dtype)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                       lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+                       lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                       **({} if bits_off is None else dict(bits_off=bits_off)),
+                       **({} if not others else dict(others_ms=others)))
             if name == "frame_attention":
                 row["tiled_launches"] = tiled
             rows.append(row)
@@ -429,11 +462,22 @@ def check_kernels(dev, card: str) -> dict:
                   f"rel_err {rel:.2e} kernel {ms:9.4f} ms "
                   f"plain {plain_ms:9.4f} ms library {lib} ms "
                   f"bound {bound:.4f} ms ({bound_by})"
-                  + (f" tiled {tiled}" if name == "frame_attention" else ""),
+                  + (f" tiled {tiled}" if name == "frame_attention" else "")
+                  + ("" if bits_off is None else
+                     f" bits off the plain version {bits_off:.4f}")
+                  + "".join(f" {other} {t:.4f} ms"
+                            for other, t in others.items()),
                   flush=True)
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"{name} {label} {dtype}: relative "
                                      f"error {rel:.3e} > {TOL[dtype]}")
+            if bits_off is not None and label.startswith("unet self "
+                                                         "Sq=4096") \
+                    and not bits_off < 0.38:
+                raise AssertionError(f"A at UNet level 0: {bits_off:.4f} of "
+                                     f"its bf16 outputs off the plain "
+                                     f"version's bits, not below the 0.38 "
+                                     f"of a running-maximum rounding")
             s = summary[name]
             s["max_abs_err"] = max(s["max_abs_err"], err)
             if dtype == torch.bfloat16 and "ms" not in s:
@@ -1113,12 +1157,19 @@ def run_serve(dev, card: str, entry: dict) -> dict:
     args = _serve_args()
     ready, box = threading.Event(), []
     t0 = time.perf_counter()
+    # the server is built in the int8 mode --quantize sets, so the bf16
+    # cast quantizes the UNet's gated convs from their fp32 values (the
+    # warm-up runs them); its requests below run exact until the int8 one
+    quant.set_quant_mode(_serve_args("--quantize", "int8").eval.quantize)
     thread = threading.Thread(target=serve.serve, args=(args,),
                               kwargs=dict(ready_event=ready, httpd_box=box),
                               daemon=True)
     thread.start()
-    if not ready.wait(timeout=900):
-        raise AssertionError("the server did not start")
+    try:
+        if not ready.wait(timeout=900):
+            raise AssertionError("the server did not start")
+    finally:
+        quant.set_quant_mode(None)
     httpd, srv = box[0]
     print(f"serve: {card}: built, warmed and listening in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)

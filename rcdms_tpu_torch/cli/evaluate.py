@@ -66,6 +66,7 @@ from rcdms_tpu_torch.sample.pipeline import (
     StoryInputs,
     StoryNoise,
     StoryPipeline,
+    for_inference,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -198,7 +199,13 @@ def build_pipeline(args):
             cfg, unet=apply_to_unet_config(cfg.unet, overrides),
             prior=apply_to_unet_config(cfg.prior, overrides))
 
-    kw = dict(dtype=DTYPES[args.dtype], device=device)
+    dtype = DTYPES[args.dtype]
+    kw = dict(dtype=dtype, device=device)
+    # a tower a reference checkpoint loads into stays fp32 until it is
+    # loaded, so the cast (and the int8 route's quantization) sees the
+    # checkpoint's fp32 values
+    s1 = dict(kw, dtype=torch.float32) if args.rcdms_stage1_ckpt else kw
+    s2 = dict(kw, dtype=torch.float32) if args.rcdms_stage2_ckpt else kw
     sd = args.sd_pretrained
 
     def sub(name):
@@ -212,14 +219,17 @@ def build_pipeline(args):
         vision=common.build_vision_encoder(cfg.vision,
                                            args.vision_pretrained, **kw),
         vae=common.build_vae(cfg.vae, sub("vae"), **kw),
-        prior=common.build_prior(cfg.prior, args.prior_pretrained, **kw),
-        unet=common.build_unet(cfg.unet, sub("unet"), **kw),
-        fusion=common.build_fusion(cfg.fusion, **kw))
+        prior=common.build_prior(cfg.prior, args.prior_pretrained, **s1),
+        unet=common.build_unet(cfg.unet, sub("unet"), **s2),
+        fusion=common.build_fusion(cfg.fusion, **s2))
     if args.rcdms_stage1_ckpt:
-        common.load_rcdms_stage1(args.rcdms_stage1_ckpt, towers["prior"])
+        towers["prior"] = for_inference(common.load_rcdms_stage1(
+            args.rcdms_stage1_ckpt, towers["prior"]), dtype)
     if args.rcdms_stage2_ckpt:
         common.load_rcdms_stage2(args.rcdms_stage2_ckpt, towers["unet"],
                                  towers["fusion"])
+        for name in ("unet", "fusion"):
+            towers[name] = for_inference(towers[name], dtype)
     pipeline = StoryPipeline(
         cfg, num_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, schedule=schedule, towers=towers,

@@ -11,8 +11,10 @@ through the full two-stage pipeline.
         --out story.png
 
 Known frames are given in order with --reference (0 to 4 of them), as
-PNG files (8-bit grey, RGB or with alpha, read by `sample/eval.py::
-decode_png`, no Pillow; other formats are refused). Every model and
+image files read as the JAX CLI reads them (`convert("RGB")`): PNGs of
+any colour type, bit depth or interlace by `sample/eval.py::decode_png`
+with no Pillow; other formats through Pillow where it is installed, and
+refused where it is not. Every model and
 sampling flag (--synthetic, --dtype, --device, --rcdms-stage{1,2}-ckpt,
 --seed, ...) is the evaluate CLI's. The story's generator is seeded as
 the evaluate CLI seeds story 0.

@@ -17,14 +17,15 @@ API (the JAX server's):
                       "compiled": [batch sizes run so far], "served": N,
                       "pending": N, "avg_latency_s": s}
   POST /generate  -> body {"captions": [str x f],
-                           "reference_frames": [base64 PNG, ...],  # 0..f
+                           "reference_frames": [base64 image, ...],  # 0..f
                            "negative_prompt": str, "seed": int}
                   -> {"frames": [base64 PNG x f], "latency_s": float,
                       "batch_size": int}
 Errors: 400 for a malformed request (wrong caption count, a seed outside
-[0, 2**64), a reference frame that is not a PNG the decoder takes: 8-bit
-grey, RGB or with alpha, of at most `MAX_REFERENCE_PIXELS` pixels; other
-formats, which the JAX server reads through Pillow, are refused here),
+[0, 2**64), a reference frame that `sample/eval.py::decode_png` does not
+read or of more than `MAX_REFERENCE_PIXELS` pixels: it reads every PNG
+without Pillow, and other formats, as the JAX server does, through Pillow
+where it is installed),
 404 for another path, 503 when more than --max-queue requests are pending
 (retry with backoff), 500 when generation fails.
 

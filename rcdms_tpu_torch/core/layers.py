@@ -187,20 +187,61 @@ class FrameConv(Conv):
     """The story UNet's per-frame conv (the reference's `InflatedConv3d`),
     with the JAX `FrameConv`'s opt-in int8 route: in int8 quant mode
     (`ops/quant.py`) a 3x3, stride-1, padding-1 conv with Cin % 64 == 0
-    runs `int8_conv3x3`. The int8 weight is quantized once and kept until
-    the weight changes (keyed on its `_version`, storage and dtype)."""
+    runs `int8_conv3x3`.
+
+    The int8 weight, its scales and the bias come from the fp32 values, as
+    `_taps9_conv_int8` takes them from the fp32 `_ConvParams`: a conversion
+    that rounds the weight (`.to(bfloat16)`) quantizes it first when the
+    int8 mode is on, and an fp32 weight is quantized at its first int8
+    call. The result is kept until the weight or bias changes (keyed on
+    their `_version`, storage and dtype) and follows the module's device.
+    A gated conv asked for int8 with a rounded weight and nothing quantized
+    from its fp32 values raises: set the mode before the cast."""
 
     def _takes_int8(self) -> bool:
         return (int8_enabled() and self.kernel_size == (3, 3)
                 and self.stride == (1, 1) and self.padding == (1, 1)
                 and self.in_channels % 64 == 0)
 
-    def _int8_weight(self):
-        w = self.weight
-        key = (w._version, w.data_ptr(), w.device, w.dtype)
+    def _int8_key(self) -> tuple:
+        return tuple((t._version, t.data_ptr(), t.device, t.dtype)
+                     for t in (self.weight, self.bias) if t is not None)
+
+    def _quantize(self, weight, bias) -> tuple:
+        """(int8 weight, scales, fp32 bias or None) of fp32 values."""
+        return conv_weight_int8(weight) + (
+            None if bias is None else bias.float(),)
+
+    def _apply(self, fn, recurse=True):
+        before = (self.weight.data,
+                  None if self.bias is None else self.bias.data)
         cached = getattr(self, "_int8_cache", None)
-        if cached is None or cached[0] != key:
-            cached = (key,) + conv_weight_int8(w)
+        if cached is not None and cached[0] != self._int8_key():
+            cached = None  # stale: made for values the module no longer has
+        super()._apply(fn, recurse)
+        rounded = (before[0].dtype == torch.float32
+                   and self.weight.dtype != torch.float32)
+        if cached is None and rounded and self._takes_int8():
+            cached = (None,) + self._quantize(*before)
+        if cached is not None:  # on the new device, for the new tensors
+            dev = self.weight.device
+            self._int8_cache = (self._int8_key(),) + tuple(
+                None if t is None else t.to(dev) for t in cached[1:])
+        else:
+            self._int8_cache = None
+        return self
+
+    def _int8_weight(self):
+        cached = getattr(self, "_int8_cache", None)
+        if cached is None or cached[0] != self._int8_key():
+            if self.weight.dtype != torch.float32:
+                raise RuntimeError(
+                    f"FrameConv: the int8 route quantizes the fp32 weight, "
+                    f"but this conv's weight is {self.weight.dtype} and "
+                    f"nothing was quantized before it was rounded: set the "
+                    f"int8 quant mode before casting the model")
+            cached = (self._int8_key(),) + self._quantize(self.weight,
+                                                          self.bias)
             self._int8_cache = cached
         return cached[1:]
 
@@ -209,7 +250,7 @@ class FrameConv(Conv):
             return super().forward(x)
         lead = x.shape[:-3]
         y = int8_conv3x3(x.reshape((-1,) + x.shape[-3:]),
-                         *self._int8_weight(), self.bias, x.dtype)
+                         *self._int8_weight(), x.dtype)
         return y.reshape(lead + y.shape[1:])
 
 

@@ -37,9 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq, smem, stream
+    # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq, row_sum,
+    # smem, stream
     "rcdms_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P],
     # dtype, q, k, v, o, b, f, n, c, heads, scale, tokens, group, split,
     # smem, grid, stream
     "rcdms_frame_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -54,8 +55,13 @@ SIGNATURES = {
                           _I, _I, _P],
     # dtype, x, mean, mean2, B, N, C, stream
     "rcdms_gn_moments": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, slab_groups,
+    # cluster, rows, threads, smem, stream
+    "rcdms_group_norm_act": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                             _I, _I, _I, _I, _P],
     # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, stream
-    "rcdms_group_norm_act": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "rcdms_group_norm_act_slab": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                  _P],
     # cm, norm, split, dscore, q, k, v, o, B, Sq, Skv, W, dk, scale, smem,
     # stream
     "rcdms_smallk_attention": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,

@@ -23,10 +23,11 @@ P.V) but take the row sum l from different P: `_nt_kernel` from the rounded
 P, `_attn_kernel` from the fp32 P. Each call site names its family with
 `row_sum` ("rounded": the UNet's spatial sites, which the JAX package sends
 to `_nt_kernel`; "fp32": the CLIP vision tower's, which go to
-`_attn_kernel`), and the plain version follows it. The `mma.sync` kernel
-rounds P as both do (against its running maximum) and sums l from the
-fp32 P at every site: summing the rounded P cost more time at UNet level 0
-than the spread between runs (PERF.md).
+`_attn_kernel`), and the plain version and the `mma.sync` kernel follow
+it: the kernel makes two passes over K, the first for the row's maximum,
+so that it rounds P against the row's final maximum as both TPU kernels
+do, and takes l from the rounded or the fp32 P by a template parameter
+that the plan carries.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from rcdms_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 256
+ROW_SUMS = ("rounded", "fp32")
 KV_TILE = 64  # keys a K/V tile of the mma kernel
 # contraction widths the mma kernel is built for (dh padded up to one),
 # each with the output tile counts it is built for (dh / 8 rounded up)
@@ -45,8 +47,10 @@ OUTPUT_TILES = {48: (5, 6), 64: (8,), 80: (10,), 112: (13, 14), 128: (16,),
                 160: (20,), 256: (32,)}
 
 
-def _plan(dh: int) -> dict:
-    """Launch plan of the bf16 `mma.sync` kernel for head dim dh: the
+def _plan(dh: int, row_sum: str) -> dict:
+    """Launch plan of the bf16 `mma.sync` kernel for head dim dh and the
+    site's `row_sum` family (`row_sum`: 1 for "rounded", 0 for "fp32",
+    the kernel's template parameter): the
     contraction width `dp` (dh padded to a multiple of 16, to the next
     width the kernel is built for), the output's n8 tiles (`n_tiles`,
     dh / 8 for every head dim of the main path: no pad on the output
@@ -62,21 +66,23 @@ def _plan(dh: int) -> dict:
         raise ValueError(f"flash_attention: the bf16 kernel takes a head dim "
                          f"that is a multiple of 8 up to {MAX_HEAD_DIM}, "
                          f"got {dh}")
+    if row_sum not in ROW_SUMS:
+        raise ValueError(f"flash_attention: row_sum {row_sum!r}, not one "
+                         f"of {ROW_SUMS}")
     dp = next(w for w in OUTPUT_TILES if w >= dh)
     n_tiles = next(n for n in OUTPUT_TILES[dp] if 8 * n >= dh)
     bq = 128 if dp <= 128 else 64
     rows_per_warp = 32 if dp <= 64 else 16
     smem = (bq + 4 * KV_TILE) * (dp + 8) * 2
     return dict(dp=dp, n_tiles=n_tiles, bq=bq, rows_per_warp=rows_per_warp,
-                threads=32 * bq // rows_per_warp, smem=smem)
+                threads=32 * bq // rows_per_warp, smem=smem,
+                row_sum=int(row_sum == "rounded"))
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     """(..., S, H*dh) -> (..., H, S, dh)."""
     return t.reshape(t.shape[:-1] + (heads, -1)).transpose(-3, -2)
 
-
-ROW_SUMS = ("rounded", "fp32")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,9 +135,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _build.cuda_operands("flash_attention", q, k, v)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
-    plan = dict(dp=0, n_tiles=0, bq=0, smem=0)
+    plan = dict(dp=0, n_tiles=0, bq=0, row_sum=0, smem=0)
     if q.dtype == torch.bfloat16:
-        plan = _plan(dh)
+        plan = _plan(dh, row_sum)
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention: the bf16 kernel takes "
                              "16-byte aligned q, k, v")
@@ -141,7 +147,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _build.library().lib.rcdms_attention_fwd(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         batch, heads, sq, skv, dh, float(scale), plan["dp"],
-        plan["n_tiles"], plan["bq"], plan["smem"], _build.stream(q))
+        plan["n_tiles"], plan["bq"], plan["row_sum"], plan["smem"],
+        _build.stream(q))
     _build.check(code, "rcdms_attention_fwd")
     flash_attention.launches += 1
     return out

@@ -13,7 +13,9 @@ formulations:
     python -m rcdms_tpu_torch.tools.pv_softmax_study
 
 `conv_device_times` prints the conv kernel's device time by kernel beside
-cuDNN's, from `torch.profiler`.
+cuDNN's, `gn_device_times` the fused GroupNorm's beside the first port's
+kernel and F.group_norm, and `gn_cluster_study` the fused GroupNorm's at
+every launch plan and with one part of it changed, from `torch.profiler`.
 
 Each module's `run(dev, dtype)` returns its rows (one dict each: the row's
 name and shape, its median time, its rate and its error against the study's

@@ -7,13 +7,11 @@ no JAX (the repository's conftest.py configures JAX, hence --noconftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m gpu
 
 Tolerance: max|kernel - plain| / max|plain| <= 1e-4 in fp32 (TF32 off: the
-two differ in summation order only) and 2e-2 in bf16 (kernel A rounds the
-attention probabilities to bf16 as its plain version does, but in an
-online softmax, against a running maximum; B and the FF kernels round
-where their plain versions round, and sum in another order; the conv and
-GroupNorm kernels round once, as their plain versions do; the
-small-head-dim kernels E-H take bf16 only and round where their plain
-versions round)."""
+two differ in summation order only) and 2e-2 in bf16 (kernel A, B and
+the FF kernels round where their plain versions round, and sum in another
+order; the conv and GroupNorm kernels round once, as their plain versions
+do; the small-head-dim kernels E-H take bf16 only and round where their
+plain versions round)."""
 
 import math
 
@@ -34,10 +32,12 @@ from rcdms_tpu_torch.ops.geglu import (
     gelu_ff_plain,
 )
 from rcdms_tpu_torch.ops.group_norm import (
+    _plan as gn_plan,
     gn_moments,
     gn_moments_plain,
     group_norm_act,
     group_norm_act_plain,
+    group_norm_act_slab,
 )
 from rcdms_tpu_torch.ops.smallk import (
     attn_pv,
@@ -176,13 +176,112 @@ def test_cuda_study_kernels_match_plain(cuda, dtype):
 
 @pytest.mark.gpu
 def test_cuda_group_norm_refuses_a_slab_beyond_shared_memory(cuda):
-    """8192 rows x 32 channels a group of bf16: a 512 KB slab."""
-    x = torch.zeros(1, 8192, 64, device=cuda, dtype=torch.bfloat16)
+    """8192 rows x 32 channels a group of bf16, a 512 KB group slab, which
+    the first port's kernel refused: a cluster of 8 CTAs takes it now, and
+    agrees with the plain version. 1M rows overflow clusters of 16 too:
+    the plan refuses them."""
+    x = torch.randn(1, 8192, 64, device=cuda).to(torch.bfloat16)
     ones = torch.ones(64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        group_norm_act(x, ones, ones, 2, 1e-6, "silu")
-    assert group_norm_act(x[:, :1024].contiguous(), ones, ones, 2, 1e-6,
-                          "silu").shape == (1, 1024, 64)
+        group_norm_act_slab(x, ones, ones, 2, 1e-6, "silu")
+    assert _rel(group_norm_act(x, ones, ones, 2, 1e-6, "silu"),
+                group_norm_act_plain(x, ones, ones, 2, 1e-6, "silu")) \
+        <= TOL[torch.bfloat16]
+    big = torch.zeros(1, 1 << 20, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        group_norm_act(big, ones, ones, 2, 1e-6, "silu")
+
+
+# the fused GroupNorm in clusters: c / groups = 10, 20, 30, 40, 60, 80 (the
+# story UNet's widths in 32 groups), token counts that leave the last CTA
+# of a cluster a shorter run (or none: 7 tokens), and whole rows (c 64)
+GN_CASES = [(2, 1000, 320, 32), (5, 77, 640, 32), (1, 4096, 960, 32),
+            (3, 257, 1280, 32), (2, 130, 1920, 32), (5, 64, 2560, 32),
+            (2, 7, 64, 4)]
+
+
+def _gn_inputs(shape, dtype, dev):
+    """x with a mean and a spread per channel; fp32 scale and bias."""
+    c = shape[-1]
+    g = torch.Generator(dev).manual_seed(c + shape[1])
+    x = (torch.randn(shape, generator=g, device=dev) * 2.0
+         + torch.randn(c, generator=g, device=dev)).to(dtype)
+    return (x, torch.rand(c, generator=g, device=dev) + 0.5,
+            torch.randn(c, generator=g, device=dev) * 0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("case", GN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_norm_act_clusters(cuda, dtype, case, act):
+    """The cluster kernel against its plain version, and bit-stable
+    between two runs (every CTA adds the ranks' partials in one order)."""
+    *shape, groups = case
+    x, scale, bias = _gn_inputs(shape, dtype, cuda)
+    ops.reset_launch_counts()
+    out = group_norm_act(x, scale, bias, groups, 1e-6, act)
+    again = group_norm_act(x, scale, bias, groups, 1e-6, act)
+    torch.cuda.synchronize()
+    assert group_norm_act.launches == 2
+    assert torch.equal(out, again)
+    assert _rel(out, group_norm_act_plain(x, scale, bias, groups, 1e-6,
+                                          act)) <= TOL[dtype], case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_norm_act_non_portable_cluster(cuda, dtype):
+    """A token run whose slab fits a CTA only in a cluster of 16 (the
+    non-portable size, allowed once a process)."""
+    n = 48000 if dtype == torch.bfloat16 else 20000
+    x, scale, bias = _gn_inputs((1, n, 64), dtype, cuda)
+    assert gn_plan(1, n, 64, 2, x.element_size())["cluster"] == 16
+    assert _rel(group_norm_act(x, scale, bias, 2, 1e-6, "silu"),
+                group_norm_act_plain(x, scale, bias, 2, 1e-6, "silu")) \
+        <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_cuda_group_norm_act_slab_matches_plain(cuda):
+    """The first port's kernel, kept for the device-time comparison, at a
+    shape it takes."""
+    g = torch.Generator(cuda).manual_seed(9)
+    x = torch.randn(3, 256, 320, generator=g, device=cuda).bfloat16()
+    scale = torch.rand(320, generator=g, device=cuda) + 0.5
+    bias = torch.randn(320, generator=g, device=cuda) * 0.2
+    assert _rel(group_norm_act_slab(x, scale, bias, 32, 1e-6, "silu"),
+                group_norm_act_plain(x, scale, bias, 32, 1e-6, "silu")) \
+        <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row_sum", ["rounded", "fp32"])
+def test_cuda_attention_rounds_p_as_the_plain_version(cuda, row_sum):
+    """Kernel A rounds P against the row's final maximum and sums l from
+    the rounded (UNet level 0, self and 91-token cross) or the fp32 P
+    (CLIP vision), as its plain version and the TPU kernels do: besides
+    the tolerance, at most 5% of its bf16 outputs differ from the plain
+    version's bits (where exp and the summation order round apart; a
+    kernel that rounds P against a running maximum moved 38% at level
+    0)."""
+    g = torch.Generator(cuda).manual_seed(11)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    if row_sum == "rounded":
+        sites = [(r(5, 1024, 320), r(5, skv, 320), r(5, skv, 320), 8)
+                 for skv in (1024, 91)]
+    else:
+        sites = [(r(2, 257, 1664), r(2, 257, 1664), r(2, 257, 1664), 16)]
+    for q, k, v, heads in sites:
+        dh = q.shape[-1] // heads
+        out = flash_attention(q, k, v, heads, row_sum=row_sum)
+        ref = attention_plain(q, k, v, heads, dh ** -0.5, row_sum=row_sum)
+        assert _rel(out, ref) <= TOL[torch.bfloat16]
+        off = (out != ref).float().mean().item()
+        assert off <= 0.05, (row_sum, k.shape, off)
 
 
 @pytest.mark.gpu

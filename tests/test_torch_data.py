@@ -4,6 +4,7 @@ against Pillow, the CLIP and pixel preprocessing, the tokenizer's crc32
 fallback, whole story examples, collate, and the h5 and synthetic
 datasets."""
 
+import json
 import os
 import subprocess
 import sys
@@ -212,3 +213,57 @@ def test_h5_dataset_opens_the_file_at_first_use(tmp_path):
     assert ds.tokenizer(["fred"])["input_ids"].shape == (1, 91)
     with pytest.raises(OSError):
         len(ds)
+
+
+def _tiny_clip_tokenizer_files(path):
+    """A CLIP BPE vocabulary small enough to write here: every byte symbol
+    alone and word-final, the merges that build a few words of the
+    captions, and the two special tokens. Other words fall back to their
+    byte symbols, so every caption tokenizes."""
+    from transformers.models.clip.tokenization_clip import bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols]
+    merges = []
+    for word in ("the", "and", "walk", "into", "quarry", "laughs", "snow"):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            merges.append(f"{parts[0]} {parts[1]}")
+            parts = [parts[0] + parts[1]] + parts[2:]
+            vocab.append(parts[0])
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    vocab = list(dict.fromkeys(vocab))
+    with open(os.path.join(path, "vocab.json"), "w") as fh:
+        json.dump({t: i for i, t in enumerate(vocab)}, fh)
+    with open(os.path.join(path, "merges.txt"), "w") as fh:
+        fh.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("dataset", ["flintstones", "pororosv"])
+def test_tokenizer_bpe_branch_equals_jax(dataset, tmp_path):
+    """The `tokenizer_path` branch (transformers' CLIPTokenizer) on the
+    same files: the dataset's character tokens as added tokens, padding,
+    an over-length caption cut with the final EOS, and the mask."""
+    path = _tiny_clip_tokenizer_files(tmp_path)
+    tok = protocol.StoryTokenizer(DatasetConfig(name=dataset), path)
+    jtok = jprotocol.StoryTokenizer(JDatasetConfig(name=dataset), path)
+    got, want = tok(CAPTIONS), jtok(CAPTIONS)
+    _assert_dicts_equal(got, want)
+    max_len = DatasetConfig(name=dataset).max_text_len
+    ids, mask = got["input_ids"], got["attention_mask"]
+    assert ids.shape == mask.shape == (len(CAPTIONS), max_len)
+    assert tok.eos_token_id == jtok.eos_token_id == tok._tok.eos_token_id
+    added = {t: tok._tok.convert_tokens_to_ids(t)
+             for t in DatasetConfig(name=dataset).new_tokens}
+    assert min(added.values()) >= len(json.load(
+        open(os.path.join(path, "vocab.json"))))  # added past the vocab
+    # an added token matches the caption's text as written (case and all)
+    present = {added[t] for t in added if t in " ".join(CAPTIONS)}
+    assert present and present <= set(ids[mask].tolist())
+    over = CAPTIONS.index(max(CAPTIONS, key=len))
+    assert mask[over].all() and ids[over, -1] == tok.eos_token_id
+    for i in range(len(CAPTIONS)):
+        n = int(mask[i].sum())
+        assert mask[i, :n].all() and not mask[i, n:].any()
+        assert ids[i, n - 1] == tok.eos_token_id

@@ -7,7 +7,9 @@ studies' whole attention block on `mma.sync`) and
 `rcdms_tpu_torch/ops/cm_conv.py::_plan` (the bf16 3x3 conv, an implicit
 GEMM on TMA + `wgmma`) and `rcdms_tpu_torch/ops/frame_attention.py::_plan`
 (kernel B's tiled bf16 kernel: TMA bulk copies, one thread a (token, head,
-frame) and channel slice) are pure Python: they choose the tile shapes and
+frame) and channel slice) and `rcdms_tpu_torch/ops/group_norm.py::_plan`
+(the fused GroupNorm + SiLU over a thread block cluster, bf16 and fp32)
+are pure Python: they choose the tile shapes and
 compute the shared memory that the CUDA kernels lay out (the kernels refuse
 a plan whose bytes differ from their own). Here every shape of the story's
 main path and the study shapes (those `chip_smoke.py` and the card tests
@@ -20,11 +22,12 @@ import importlib
 import pytest
 
 from rcdms_tpu_torch.ops import cm_conv, flash, geglu, smallk
-from rcdms_tpu_torch.tools import cm_conv_study
+from rcdms_tpu_torch.tools import cm_conv_study, gn_fused_study
 
 # the module, which `rcdms_tpu_torch.ops` shadows with its wrapper
 frame_attention_ops = importlib.import_module(
     "rcdms_tpu_torch.ops.frame_attention")
+group_norm_ops = importlib.import_module("rcdms_tpu_torch.ops.group_norm")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -41,7 +44,9 @@ FF_SITES = [(20480, 320, True), (5120, 640, True), (1280, 1280, True),
 
 @pytest.mark.parametrize("label,dh", ATTENTION_SITES)
 def test_attention_plan_fits_and_pads(label, dh):
-    plan = flash._plan(dh)
+    row_sum = "fp32" if label == "clip vision" else "rounded"
+    plan = flash._plan(dh, row_sum)
+    assert plan["row_sum"] == int(row_sum == "rounded")
     assert plan["smem"] <= SMEM_LIMIT, label
     assert plan["dp"] % 16 == 0 and dh <= plan["dp"] < dh + 16
     assert plan["n_tiles"] * 8 == dh  # the output side is not padded
@@ -56,18 +61,29 @@ def test_attention_plan_fits_and_pads(label, dh):
 @pytest.mark.parametrize("dh,dp", [(40, 48), (104, 112), (80, 80),
                                    (160, 160), (8, 48), (256, 256)])
 def test_attention_plan_padded_widths(dh, dp):
-    assert flash._plan(dh)["dp"] == dp
+    assert flash._plan(dh, "rounded")["dp"] == dp
 
 
 @pytest.mark.parametrize("dh", [0, 20, 44, 260, 264])
 def test_attention_plan_refuses(dh):
     with pytest.raises(ValueError):
-        flash._plan(dh)
+        flash._plan(dh, "rounded")
+
+
+def test_attention_plan_carries_the_row_sum_family():
+    """The kernel's template parameter: 1 sums l from the rounded P
+    (`_nt_kernel`), 0 from the fp32 P (`_attn_kernel`); the tiles and
+    shared memory do not depend on it."""
+    rounded, fp32 = flash._plan(40, "rounded"), flash._plan(40, "fp32")
+    assert (rounded.pop("row_sum"), fp32.pop("row_sum")) == (1, 0)
+    assert rounded == fp32
+    with pytest.raises(ValueError):
+        flash._plan(40, "bf16")
 
 
 def test_attention_plan_every_supported_width_fits():
     for dh in range(8, flash.MAX_HEAD_DIM + 1, 8):
-        plan = flash._plan(dh)
+        plan = flash._plan(dh, "rounded")
         assert plan["dp"] in flash.OUTPUT_TILES
         assert dh <= 8 * plan["n_tiles"] <= plan["dp"]
         assert plan["smem"] <= SMEM_LIMIT, dh
@@ -292,7 +308,7 @@ def _fits_grid(grid):
 def test_attention_plan_at_the_serve_shapes(batch, heads, sq, skv, dh):
     """Kernel A's grid (query blocks, batch x heads) and its operands'
     element counts stay within the grid limits and int32."""
-    plan = flash._plan(dh)
+    plan = flash._plan(dh, "rounded")
     assert plan["smem"] <= SMEM_LIMIT
     assert _fits_grid((-(-sq // plan["bq"]), batch * heads))
     assert batch * max(sq, skv) * heads * dh <= INT32_MAX
@@ -323,3 +339,69 @@ def test_ff_plan_at_the_serve_shapes(rows, c, geglu_):
         assert _fits_grid(plan[name]["grid"]), (name, plan[name]["grid"])
     assert plan["pass1"]["grid"][1] == -(-rows // 128)
     assert rows * (2 if geglu_ else 1) * inner <= INT32_MAX
+
+
+# the fused GroupNorm: every GroupNorm input of the story UNet, (frames,
+# tokens, channels) at 512 px, statistics per frame, 32 groups: the
+# ResNet blocks' norm1 (their input, skip concatenations included) and
+# norm2, the spatial and temporal transformers' norms and conv_norm_out,
+# at levels 0-3 (64 x 64 ... 8 x 8 latents), down, mid and up
+STORY_GN = [(n, c) for n, cs in ((4096, (320, 640, 960)),
+                                 (1024, (320, 640, 960, 1280, 1920)),
+                                 (256, (640, 1280, 1920, 2560)),
+                                 (64, (1280, 2560)))
+            for c in cs]
+GN_SHAPES = sorted({(5 * b, n, c) for b in (1, 2) for n, c in STORY_GN}
+                   | set(gn_fused_study.SHAPES) | {(5, 4096, 960)})
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,n,c", GN_SHAPES)
+def test_gn_plan_fits_and_covers(b, n, c, itemsize):
+    groups = 32
+    p = group_norm_ops._plan(b, n, c, groups, itemsize)
+    sg, k, rows = p["slab_groups"], p["cluster"], p["rows"]
+    assert groups % sg == 0                       # whole groups
+    width = sg * c // groups
+    assert p["width"] == width and p["row_bytes"] == width * itemsize
+    assert p["row_bytes"] % 16 == 0               # 16-byte slab rows
+    assert rows == -(-n // k)                     # k runs: every token
+    assert k in group_norm_ops.CLUSTERS
+    assert p["smem"] <= SMEM_LIMIT
+    assert p["smem"] >= rows * p["row_bytes"] + 8 * (2 * sg + 8)
+    vr = p["row_bytes"] // 16
+    rl = p["threads"] // vr
+    assert p["threads"] == vr * rl <= 512 and rl & (rl - 1) == 0 \
+        and 2 * p["threads"] > 512
+    assert p["ctas"] == b * groups // sg * k >= group_norm_ops.SMS
+
+
+def test_gn_plan_takes_what_the_first_kernel_refused():
+    """(5, 4096, 960), up level 0's first ResNet block: a 245,760-byte
+    group slab, more than one block may hold."""
+    assert 4096 * 30 * 2 > SMEM_LIMIT
+    p = group_norm_ops._plan(5, 4096, 960, 32, 2)
+    assert p["rows"] * p["row_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,n,c,groups,itemsize", [
+    (1, 64, 36, 4, 2),        # rows of 72 bytes: not a multiple of 16
+    (1, 64, 6, 2, 4),         # rows of 24 bytes
+    (1, 64, 100, 32, 2),      # groups do not divide c
+    (1, 1 << 20, 64, 2, 2),   # 1M tokens: no cluster holds a slab
+    (0, 64, 64, 2, 2),
+])
+def test_gn_plan_refuses(b, n, c, groups, itemsize):
+    with pytest.raises(ValueError):
+        group_norm_ops._plan(b, n, c, groups, itemsize)
+
+
+def test_gn_plan_edges():
+    """Groups narrower than 16 bytes share a slab (6-byte groups, 8 of
+    them); a ragged token count leaves the last CTA fewer (or no) rows;
+    a token run that fits only in clusters of 16 takes them."""
+    assert group_norm_ops._plan(1, 64, 96, 32, 2)["slab_groups"] % 8 == 0
+    p = group_norm_ops._plan(2, 7, 64, 4, 2)
+    assert p["cluster"] * p["rows"] >= 7
+    p = group_norm_ops._plan(1, 16 * 3000, 64, 2, 2)  # 3000 rows at k 16
+    assert p["cluster"] == 16 and p["smem"] <= SMEM_LIMIT

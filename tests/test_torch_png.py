@@ -1,12 +1,16 @@
-"""The port's PNG decoder (`rcdms_tpu_torch/sample/eval.py::decode_png`),
-which reads reference frames without Pillow: against Pillow's
-`Image.open(...).convert("RGB")` on random images of every colour type it
-takes, written by Pillow and by a small writer here that sets each row's
-filter (0-4) and splits the data over several IDAT chunks; the round trip
-with `encode_png`; and the images it refuses."""
+"""The port's image decoder (`rcdms_tpu_torch/sample/eval.py::decode_png`),
+which reads PNG reference frames without Pillow: against Pillow's
+`Image.open(...).convert("RGB")` (the JAX CLIs' reader) on random images
+of every colour type, written by Pillow and by small writers here that
+set each row's filter (0-4), split the data over several IDAT chunks,
+pack bit depths 1-16, write palettes with tRNS and interlace by Adam7;
+other formats through Pillow where it is installed; the round trip with
+`encode_png`; and the images it refuses."""
 
 import io
 import struct
+import sys
+import warnings
 import zlib
 
 import numpy as np
@@ -122,25 +126,24 @@ def _declared_png(w, h, data):
     "jpeg", "signature", "crc", "palette", "16-bit", "interlaced",
     "truncated", "filter 5", "corrupt data", "over the pixel limit",
     "data past the header's size"])
-def test_decode_png_refuses(case):
+def test_decode_png_refuses(case, monkeypatch):
     a = _image(5, 8, 8, 3, smooth=False)
     png = _filtered_png(a, 2, (0,))
-    if case == "jpeg":
+    if case == "jpeg":  # another format, where Pillow is not installed
         buf = io.BytesIO()
         Image.fromarray(a).save(buf, "JPEG")
         data = buf.getvalue()
-    elif case == "signature":
+        monkeypatch.setitem(sys.modules, "PIL", None)
+    elif case == "signature":  # neither a PNG nor anything Pillow reads
         data = _tamper(png, 1, ord("Q"))
     elif case == "crc":
         data = _tamper(png, 16, png[16] ^ 1)  # IHDR payload, CRC kept
-    elif case == "palette":
-        buf = io.BytesIO()
-        Image.fromarray(a).convert("P").save(buf, "PNG")
-        data = buf.getvalue()
-    elif case == "16-bit":
-        data = _filtered_png(a, 2, (0,), depth=16)
-    elif case == "interlaced":
-        data = _filtered_png(a, 2, (0,), interlace=1)
+    elif case == "palette":  # a palette image without its PLTE chunk
+        data = _png(a[..., :1], 3, 8)
+    elif case == "16-bit":  # a palette at 16 bits is outside the standard
+        data = _filtered_png(a, 3, (0,), depth=16)
+    elif case == "interlaced":  # interlace methods are 0 and 1 (Adam7)
+        data = _filtered_png(a, 2, (0,), interlace=2)
     elif case == "truncated":
         data = png[:-20]
     elif case == "over the pixel limit":  # a few bytes declaring 900M px
@@ -164,3 +167,140 @@ def test_decode_png_pixel_limit():
                                   a)
     with pytest.raises(ValueError, match="over the limit"):
         decode_png(encode_png(a), max_pixels=63)
+
+
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _pack_rows(v, depth):
+    """(h, w, ch) samples as the (h, row bytes) uint8 rows of a PNG:
+    big-endian pairs at 16 bits, high bits first below 8."""
+    h = v.shape[0]
+    flat = v.reshape(h, -1).astype(np.int64)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per)))
+    groups = flat.reshape(h, -1, per)
+    shifts = 8 - depth * (np.arange(per) + 1)
+    return (groups << shifts).sum(-1).astype(np.uint8)
+
+
+def _filter_rows(rows, filters, bpp):
+    """Each byte row filtered with filters[r % len] over units of bpp."""
+    x = rows.astype(np.int64)
+    out = []
+    for r in range(x.shape[0]):
+        t = filters[r % len(filters)]
+        line = bytearray([t])
+        for i in range(x.shape[1]):
+            left = int(x[r, i - bpp]) if i >= bpp else 0
+            up = int(x[r - 1, i]) if r else 0
+            ul = int(x[r - 1, i - bpp]) if r and i >= bpp else 0
+            pred = (0, left, up, (left + up) // 2, _paeth(left, up, ul))[t]
+            line.append((int(x[r, i]) - pred) % 256)
+        out.append(bytes(line))
+    return b"".join(out)
+
+
+def _png(v, color, depth, interlace=0, filters=(0, 1, 2, 3, 4), plte=None,
+         trns=None):
+    """A PNG of the (h, w, ch) samples `v` at `depth`, each pass (Adam7
+    where interlace is 1) filtered on its own, with optional PLTE and
+    tRNS chunks."""
+    h, w, ch = v.shape
+    bpp = max(1, ch * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = b"".join(_filter_rows(_pack_rows(v[r0::rs, c0::cs], depth),
+                                 filters, bpp)
+                    for r0, c0, rs, cs in passes
+                    if v[r0::rs, c0::cs].size)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace)
+    extra = b""
+    if plte is not None:
+        extra += _chunk(b"PLTE", plte.astype(np.uint8).tobytes())
+    if trns is not None:
+        extra += _chunk(b"tRNS", trns)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + extra
+            + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b""))
+
+
+def _pillow_reads(data):
+    # Pillow warns about a palette's byte transparency; the pixels are
+    # what is compared
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return _pillow_rgb(data)
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_decode_png_palette_matches_pillow(depth, interlace):
+    """A palette of fewer entries than the indices reach (an index past it
+    reads black, as in Pillow), with a tRNS chunk that is dropped."""
+    rng = np.random.default_rng(depth)
+    idx = rng.integers(0, 1 << depth, (13, 11, 1))
+    entries = max(1, (1 << depth) * 3 // 4)
+    plte = rng.integers(0, 256, (entries, 3))
+    data = _png(idx, 3, depth, interlace, plte=plte, trns=bytes([0, 128]))
+    out = decode_png(data)
+    assert out.shape == (13, 11, 3) and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, _pillow_reads(data))
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_decode_png_16_bit_matches_pillow(mode, interlace):
+    """16-bit grey is clipped to 255 (Pillow's I;16), the other colour
+    types take their high byte; values near 255 and near 65535 both."""
+    color, ch = MODES[mode]
+    rng = np.random.default_rng(color)
+    v = rng.integers(0, 65536, (9, 14, ch))
+    v[0, :8] = np.arange(250, 258)[:, None]
+    data = _png(v, color, 16, interlace)
+    np.testing.assert_array_equal(decode_png(data), _pillow_reads(data))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_decode_png_low_bit_grey_matches_pillow(depth):
+    v = np.random.default_rng(depth).integers(0, 1 << depth, (7, 19, 1))
+    for interlace in (0, 1):
+        data = _png(v, 0, depth, interlace)
+        np.testing.assert_array_equal(decode_png(data), _pillow_reads(data))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (5, 3), (9, 7), (37, 29)])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_decode_png_adam7_at_odd_sizes_matches_pillow(mode, size):
+    """Adam7 at sizes where passes are short or empty, every filter."""
+    color, ch = MODES[mode]
+    v = _image(sum(size), *size, ch, smooth=True)
+    data = _png(v, color, 8, interlace=1)
+    out = decode_png(data)
+    assert out.shape == size + (3,)
+    np.testing.assert_array_equal(out, _pillow_reads(data))
+
+
+def test_decode_png_reads_other_formats_through_pillow():
+    a = _image(8, 24, 31, 3, smooth=True)
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "JPEG")
+    data = buf.getvalue()
+    out = decode_png(data)
+    assert out.shape == (24, 31, 3) and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, _pillow_rgb(data))
+    with pytest.raises(ValueError, match="over the limit"):
+        decode_png(data, max_pixels=24 * 31 - 1)
+    with pytest.raises(ValueError, match="Pillow"):
+        decode_png(b"neither a PNG nor anything Pillow reads")
+
+
+def test_decode_png_refuses_other_formats_without_pillow(monkeypatch):
+    buf = io.BytesIO()
+    Image.fromarray(_image(9, 8, 8, 3, smooth=False)).save(buf, "BMP")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ValueError, match="not installed"):
+        decode_png(buf.getvalue())

@@ -203,3 +203,89 @@ def test_int8_weight_is_quantized_once_per_weight_version(monkeypatch):
         conv.weight.mul_(2.0)  # a new weight version
         assert not torch.equal(conv(x), first)
     assert len(quantized) == 2
+
+
+def _seeded_conv(cin, cout, seed):
+    conv = FrameConv(cin, cout, 3, padding=1)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.05)
+        conv.bias.copy_(torch.randn(cout, generator=g) * 0.1)
+    return conv
+
+
+def test_bf16_model_int8_weights_come_from_the_fp32_params():
+    """A bf16 UNet cast in int8 mode holds, for every gated conv, the int8
+    weight and scales `quantize_weight` gives the fp32 kernel, and the
+    fp32 bias, as `_taps9_conv_int8` takes them from `_ConvParams`."""
+    from rcdms_tpu_torch.sample.pipeline import for_inference
+
+    cfg = StoryUNetConfig.tiny(block_channels=(64, 128))
+    unet = StoryUNet(port_config(cfg)).eval()
+    _weights(unet, 3)
+    quant.set_quant_mode("int8")
+    gated = [m for m in unet.modules()
+             if isinstance(m, FrameConv) and m._takes_int8()]
+    fp32 = [(m.weight.detach().permute(2, 3, 1, 0).numpy().copy(),
+             m.bias.detach().numpy().copy()) for m in gated]
+    for_inference(unet, torch.bfloat16)
+    assert gated and all(m.weight.dtype == torch.bfloat16 for m in gated)
+    for m, (kernel, bias) in zip(gated, fp32):
+        qw, scale, b = m._int8_weight()
+        jq, js = jquant.quantize_weight(jnp.asarray(kernel), out_axis=-1)
+        cout = kernel.shape[-1]
+        np.testing.assert_array_equal(
+            qw[:, :cout].numpy(), np.asarray(jq).reshape(-1, cout))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(b.numpy(), bias)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 320), (64, 4)])
+def test_bf16_int8_conv_matches_taps9_conv_int8(cin, cout):
+    conv = _seeded_conv(cin, cout, cin + cout)
+    kernel = conv.weight.detach().permute(2, 3, 1, 0).numpy().copy()
+    bias = conv.bias.detach().numpy().copy()
+    x = torch.from_numpy(_x(2, 1, 2, 8, 8, cin)).to(torch.bfloat16)
+    ref = jlayers._taps9_conv_int8(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(kernel), jnp.asarray(bias), jnp.bfloat16)
+    quant.set_quant_mode("int8")
+    conv.to(torch.bfloat16)
+    with torch.no_grad():
+        out = conv(x)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+def test_int8_mode_after_a_bf16_cast_raises():
+    conv = _seeded_conv(64, 64, 0).to(torch.bfloat16)
+    x = torch.from_numpy(_x(3, 1, 2, 8, 8, 64)).to(torch.bfloat16)
+    quant.set_quant_mode("int8")
+    with pytest.raises(RuntimeError, match="before casting"):
+        with torch.no_grad():
+            conv(x)
+
+
+def test_int8_cast_keeps_the_exact_path_and_follows_the_module():
+    """A conv cast to bf16 in int8 mode computes the exact bf16 conv with
+    the mode off, and its fp32-made int8 weight survives a layout change
+    and a reload of the same weight's version only until it changes."""
+    conv = _seeded_conv(64, 64, 1)
+    plain = _seeded_conv(64, 64, 1).to(torch.bfloat16)
+    x = torch.from_numpy(_x(4, 1, 2, 8, 8, 64)).to(torch.bfloat16)
+    quant.set_quant_mode("int8")
+    conv.to(torch.bfloat16)
+    made = [t.clone() for t in conv._int8_weight()]
+    conv.to(memory_format=torch.channels_last)
+    for a, b in zip(conv._int8_weight(), made):
+        assert torch.equal(a, b)
+    quant.set_quant_mode(None)
+    with torch.no_grad():
+        torch.testing.assert_close(conv(x), plain(x), rtol=0, atol=0)
+        conv.weight.mul_(2.0)  # the fp32 values behind it are gone
+    quant.set_quant_mode("int8")
+    with pytest.raises(RuntimeError, match="before casting"):
+        with torch.no_grad():
+            conv(x)
