@@ -47,26 +47,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy a ROWS x COLS bf16 tile (COLS a multiple of 8) from device memory,
-// row stride `gld` elements, into shared memory, row stride `sld`, as
-// 16-byte vectors spread over THREADS threads; zero-fill where row >=
-// rows_valid or col >= cols_valid (cols_valid a multiple of 8). `src` and
-// every row start must be 16-byte aligned.
-template <int ROWS, int COLS, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, int sld,
-                                               const __nv_bfloat16* src,
-                                               long gld, int rows_valid,
-                                               int cols_valid, int tid) {
-  constexpr int V8 = COLS / 8;
-  for (int idx = tid; idx < ROWS * V8; idx += THREADS) {
-    const int r = idx / V8, c = (idx % V8) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c < cols_valid)
-      val = *reinterpret_cast<const uint4*>(src + r * gld + c);
-    *reinterpret_cast<uint4*>(dst + r * sld + c) = val;
-  }
-}
-
 // Raise a kernel's dynamic shared-memory limit to `bytes` (needed above
 // 48 KB) and report the error, if any.
 template <typename Kernel>

@@ -1,9 +1,10 @@
 // Hopper's TMA + wgmma helpers, shared by the warp-specialised GEMM kernels
-// (ff.cu: kernels C and D; cm_conv.cu: the bf16 3x3 conv): mbarriers, TMA
-// loads of 2-D and 3-D boxes, shared-memory matrix descriptors of tiles in
-// TMA's 128-byte swizzle, wgmma.mma_async m64nNk16 (bf16 in, fp32
-// accumulators in registers), and the tensor-map encoder, taken from the
-// driver at run time (no -lcuda).
+// (ff.cu: kernels C and D; cm_conv.cu: the bf16 3x3 conv; attn_parts.cu:
+// kernels F and G): mbarriers, TMA loads of 2-D and 3-D boxes,
+// shared-memory matrix descriptors of tiles in TMA's 128-byte swizzle,
+// wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in registers; A
+// from shared memory or from registers), and the tensor-map encoder,
+// looked up at run time (no -lcuda).
 //
 // Accumulator layout of m64nNk16, per warp w of the warpgroup (g = lane / 4,
 // t = lane % 4): d[4i], d[4i+1] at row 16w + g, columns 8i + 2t, +1;
@@ -92,11 +93,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 // writes a box of 64 MN elements (one 128-byte row) x K rows: the K rows
 // of a k16 step are two 8-row groups 1024 bytes apart (the stride byte
 // offset, 64), and a k16 step advances the start address by 16 rows, 2048
-// bytes (128). The leading byte offset, the stride between 64-wide MN
-// atoms, is never taken by an m64 A (one atom); it is set to 1024 bytes
-// as well.
-__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)64 << 16 |
+// bytes (128). The leading byte offset `lbo` is the distance between
+// 64-wide MN atoms, i.e. between the TMA boxes of an operand wider than
+// 64 (a B of n128 is two boxes); an m64 A or a B of n <= 64 is one atom
+// and never takes it.
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr,
+                                                  uint32_t lbo = 1024) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
          (uint64_t)64 << 32 | (uint64_t)1 << 62;
 }
 
@@ -120,9 +123,51 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // d (64 x N, this thread's N / 2) += A (64 x 16) . B (16 x N). TA = 0: A
 // K-major in shared memory (each of its 64 rows holds K contiguous), 1:
 // MN-major (M contiguous); TB the same for B (0: each of N rows holds K
-// contiguous; 1: N contiguous). bf16 takes both.
+// contiguous; 1: N contiguous). bf16 takes both. `run_rs` takes A from
+// registers instead (the wgmma RS form), in the m16n8k16 A-fragment layout
+// per warp w of the warpgroup, rows 16w ... 16w + 15 (g = lane / 4,
+// t = lane % 4): a[0] row g, columns 2t, 2t+1 (low half first); a[1] row
+// g + 8; a[2] row g, columns 2t+8, 2t+9; a[3] row g + 8. The registers
+// are read while the product runs: keep them unchanged until a
+// wgmma_wait shows it done.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<40> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[20], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void run_rs(float (&d)[20],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<48> {
@@ -141,6 +186,24 @@ struct Wgmma<48> {
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void run_rs(float (&d)[24],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
   }
 };
 
@@ -195,6 +258,35 @@ struct Wgmma<128> {
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void run_rs(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
   }
 };
 
@@ -287,6 +379,13 @@ template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
                                       uint64_t b) {
   Wgmma<N>::template run<TA, TB>(d, a, b);
+}
+
+// The RS form: A from this thread's four registers (Wgmma's layout).
+template <int N, int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  Wgmma<N>::template run_rs<TB>(d, a, b);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver at run time.

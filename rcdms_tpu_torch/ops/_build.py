@@ -66,10 +66,12 @@ SIGNATURES = {
     # stream
     "rcdms_smallk_attention": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _F, _I, _P],
-    # cm, q, k, out, B, Sq, Skv, dk, stream
-    "rcdms_attn_scores": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # vlayout, seeds, p, v, out, B, Sq, Skv, blk, dh, stream
-    "rcdms_attn_pv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # cm, kp, stages, smem, q, k, out, B, Sq, Skv, dk, stream
+    "rcdms_attn_scores": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # vlayout, n, stages, smem, seeds, p, v, out, B, Sq, Skv, blk, dh,
+    # stream
+    "rcdms_attn_pv": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _P],
     # op, seeds, p, out, B, Sq, Skv, blk, scale, stream
     "rcdms_attn_softmax": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

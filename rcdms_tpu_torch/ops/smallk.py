@@ -23,8 +23,9 @@ level 0: B = 80 batch-heads, 4096 x 4096 tokens, dh = 40, bf16):
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches `csrc/smallk_attention.cu` (E,
-`mma.sync`, with the launch plan of `_plan`) or `csrc/attn_parts.cu`
-(bf16 only, as the TPU studies), or raises. The
+`mma.sync`, with the launch plan of `_plan`) or `csrc/attn_parts.cu` (F
+and G on TMA + `wgmma`, with the plans of `_scores_plan` and `_pv_plan`;
+H), bf16 only, as the TPU studies, or raises. The
 variants are the studies' own; anything else raises on either device.
 The plain versions work one batch row at a time: a whole (80, 4096, 4096)
 fp32 score tensor would take 5.4 GB. `.launches` counts launches.
@@ -120,6 +121,92 @@ def _plan(channel_major: bool, dk: int, split: int, dscore: bool) -> dict:
         smem = 2 * ((bq + 2 * kv) * (dp + 8) + 2 * kv * (width + 8))
     return dict(bq=bq, kv_tile=kv, dp=dp, n_tiles=n_tiles,
                 rows_per_warp=16 * split, threads=32 * 8 // split, smem=smem)
+
+
+# ---- F and G: the TMA + wgmma tile kernels' plans --------------------------
+
+TILE_ROWS = 128       # rows a block: two consumer warpgroups of 64
+TILE_THREADS = 288    # the two warpgroups and one producer warp
+PV_KEYS = 64          # keys a ring stage of G: four k16 steps
+MAX_STAGES = 8
+RING_BYTES = 96 * 1024  # the ring's budget: two blocks an SM fit beside it
+BOX = 64 * 128        # a TMA box of 64 rows of 128 bytes (128-byte swizzle)
+P_TABLE = 1024        # G's table of generated P pairs, ahead of the ring
+PV_LAYOUTS = {"tm128": 0, "tm40": 1, "cm40": 2}
+
+
+def _staging_bytes(n: int) -> int:
+    """The epilogue's staging of 8 consumer warps' 16 rows x n fp32, at a
+    row stride of n floats, or n + 8 where n mod 32 is not 8 or 24 (then
+    a half warp's float2 stores would share banks)."""
+    return 8 * 16 * (n if n % 32 in (8, 24) else n + 8) * 4
+
+
+def _tile_smem(fixed: int, stage: int, stages: int, n: int) -> int:
+    """A tile kernel's shared memory (`tile_bytes` in attn_parts.cu): F's
+    Q tiles or G's P table, and the ring, under the staging; the full and
+    empty mbarriers of each stage and Q's; 1024 bytes to align the
+    swizzled tiles."""
+    return 1024 + max(fixed + stages * stage, _staging_bytes(n)) \
+        + 8 * (2 * stages + 1)
+
+
+def _tile_plan(fixed: int, stage: int, n: int, **extra) -> dict:
+    stages = min(MAX_STAGES, RING_BYTES // stage)
+    return dict(rows=TILE_ROWS, warpgroups=2, threads=TILE_THREADS,
+                stages=stages, stage_bytes=stage, n=n,
+                smem=_tile_smem(fixed, stage, stages, n), **extra)
+
+
+def _scores_plan(channel_major: bool, dk: int) -> dict:
+    """Launch plan of F's kernel: blocks of `rows` = 128 queries in two
+    consumer warpgroups and a producer warp; the contraction `kp`, dk
+    padded with zeros to a multiple of 16 (wgmma's k16), channel-major dk
+    <= 48 or token-major 128; n = 128 output columns; a ring of `stages`
+    key groups (`stage_bytes`: two TMA boxes, [kp d][64 keys] or [128
+    keys][64 d]) as deep as RING_BYTES allows, up to 8; the block's shared
+    memory (`smem`). Raises ValueError for operands the kernel does not
+    take."""
+    if channel_major:
+        if dk <= 0 or dk % 8 or dk > 48:
+            raise ValueError(f"attn_scores: the kernel takes channel-major "
+                             f"dh a multiple of 8 up to 48, got {dk}")
+        kp = -(-dk // 16) * 16
+        q_wg = k_box = kp * 128
+    else:
+        if dk != GROUP:
+            raise ValueError(f"attn_scores: the kernel takes token-major "
+                             f"width {GROUP}, got {dk}")
+        kp, q_wg, k_box = GROUP, 2 * BOX, 2 * BOX
+    return _tile_plan(2 * q_wg, 2 * k_box, GROUP, kp=kp)
+
+
+def _pv_plan(layout: str, width: int, gen: bool) -> dict:
+    """Launch plan of G's kernel for v in `layout` ("tm128" (B, Skv, 128),
+    "tm40" (B, Skv, width), "cm40" (B, width, Skv)) and P generated
+    (`gen`) or an input: blocks of 128 rows as F's; the product's width
+    `n`, 128, or width padded to wgmma's n40 (width <= 40) or n48; the
+    generated P's table of products (P_TABLE bytes); a ring of `stages`
+    stages of 64 keys (`stage_bytes`: input P's two [64 rows][64 keys]
+    boxes, then V's tm128 two [64 keys][64 n] boxes, tm40 one, cm40 one [n
+    d][64 keys]) as deep as RING_BYTES allows, up to 8; the block's shared
+    memory (`smem`). Raises ValueError for operands the kernel does not
+    take."""
+    if layout not in PV_LAYOUTS:
+        raise ValueError(f"attn_pv: no layout {layout!r}")
+    if layout == "tm128":
+        if width != GROUP:
+            raise ValueError(f"attn_pv: tm128 takes width {GROUP}, got "
+                             f"{width}")
+        n = GROUP
+    else:
+        if width <= 0 or width % 8 or width > 48:
+            raise ValueError(f"attn_pv: the kernel takes v of width 128 or "
+                             f"<= 48 (a multiple of 8), got {width}")
+        n = 40 if width <= 40 else 48
+    v_box = -(-n * 128 // 1024) * 1024 if layout == "cm40" else BOX
+    stage = (0 if gen else 2 * BOX) + (2 if layout == "tm128" else 1) * v_box
+    return _tile_plan(P_TABLE if gen else 0, stage, n, keys=PV_KEYS)
 
 
 def smallk_attention_plain(q, k, v, scale: float, *, channel_major=False,
@@ -224,12 +311,16 @@ def attn_scores(q, k, *, channel_major=False) -> torch.Tensor:
         raise ValueError(f"attn_scores: the kernel takes Sq a multiple of "
                          f"128 and channel-major dh <= 48 (a multiple of 8) "
                          f"or token-major width 128; got q {tuple(q.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k)):
+        raise ValueError("attn_scores: the kernel takes 16-byte aligned q, "
+                         "k (TMA)")
+    plan = _scores_plan(channel_major, d)
     out = torch.empty(q.shape[0], sq, GROUP, device=q.device,
                       dtype=torch.float32)
     code = _build.library().lib.rcdms_attn_scores(
-        int(channel_major), q.data_ptr(), k.data_ptr(), out.data_ptr(),
-        q.shape[0], sq, k.shape[2 if channel_major else 1], d,
-        _build.stream(q))
+        int(channel_major), plan["kp"], plan["stages"], plan["smem"],
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), q.shape[0], sq,
+        k.shape[2 if channel_major else 1], d, _build.stream(q))
     _build.check(code, "rcdms_attn_scores")
     attn_scores.launches += 1
     return out
@@ -288,15 +379,22 @@ def attn_pv(v, *, seeds=None, p=None, channel_major=False,
     if v.device.type == "cpu":
         return attn_pv_plain(v, **kw)
     _card_bf16("attn_pv", v, seeds if p is None else p)
-    layout = 2 if channel_major else (0 if width == GROUP else 1)
-    if blk % 128 or skv % 64 or (layout and (width > 48 or width % 8)):
+    layout = "cm40" if channel_major else ("tm128" if width == GROUP
+                                           else "tm40")
+    if blk % 128 or skv % 64 or (layout != "tm128" and (width > 48
+                                                        or width % 8)):
         raise ValueError(f"attn_pv: the kernel takes blk a multiple of 128, "
                          f"Skv of 64 and v of width 128 or <= 48 (a multiple "
                          f"of 8); got v {tuple(v.shape)}, blk {blk}")
+    if any(t.data_ptr() % 16 for t in (v, p) if t is not None):
+        raise ValueError("attn_pv: the kernel takes 16-byte aligned v, p "
+                         "(TMA)")
+    plan = _pv_plan(layout, width, p is None)
     out = torch.empty(v.shape[0], cells * blk, GROUP, device=v.device,
                       dtype=torch.float32)
     code = _build.library().lib.rcdms_attn_pv(
-        layout, None if seeds is None else seeds.data_ptr(),
+        PV_LAYOUTS[layout], plan["n"], plan["stages"], plan["smem"],
+        None if seeds is None else seeds.data_ptr(),
         None if p is None else p.data_ptr(), v.data_ptr(), out.data_ptr(),
         v.shape[0], cells * blk, skv, blk, width, _build.stream(v))
     _build.check(code, "rcdms_attn_pv")

@@ -42,6 +42,7 @@ from jax.experimental import pallas as pl
 
 from rcdms_tpu_torch import ops
 from rcdms_tpu_torch.ops import smallk as sk
+from rcdms_tpu_torch.tools import attn_parts_device_times as apdt
 from rcdms_tpu_torch.tools import flash_smallk_study as pfs
 from rcdms_tpu_torch.tools import pv_overlap_study as pos
 from rcdms_tpu_torch.tools import pv_softmax_study as pps
@@ -387,23 +388,37 @@ _QUIET_IMPORT = """
 import torch
 
 def _refuse(*a, **k):
-    raise AssertionError("pv_softmax_study made a tensor when imported")
+    raise AssertionError("{module} made a tensor when imported")
 
 for name in ("rand", "randn", "empty", "zeros", "ones", "full", "tensor"):
     setattr(torch, name, _refuse)
-import rcdms_tpu_torch.tools.pv_softmax_study as m
+import rcdms_tpu_torch.tools.{module} as m
 assert callable(m.run) and callable(m.main)
 print("ok")
 """
 
 
-def test_pv_softmax_study_import_does_no_work():
+def _import_quietly(module):
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _QUIET_IMPORT], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _QUIET_IMPORT.format(module=module)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip() == "ok"
+
+
+def test_pv_softmax_study_import_does_no_work():
+    _import_quietly("pv_softmax_study")
+
+
+def test_attn_parts_device_times_refuses_the_cpu():
+    """The F-H timing tool measures the card: no CPU path."""
+    with pytest.raises(RuntimeError):
+        apdt.run(torch.device("cpu"))
+
+
+def test_attn_parts_device_times_import_does_no_work():
+    _import_quietly("attn_parts_device_times")
 
 
 _SASS = """

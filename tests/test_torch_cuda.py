@@ -520,6 +520,79 @@ def test_cuda_smallk_kernels_match_plain(cuda):
         "attn_softmax": 4}
 
 
+# F's edges: (channel_major, dh, B, Sq, Skv): one k16 step of dh (8), two
+# (24), three with no pad (48); one 128-row block against one key group;
+# more key groups (9) than the ring's 8 stages; token-major's 3-stage ring
+# wrapped
+SCORE_EDGES = [(True, 8, 1, 128, 128), (True, 24, 3, 128, 1152),
+               (True, 48, 3, 256, 384), (False, 128, 1, 128, 128),
+               (False, 128, 3, 256, 512)]
+# G's edges: (layout, width, B, cells, Skv): n40 over dh 8 and 24, n48 at
+# dh 48; one 64-key stage; 9 and 10 stages (past the ring's 8); input P
+# blocks of 128 and 256 rows (the generated P's cells are 512)
+PV_EDGES = [("tm128", 128, 1, 1, 64), ("tm128", 128, 3, 2, 576),
+            ("tm40", 8, 3, 2, 64), ("tm40", 24, 1, 1, 576),
+            ("tm40", 48, 3, 1, 192), ("cm40", 8, 1, 1, 576),
+            ("cm40", 24, 3, 2, 64), ("cm40", 48, 1, 1, 640)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cm,dh,bsz,sq,skv", SCORE_EDGES)
+def test_cuda_attn_scores_edges(cuda, cm, dh, bsz, sq, skv):
+    """F against its plain version at the tile kernel's edges: pad rows in
+    every channel-major box (dh 8, 24), batch rows that must not read each
+    other's channels, rings shorter and longer than the key groups."""
+    g = torch.Generator(cuda).manual_seed(7)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k = (r(bsz, dh, sq), r(bsz, dh, skv)) if cm else (r(bsz, sq, dh),
+                                                         r(bsz, skv, dh))
+    ops.reset_launch_counts()
+    out = attn_scores(q, k, channel_major=cm)
+    assert out.shape == (bsz, sq, 128)
+    assert _rel(out, attn_scores_plain(q, k, channel_major=cm)) <= 1e-4
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies")["attn_scores"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src", ["gen", "p"])
+@pytest.mark.parametrize("layout,width,bsz,cells,skv", PV_EDGES)
+def test_cuda_attn_pv_edges(cuda, layout, width, bsz, cells, skv, src):
+    """G against its plain version at the tile kernel's edges, P generated
+    from nonzero seeds that differ between batch rows, or an input P whose
+    rows all differ (blocks of 128 or 256 rows, so a block's rows and its
+    cell's place are exercised); zeros past the width of v."""
+    g = torch.Generator(cuda).manual_seed(8)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    cm = layout == "cm40"
+    v = r(bsz, width, skv) if cm else r(bsz, skv, width)
+    if src == "gen":
+        seeds = r(bsz, 8, 128) + 2.0
+        assert (seeds[:, 0, 0] != 0).all()
+        kw = dict(seeds=seeds)
+    else:
+        blk = 128 * (1 + bsz % 2)
+        p = torch.rand(bsz, blk, skv, generator=g, device=cuda
+                       ).to(torch.bfloat16)
+        assert (p[:, 1:] != p[:, :-1]).any(-1).all()
+        kw = dict(p=p)
+    kw.update(channel_major=cm, cells=cells)
+    ops.reset_launch_counts()
+    out = attn_pv(v, **kw)
+    ref = attn_pv_plain(v, **kw)
+    assert out.shape == ref.shape
+    assert _rel(out, ref) <= 1e-4, (layout, width, src)
+    assert (out[..., width:] == 0).all()
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies")["attn_pv"] == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,skv,dh", [(128, 64, 40), (256, 192, 48),
                                        (128, 128, 16)])
@@ -571,3 +644,16 @@ def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
     with pytest.raises(ValueError):  # P blocks of 200 rows
         attn_pv(h, p=torch.zeros(1, 200, 512, device=cuda,
                                  dtype=torch.bfloat16), channel_major=True)
+    # contiguous, 2 bytes off 16: F's and G's TMA maps need 16-byte aligned
+    # operands
+    ops.reset_launch_counts()
+    odd = flat[1:].view(1, 40, 512)
+    with pytest.raises(ValueError):
+        attn_scores(odd, h, channel_major=True)
+    with pytest.raises(ValueError):
+        attn_pv(odd, seeds=torch.ones(1, 8, 128, device=cuda,
+                                      dtype=torch.bfloat16),
+                channel_major=True, cells=1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies")["attn_scores"] == 0
+    assert ops.launch_counts("studies")["attn_pv"] == 0

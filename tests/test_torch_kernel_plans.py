@@ -9,6 +9,8 @@ GEMM on TMA + `wgmma`) and `rcdms_tpu_torch/ops/frame_attention.py::_plan`
 (kernel B's tiled bf16 kernel: TMA bulk copies, one thread a (token, head,
 frame) and channel slice) and `rcdms_tpu_torch/ops/group_norm.py::_plan`
 (the fused GroupNorm + SiLU over a thread block cluster, bf16 and fp32)
+and `smallk._scores_plan` / `smallk._pv_plan` (the studies' kernels F and
+G: TMA + `wgmma` tile kernels, with a numpy model of G's generated P)
 are pure Python: they choose the tile shapes and
 compute the shared memory that the CUDA kernels lay out (the kernels refuse
 a plan whose bytes differ from their own). Here every shape of the story's
@@ -17,9 +19,12 @@ hold the kernels to) must fit one block's 232,448 bytes of shared memory on
 the H100, the padded widths must be the designs', and shapes the kernels do
 not take must raise."""
 
+import collections
 import importlib
 
+import numpy as np
 import pytest
+import torch
 
 from rcdms_tpu_torch.ops import cm_conv, flash, geglu, smallk
 from rcdms_tpu_torch.tools import cm_conv_study, gn_fused_study
@@ -405,3 +410,141 @@ def test_gn_plan_edges():
     assert p["cluster"] * p["rows"] >= 7
     p = group_norm_ops._plan(1, 16 * 3000, 64, 2, 2)  # 3000 rows at k 16
     assert p["cluster"] == 16 and p["smem"] <= SMEM_LIMIT
+
+
+# kernels F and G (TMA + wgmma tile kernels, `smallk._scores_plan` and
+# `_pv_plan`): every width the wrappers take, channel-major F dh 8-48 and
+# token-major 128; G widths 8-48 in the dh-40 layouts and 128, over
+# generated and input P
+STAGING = {n: 8 * 16 * s * 4 for n, s in ((40, 40), (48, 56), (128, 136))}
+SCORE_WIDTHS = [(True, dk) for dk in range(8, 49, 8)] + [(False, 128)]
+PV_WIDTHS = [("tm128", 128)] + [(layout, w) for layout in ("tm40", "cm40")
+                                for w in range(8, 49, 8)]
+
+
+def _tile_plan_holds(p, fixed, stage):
+    assert p["rows"] == 128 and p["warpgroups"] == 2
+    assert p["threads"] == 32 * (4 * p["warpgroups"] + 1)  # + producer warp
+    assert p["stage_bytes"] == stage and stage % 1024 == 0  # swizzled boxes
+    assert fixed % 1024 == 0
+    assert 2 <= p["stages"] <= 8 and p["stages"] * stage <= 96 * 1024
+    assert p["smem"] == 1024 + max(fixed + p["stages"] * stage,
+                                   STAGING[p["n"]]) + 8 * (2 * p["stages"]
+                                                           + 1)
+    assert p["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("cm,dk", SCORE_WIDTHS)
+def test_scores_plan_fits_and_pads(cm, dk):
+    p = smallk._scores_plan(cm, dk)
+    assert p["n"] == 128                        # one m64n128 accumulator
+    assert p["kp"] % 16 == 0 and dk <= p["kp"] < dk + 16  # k16 steps
+    box = p["kp"] * 128 if cm else 128 * 128    # [kp d][64 j] / [128 j][64 d]
+    _tile_plan_holds(p, 2 * (p["kp"] * 128 if cm else 2 * 64 * 128),
+                     2 * box)
+
+
+@pytest.mark.parametrize("cm,dk", [(True, 0), (True, 44), (True, 56),
+                                   (False, 40), (False, 136)])
+def test_scores_plan_refuses(cm, dk):
+    with pytest.raises(ValueError):
+        smallk._scores_plan(cm, dk)
+
+
+@pytest.mark.parametrize("gen", [True, False], ids=["gen", "input"])
+@pytest.mark.parametrize("layout,width", PV_WIDTHS)
+def test_pv_plan_fits_and_pads(layout, width, gen):
+    p = smallk._pv_plan(layout, width, gen)
+    # wgmma's n: a multiple of 8; n40 for dh <= 40, n48 past it
+    assert p["n"] == (128 if layout == "tm128" else 40 if width <= 40
+                      else 48)
+    assert p["n"] % 8 == 0 and width <= p["n"] <= 256
+    assert p["keys"] == 64
+    v_box = p["n"] * 128 if layout == "cm40" else 64 * 128
+    stage = (0 if gen else 2 * 64 * 128) \
+        + (2 if layout == "tm128" else 1) * v_box
+    # generated P: a 1 KiB table of its products ahead of the ring
+    _tile_plan_holds(p, 1024 if gen else 0, stage)
+
+
+@pytest.mark.parametrize("layout,width", [("tm128", 40), ("tm40", 56),
+                                          ("cm40", 44), ("cm40", 0),
+                                          ("tm40", 128), ("cm", 40)])
+def test_pv_plan_refuses(layout, width):
+    with pytest.raises(ValueError):
+        smallk._pv_plan(layout, width, True)
+
+
+def test_tile_plans_at_the_study_variants():
+    """The seven study variants: the dh-40 ones leave room for two blocks
+    an SM (228 KiB, 1 KiB a block reserved); token-major F, with 32 KiB
+    key groups, takes one."""
+    plans = {"score_nt": smallk._scores_plan(True, 40),
+             "score_base": smallk._scores_plan(False, 128),
+             "pv_base": smallk._pv_plan("tm128", 128, True),
+             "pv_narrow": smallk._pv_plan("tm40", 40, True),
+             "pv_nt": smallk._pv_plan("cm40", 40, True),
+             "pv_lanes": smallk._pv_plan("cm40", 40, False),
+             "pv_std": smallk._pv_plan("tm128", 128, False)}
+    for name, p in plans.items():
+        blocks = 228 * 1024 // (p["smem"] + 1024)
+        assert blocks >= (1 if name == "score_base" else 2), (name, p)
+    assert plans["score_nt"]["kp"] == 48 and plans["pv_nt"]["n"] == 40
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 bits, rounded to nearest even."""
+    b = x.astype(np.float32).view(np.uint32)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _walked_p(rows: int, cols: int, seed_bits: int) -> np.ndarray:
+    """G's generated P as `attn_pv_kernel` builds it: a table of 173 bf16
+    pairs (x mod 117, x + 1 mod 117) times the seed, one rounding each; the
+    fragment registers of row r, columns c0, c0 + 1 of k16 step k of a
+    64-column stage (c0 = 2t, t = lane % 4; and c0 + 8) read the pairs at
+    x + 16 k (and x + 16 k + 8), where x starts as (7 r + c0) mod 117 and
+    walks 64 columns a stage: an add and a subtract of 117 where the sum
+    reaches it."""
+    seed = np.array([seed_bits << 16], np.uint32).view(np.float32)[0]
+    k = np.arange(173)
+    table = np.stack([_bf16_bits((k % 117).astype(np.float32) * seed),
+                      _bf16_bits(((k + 1) % 117).astype(np.float32) * seed)],
+                     axis=1)                         # (173, 2): low, high
+    out = np.empty((rows, cols), np.uint16)
+    for c0 in range(0, 8, 2):
+        x = (7 * np.arange(rows) + c0) % 117
+        for stage in range(cols // 64):
+            for step in range(4):
+                for dc in (0, 8):
+                    c = 64 * stage + 16 * step + c0 + dc
+                    out[:, c:c + 2] = table[x + 16 * step + dc]
+            x = x + 64
+            x = np.where(x >= 117, x - 117, x)
+    return out
+
+
+def test_generated_p_fragment_covers_each_k16_tile_once():
+    """wgmma's RS A fragment as the kernel fills it (lane g = lane / 4,
+    t = lane % 4 of warp w: a[0] row g, columns 2t, 2t+1; a[1] row g + 8;
+    a[2] row g, columns 2t+8, 2t+9; a[3] row g + 8) covers each (row,
+    column) of a warp's 16 x 16 tile once, so the walk above is the
+    kernel's, one element at a time."""
+    seen = collections.Counter()
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for reg, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+            for half in range(2):
+                seen[(g + dr, 2 * t + dc + half)] += 1
+    assert seen == {(r, c): 1 for r in range(16) for c in range(16)}
+
+
+@pytest.mark.parametrize("seed", [0.5, -1.3046875, 3.7e-3, 96.0, -0.0])
+def test_generated_p_walk_equals_gen_p(seed):
+    """The walk, bit for bit, against `smallk.gen_p` over every (r, c) of
+    a 512 x 4096 cell."""
+    seeds = torch.full((1, 8, 128), seed, dtype=torch.bfloat16)
+    ref = smallk.gen_p(seeds, 512, 4096)[0].view(torch.int16).numpy() \
+        .view(np.uint16)
+    bits = int(seeds[0, 0, 0].view(torch.int16).item()) & 0xFFFF
+    np.testing.assert_array_equal(_walked_p(512, 4096, bits), ref)
