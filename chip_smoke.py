@@ -24,6 +24,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
    each fp32 one the general kernel; A's share of bf16 outputs off the
    plain version's bits is printed, and must be below 0.38 at UNet level
    0 (A rounds P against the row's final maximum, as the TPU kernels);
+   H's four rows (softmax over generated P, softmax, softmax2,
+   reduce_only) also print their device time (`torch.profiler`), which
+   must not be under their bound (every cell's exponentials on MUFU.EX2,
+   or P read once and the output written once): a share of the bound
+   above 1.0 means work was left out;
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3; the same for
@@ -47,8 +52,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
 6. studies: the three ResNet-block studies (`rcdms_tpu_torch/tools/`:
    channel-major 3x3 conv, GroupNorm moments, fused GroupNorm + SiLU) at
    their full shapes, in bf16 and fp32, then the three small-head-dim
-   attention studies (flash_smallk, pv_overlap, pv_softmax) in bf16; every
-   row within the tolerance of phase 3 of its study's reference (the
+   attention studies (flash_smallk, pv_overlap, pv_softmax: E-H, H reading
+   or generating each row of P once a block for the warps of its cells) in
+   bf16; every row within the tolerance of phase 3 of its study's
+   reference (the
    pv_overlap rows also within 0.02 of its fp32 oracle), and every study
    kernel launched;
 7. entry points (`rcdms_tpu_torch/cli/`): (a) `cli.generate.run` at full
@@ -417,6 +424,7 @@ def check_kernels(dev, card: str) -> dict:
     from rcdms_tpu_torch import ops
     from rcdms_tpu_torch.ops.frame_attention import frame_attention
     from rcdms_tpu_torch.tools import bound_ms, median_ms, rel_err
+    from rcdms_tpu_torch.tools.conv_device_times import device_us
 
     print(f"kernels on {card}: median ms of 10 calls: kernel, plain, "
           f"library call (where there is one), bound", flush=True)
@@ -449,10 +457,15 @@ def check_kernels(dev, card: str) -> dict:
                 case.library)
             others = {other: median_ms(fn) for other, fn in case.baselines}
             bound, bound_by = bound_ms(*case.work, dtype=dtype)
+            # H: device time, which must not be under the bound
+            device_ms = (sum(device_us(case.kernel).values()) / 1e3
+                         if name == "attn_softmax" else None)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                        lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                        **({} if bits_off is None else dict(bits_off=bits_off)),
+                       **({} if device_ms is None else dict(
+                           device_ms=device_ms, share=bound / device_ms)),
                        **({} if not others else dict(others_ms=others)))
             if name == "frame_attention":
                 row["tiled_launches"] = tiled
@@ -465,12 +478,19 @@ def check_kernels(dev, card: str) -> dict:
                   + (f" tiled {tiled}" if name == "frame_attention" else "")
                   + ("" if bits_off is None else
                      f" bits off the plain version {bits_off:.4f}")
+                  + ("" if device_ms is None else
+                     f" device {device_ms:.4f} ms "
+                     f"({bound / device_ms:.1%} of bound)")
                   + "".join(f" {other} {t:.4f} ms"
                             for other, t in others.items()),
                   flush=True)
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"{name} {label} {dtype}: relative "
                                      f"error {rel:.3e} > {TOL[dtype]}")
+            if device_ms is not None and not bound / device_ms <= 1.0:
+                raise AssertionError(f"{name} {label}: device time "
+                                     f"{device_ms:.4f} ms under its bound "
+                                     f"{bound:.4f} ms: work left out")
             if bits_off is not None and label.startswith("unet self "
                                                          "Sq=4096") \
                     and not bits_off < 0.38:

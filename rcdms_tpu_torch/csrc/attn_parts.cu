@@ -21,8 +21,11 @@
 // dh 40 (0.11 ms at 989 TFLOP/s; 343 GFLOP, 0.35 ms, at width 128); their
 // (B, Sq, 128) fp32 outputs are 168 MB (0.05 ms at 3.35 TB/s); the input P
 // of G and H is 335 MB (0.10 ms) and the 8 cells of a batch row read the
-// same 4 MB block; H is 1.342 G exponentials (0.34 ms at about 3.9 T a
-// second, MUFU.EX2).
+// same 4 MB block. H's exp rows are 1.342 G exponentials, every cell's
+// (0.34 ms at about 3.9 T a second on MUFU.EX2, 16 an SM a clock); its
+// reduce_only row is bytes, P once and the output (0.15 ms). An SM issues
+// 128 lane operations a clock, so the MUFU binds only where an element
+// costs at most 8 instructions in all.
 //
 // F and G are TMA + wgmma kernels. A block owns 128 rows: two consumer
 // warpgroups of 64 rows, each one m64 fp32 accumulator tile in registers,
@@ -54,7 +57,15 @@
 //   Both stage their accumulators through shared memory (the ring, once
 //   every product is done) and write whole 512-byte output rows, zeros
 //   past n, with streaming stores.
-// H gives each row to a warp, 4 of the 128 sums to a lane.
+// H: a block owns local rows of one batch row for up to 8 cells at once,
+// a warp a (cell, row). Each P row is read once a block (one 1-D TMA bulk
+// copy into a double-buffered row of shared memory) or generated once (a
+// table of the seed's 117 products and an incremental index, no `%` an
+// element), and each warp makes its own two passes over it: the max on
+// bf16 pairs (__hmax2, two elements an instruction), then one FFMA and one
+// MUFU.EX2 an element, 8 sums a lane, l at the end from the lanes' sums.
+// ops/smallk.py::_softmax_plan fixes the cells and slots of rows a block
+// and the shared memory, and refuses a row that does not fit it.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -63,7 +74,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // H: 8 warps
 constexpr int kGroup = 128;    // the lane-group width of the reductions
 constexpr int kSeedStride = 8 * 128;  // seeds are (B, 8, 128): [b, 0, 0]
 
@@ -427,37 +437,39 @@ __global__ void __launch_bounds__(kTileThreads, N <= 48 ? 2 : 1)
 
 enum SoftmaxOp : int { kExp = 0, kExp2 = 1, kSumOnly = 2 };
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowWarps = 8;     // warps an H block at most
+constexpr int kGenPairs = 123;   // pairs (x, x + 1) of the table, x < 117 + 6
+constexpr int kGenTable = 512;   // the table's bytes
+static_assert(kGroup == 32 * 4, "a lane writes 4 of a row's 128 sums");
 
-// The study's generated probability: bf16((7 r + c) mod 117) times the
-// batch row's bf16 scalar, rounded to bf16; r is the row within its cell.
-__device__ __forceinline__ float gen_p(int r, int c, float seed) {
-  return __bfloat162float(
-      __float2bfloat16(static_cast<float>((7 * r + c) % 117) * seed));
+// H's shared memory: `slots` x `stages` rows of Skv bf16 (16-byte aligned
+// at the start), then generated P's pair table, or input P's full and
+// empty mbarriers of each row buffer. Must agree with
+// ops/smallk.py::_softmax_smem.
+__host__ __device__ constexpr long softmax_bytes(bool gen, int slots,
+                                                 int stages, int skv) {
+  return 2L * slots * stages * skv + (gen ? kGenTable : 16 * slots * stages);
 }
 
-// The lane's 4 values of key group g of its row.
-template <bool GEN>
-__device__ __forceinline__ void row_values(float (&x)[4], const bf16* prow,
-                                           int local, int c, float seed,
-                                           float scale) {
-  if constexpr (GEN) {
+// 2^x on the MUFU alone: .ftz keeps ptxas from wrapping it in the scaling
+// of the denormal range (an e below 2^-126 of the row's largest is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t x) {
+  return *reinterpret_cast<__nv_bfloat162*>(&x);
+}
+
+template <bool MIN>
+__device__ __forceinline__ float warp_extreme(float x) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = gen_p(local, c + i, seed) * scale;
-  } else {
-    const uint2 raw = *reinterpret_cast<const uint2*>(prow + c);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    x[0] = __low2float(lo) * scale;
-    x[1] = __high2float(lo) * scale;
-    x[2] = __low2float(hi) * scale;
-    x[3] = __high2float(hi) * scale;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = MIN ? fminf(x, y) : fmaxf(x, y);
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 __device__ __forceinline__ float warp_sum(float x) {
@@ -467,55 +479,199 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One warp a row of (B * Sq); lane owns columns 128 g + 4 lane + [0, 4).
-template <int OP, bool GEN>
-__global__ void __launch_bounds__(kThreads)
-    attn_softmax_kernel(const bf16* __restrict__ seeds,
-                        const bf16* __restrict__ p, float* __restrict__ out,
-                        int Sq, int Skv, int blk, float scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = (long)blockIdx.x * (kThreads / 32) + warp;
-  const int b = static_cast<int>(row / Sq);
-  const int local = static_cast<int>(row % Sq) % blk;
-  const float seed = GEN ? __bfloat162float(seeds[(long)b * kSeedStride])
-                         : 0.f;
-  const bf16* prow = GEN ? nullptr : p + ((long)b * blk + local) * Skv;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float x[4];
-  if constexpr (OP == kSumOnly) {
-    for (int c = lane * 4; c < Skv; c += kGroup) {
-      row_values<GEN>(x, prow, local, c, seed, 1.f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += x[i];
-    }
-  } else {
-    float m = -INFINITY;
-    for (int c = lane * 4; c < Skv; c += kGroup) {
-      row_values<GEN>(x, prow, local, c, seed, scale);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) m = fmaxf(m, x[i]);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int c = lane * 4; c < Skv; c += kGroup) {
-      row_values<GEN>(x, prow, local, c, seed, scale);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = OP == kExp ? __expf(x[i] - m)
-                                   : exp2f((x[i] - m) * kLog2e);
-        l += e;
-        acc[i] += e;
-      }
-    }
-    const float inv = 1.f / warp_sum(l);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= inv;
-  }
-  *reinterpret_cast<float4*>(out + row * kGroup + lane * 4) =
-      make_float4(acc[0], acc[1], acc[2], acc[3]);
+// A warp's pass over a row in shared memory, `pairs` pairs of key groups
+// and an odd last group: each lane takes 16 bytes (8 bf16) a pair, lanes
+// 0-15 from group 2k and lanes 16-31 from group 2k + 1, so a lane's 8
+// columns are 8 (lane % 16) ... + 7 of every group it reads; the odd group
+// goes to lanes 0-15.
+template <typename Take>
+__device__ __forceinline__ void row_pass(const uint4* row, int pairs,
+                                         bool odd, int lane, Take take) {
+#pragma unroll 4
+  for (int k = 0; k < pairs; ++k) take(row[32 * k + lane]);
+  if (odd && lane < 16) take(row[32 * pairs + lane]);
 }
 
-// ---- host side of F and G ---------------------------------------------------
+// The row's largest bf16 (MIN: smallest), as a float: __hmax2 (__hmin2) on
+// bf16 pairs, two elements an instruction, then across the warp.
+template <bool MIN>
+__device__ __forceinline__ float row_extreme(const uint4* row, int pairs,
+                                             bool odd, int lane) {
+  const uint32_t inf = MIN ? 0x7F807F80u : 0xFF80FF80u;  // +-inf pairs
+  __nv_bfloat162 m0 = as_bf2(inf), m1 = m0;
+  auto pick = [](__nv_bfloat162 a, uint32_t b) {
+    return MIN ? __hmin2(a, as_bf2(b)) : __hmax2(a, as_bf2(b));
+  };
+  row_pass(row, pairs, odd, lane, [&](uint4 v) {
+    m0 = pick(m0, v.x);
+    m1 = pick(m1, v.y);
+    m0 = pick(m0, v.z);
+    m1 = pick(m1, v.w);
+  });
+  m0 = pick(m0, as_u32(m1));
+  const float lo = __low2float(m0), hi = __high2float(m0);
+  return warp_extreme<MIN>(MIN ? fminf(lo, hi) : fmaxf(lo, hi));
+}
+
+// The lane's 8 column sums over the row's groups: of e = 2^(x a + mb), one
+// FFMA and one MUFU.EX2 an element, or (SUM) of x itself. A bf16 pair
+// unpacks to two floats by a shift and a mask.
+template <bool SUM>
+__device__ __forceinline__ void row_sums(float (&acc)[8], const uint4* row,
+                                         int pairs, bool odd, int lane,
+                                         float a, float mb) {
+  row_pass(row, pairs, odd, lane, [&](uint4 v) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float lo = __uint_as_float(w[i] << 16);
+      const float hi = __uint_as_float(w[i] & 0xFFFF0000u);
+      if constexpr (SUM) {
+        acc[2 * i] += lo;
+        acc[2 * i + 1] += hi;
+      } else {
+        acc[2 * i] += ex2(fmaf(lo, a, mb));
+        acc[2 * i + 1] += ex2(fmaf(hi, a, mb));
+      }
+    }
+  });
+}
+
+// A slot's warps, as one barrier (ids 1 ... 8; 0 is __syncthreads).
+__device__ __forceinline__ void slot_sync(int slot, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "r"(threads)
+               : "memory");
+}
+
+// One block: local rows of batch row b = blockIdx.z for the `cpb` cells of
+// cell group blockIdx.y, in slots of cpb warps. Warp w computes cell
+// blockIdx.y * cpb + w % cpb (none past `cells`) in slot w / cpb; a slot
+// takes `rows` consecutive local rows from (blockIdx.x * slots + slot) *
+// rows on (none past blk), one after the other through `stages` (2, or 1
+// where two rows do not fit) row buffers. Each row is read (one 1-D TMA
+// bulk copy on the buffer's full mbarrier, issued by the slot's first
+// lane, which reuses a buffer once its empty mbarrier has every warp's
+// arrival) or generated (by the slot's threads, then a slot barrier) once,
+// and every warp of the slot makes its own pass over it: its max (min for
+// a negative scale) on bf16 pairs, then e = 2^(x a - m a), a = scale log2
+// e, for exp and exp2 alike, summed a lane, then l over the warp at the
+// end. Every (batch, cell, row) is one warp's: nothing is shared across
+// cells but the row in shared memory.
+template <bool SUM, bool GEN>
+__global__ void __launch_bounds__(kRowWarps * 32, 4)
+    attn_softmax_kernel(const bf16* __restrict__ seeds,
+                        const bf16* __restrict__ p, float* __restrict__ out,
+                        int cells, int Skv, int blk, int cpb, int rows,
+                        int stages, float scale) {
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slots = blockDim.x / 32 / cpb, slot = warp / cpb;
+  const int cell = blockIdx.y * cpb + warp % cpb, b = blockIdx.z;
+  const int first = (blockIdx.x * slots + slot) * rows;
+  const int n = max(0, min(rows, blk - first));  // the slot's rows
+  const int chunks = Skv / 8;                      // 16-byte chunks a row
+  uint4* ring = reinterpret_cast<uint4*>(row_smem) +
+                (long)slot * stages * chunks;
+  unsigned char* tail = row_smem + 2L * slots * stages * Skv;
+  const uint32_t full = smem_addr(tail) + 8 * slot * stages;
+  const uint32_t empty = smem_addr(tail) + 8 * (slots + slot) * stages;
+  uint32_t* table = reinterpret_cast<uint32_t*>(tail);
+  if constexpr (GEN) {  // pairs (P(x mod 117), P(x + 1 mod 117))
+    const float seed = __bfloat162float(seeds[(long)b * kSeedStride]);
+    for (int k = threadIdx.x; k < kGenPairs; k += blockDim.x)
+      table[k] = as_u32(__floats2bfloat162_rn(
+          static_cast<float>(k % 117) * seed,
+          static_cast<float>((k + 1) % 117) * seed));
+  } else if (threadIdx.x == 0) {
+    for (int i = 0; i < slots * stages; ++i) {
+      mbar_init(smem_addr(tail) + 8 * i, 1);
+      mbar_init(smem_addr(tail) + 8 * (slots * stages + i), cpb);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int groups = Skv / kGroup, pairs = groups / 2;
+  const bool odd = groups % 2;
+  const float a = scale * kLog2e;
+  auto compute = [&](const uint4* row, int local) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float inv = 1.f;
+    if constexpr (SUM) {
+      row_sums<true>(acc, row, pairs, odd, lane, 0.f, 0.f);
+    } else {
+      const float m = scale < 0.f ? row_extreme<true>(row, pairs, odd, lane)
+                                  : row_extreme<false>(row, pairs, odd, lane);
+      row_sums<false>(acc, row, pairs, odd, lane, a, -m * a);
+      float l = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) l += acc[i];
+      inv = 1.f / warp_sum(l);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
+    // lane l < 16 writes columns 8 l ... + 3 (float4 2 l), lane l + 16
+    // the next 4 (float4 2 l + 1)
+    const bool hi = lane >= 16;
+    const float4 o = make_float4(
+        (hi ? acc[4] : acc[0]) * inv, (hi ? acc[5] : acc[1]) * inv,
+        (hi ? acc[6] : acc[2]) * inv, (hi ? acc[7] : acc[3]) * inv);
+    __stcs(reinterpret_cast<float4*>(
+               out + (((long)b * cells + cell) * blk + local) * kGroup) +
+               2 * (lane % 16) + hi,
+           o);
+  };
+
+  if constexpr (GEN) {
+    // Generated P: chunk j (columns 8 j ... + 7) of local row r holds the
+    // table's pairs x, x + 2, x + 4, x + 6, x = (7 r + 8 j) mod 117. The
+    // slot's threads take chunks tid, tid + threads, ...: x walks 8 *
+    // threads mod 117 a chunk and 7 a row, each with one conditional
+    // subtract.
+    const int threads = 32 * cpb, tid = threadIdx.x - slot * threads;
+    const int step = 8 * threads % 117;
+    int xr = (7 * first + 8 * tid) % 117;
+    for (int i = 0; i < n; ++i) {
+      uint4* buf = ring + (i % stages) * chunks;
+      int x = xr;
+      for (int j = tid; j < chunks; j += threads) {
+        buf[j] = make_uint4(table[x], table[x + 2], table[x + 4],
+                            table[x + 6]);
+        x += step;
+        if (x >= 117) x -= 117;
+      }
+      xr += 7;
+      if (xr >= 117) xr -= 117;
+      slot_sync(slot, threads);
+      if (cell < cells) compute(buf, first + i);
+      if (stages == 1) slot_sync(slot, threads);  // before the next write
+    }
+  } else {
+    const bool producer = warp % cpb == 0 && lane == 0;
+    auto issue = [&](int i) {  // row i of the slot into buffer i % stages
+      const int s = i % stages;
+      mbar_expect_tx(full + 8 * s, 2 * Skv);
+      bulk_load(smem_addr(ring + s * chunks),
+                p + ((long)b * blk + first + i) * Skv, 2 * Skv, full + 8 * s);
+    };
+    if (producer)
+      for (int i = 0; i < min(stages, n); ++i) issue(i);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % stages;
+      mbar_wait(full + 8 * s, (i / stages) & 1);
+      if (cell < cells) compute(ring + s * chunks, first + i);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      if (producer && i + stages < n) {
+        mbar_wait(empty + 8 * s, (i / stages) & 1);
+        issue(i + stages);
+      }
+    }
+  }
+}
+
+// ---- host side -------------------------------------------------------------
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -592,6 +748,20 @@ cudaError_t pv_by_source(const void* seeds, const void* p, const void* v,
                                  stages, smem, s);
 }
 
+template <bool SUM, bool GEN>
+cudaError_t launch_softmax(dim3 grid, int threads, int smem, cudaStream_t s,
+                           const void* seeds, const void* p, float* out,
+                           int cells, int Skv, int blk, int cpb, int rows,
+                           int stages, float scale) {
+  static const cudaError_t ready =
+      allow_smem(attn_softmax_kernel<SUM, GEN>, kSmemMax);  // once a process
+  if (ready != cudaSuccess) return ready;
+  attn_softmax_kernel<SUM, GEN><<<grid, threads, smem, s>>>(
+      static_cast<const bf16*>(seeds), static_cast<const bf16*>(p), out,
+      cells, Skv, blk, cpb, rows, stages, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace rcdms
 
@@ -666,39 +836,42 @@ extern "C" int rcdms_attn_pv(int vlayout, int n, int stages, int smem,
 #undef RCDMS_PV
 }
 
-// H. p == nullptr: P generated from seeds (B, 8, 128); else p
-// (B, blk, Skv). op kExp / kExp2: softmax of P * scale, reduced; kSumOnly:
-// the reduced sums of P. out (B, Sq, 128) fp32. Skv a multiple of 128, Sq
-// of blk, B * Sq of 8.
-extern "C" int rcdms_attn_softmax(int op, const void* seeds, const void* p,
-                                  void* out, int B, int Sq, int Skv, int blk,
-                                  float scale, void* stream) {
+// H. p == nullptr: P generated from seeds (B, 8, 128); else p (B, blk,
+// Skv), 16-byte aligned. op kExp / kExp2: the softmax of P * scale,
+// reduced; kSumOnly: the reduced sums of P. out (B, cells * blk, 128)
+// fp32, 16-byte aligned. Skv a multiple of 128. cpb, slots, rows, stages
+// and smem: the plan of ops/smallk.py::_softmax_plan, which must be the
+// kernel's layout.
+extern "C" int rcdms_attn_softmax(int op, int cpb, int slots, int rows,
+                                  int stages, int smem, const void* seeds,
+                                  const void* p, void* out, int B, int cells,
+                                  int Skv, int blk, float scale,
+                                  void* stream) {
   using namespace rcdms;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || blk <= 0 || Skv % kGroup ||
-      Sq % blk || ((long)B * Sq) % (kThreads / 32))
-    return cudaErrorInvalidValue;
   const bool gen = p == nullptr;
-  const dim3 grid(static_cast<unsigned>((long)B * Sq / (kThreads / 32)));
-  const auto* sd = static_cast<const bf16*>(seeds);
-  const auto* pp = static_cast<const bf16*>(p);
+  if (B <= 0 || B > 65535 || cells <= 0 || Skv <= 0 || Skv % kGroup ||
+      blk <= 0 || cpb < 1 || slots < 1 || cpb * slots > kRowWarps ||
+      rows < 1 || stages < 1 || stages > 2 ||
+      (cells + cpb - 1) / cpb > 65535 || smem > kSmemMax ||
+      smem != softmax_bytes(gen, slots, stages, Skv) ||
+      (gen && seeds == nullptr) || (!gen && !aligned16(p)) ||
+      !aligned16(out) || (op != kExp && op != kExp2 && op != kSumOnly))
+    return cudaErrorInvalidValue;
+  const long span = (long)slots * rows;
+  const dim3 grid(static_cast<unsigned>((blk + span - 1) / span),
+                  static_cast<unsigned>((cells + cpb - 1) / cpb),
+                  static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
-#define RCDMS_SM(OP, GEN) \
-  attn_softmax_kernel<OP, GEN><<<grid, kThreads, 0, s>>>(sd, pp, o, Sq, Skv, \
-                                                        blk, scale)
-  switch (op) {
-    case kExp:
-      if (gen) RCDMS_SM(kExp, true); else RCDMS_SM(kExp, false);
-      break;
-    case kExp2:
-      if (gen) RCDMS_SM(kExp2, true); else RCDMS_SM(kExp2, false);
-      break;
-    case kSumOnly:
-      if (gen) RCDMS_SM(kSumOnly, true); else RCDMS_SM(kSumOnly, false);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+#define RCDMS_SM(SUM, GEN)                                                  \
+  return launch_softmax<SUM, GEN>(grid, 32 * cpb * slots, smem, s, seeds,   \
+                                  p, o, cells, Skv, blk, cpb, rows, stages, \
+                                  scale)
+  if (op == kSumOnly) {
+    if (gen) RCDMS_SM(true, true);
+    RCDMS_SM(true, false);
   }
+  if (gen) RCDMS_SM(false, true);
+  RCDMS_SM(false, false);
 #undef RCDMS_SM
-  return cudaGetLastError();
 }

@@ -183,17 +183,8 @@ struct TiledLayout {
   }
 };
 
-// 1-D TMA: `bytes` (a multiple of 16) from device memory into shared
-// memory, completing on `bar`; and from shared memory back to device
-// memory, in this thread's bulk group.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+// 1-D TMA from shared memory back to device memory, in this thread's bulk
+// group (the load is wgmma.cuh's bulk_load).
 __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
                                            uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"

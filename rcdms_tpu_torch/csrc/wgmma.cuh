@@ -1,10 +1,11 @@
 // Hopper's TMA + wgmma helpers, shared by the warp-specialised GEMM kernels
 // (ff.cu: kernels C and D; cm_conv.cu: the bf16 3x3 conv; attn_parts.cu:
-// kernels F and G): mbarriers, TMA loads of 2-D and 3-D boxes,
-// shared-memory matrix descriptors of tiles in TMA's 128-byte swizzle,
-// wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in registers; A
-// from shared memory or from registers), and the tensor-map encoder,
-// looked up at run time (no -lcuda).
+// kernels F and G) and the row kernels on TMA bulk copies
+// (frame_attention.cu: B; attn_parts.cu: H): mbarriers, 1-D TMA bulk
+// copies, TMA loads of 2-D and 3-D boxes, shared-memory matrix descriptors
+// of tiles in TMA's 128-byte swizzle, wgmma.mma_async m64nNk16 (bf16 in,
+// fp32 accumulators in registers; A from shared memory or from registers),
+// and the tensor-map encoder, looked up at run time (no -lcuda).
 //
 // Accumulator layout of m64nNk16, per warp w of the warpgroup (g = lane / 4,
 // t = lane % 4): d[4i], d[4i+1] at row 16w + g, columns 8i + 2t, +1;
@@ -52,6 +53,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// 1-D TMA: `bytes` (a multiple of 16) from device memory into shared
+// memory at `dst` (16-byte aligned, as `src` is), completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // TMA: the box at (c0 = column, c1 = row) of a 2-D `map` into shared

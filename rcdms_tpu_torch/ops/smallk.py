@@ -19,14 +19,18 @@ level 0: B = 80 batch-heads, 4096 x 4096 tokens, dh = 40, bf16):
   and `tools/pv_softmax_study.py`'s;
 * `attn_softmax` (H): the row softmax of generated P or of an input P *
   scale, by exp or by exp2 of the pre-scaled argument, reduced like F;
-  or the reduced sums of P alone (op "sum").
+  or the reduced sums of P alone (op "sum"). Its exp rows are bound by
+  the MUFU's exponentials (every cell's), its sums by bytes.
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches `csrc/smallk_attention.cu` (E,
 `mma.sync`, with the launch plan of `_plan`) or `csrc/attn_parts.cu` (F
 and G on TMA + `wgmma`, with the plans of `_scores_plan` and `_pv_plan`;
-H), bf16 only, as the TPU studies, or raises. The
-variants are the studies' own; anything else raises on either device.
+H, a row of P read by one TMA bulk copy or generated once a block and
+shared by the warps of its cells, one FFMA and one MUFU.EX2 an element,
+with the plan of `_softmax_plan`), bf16 only, as the TPU studies, or
+raises. The variants are the studies' own; anything else raises on
+either device.
 The plain versions work one batch row at a time: a whole (80, 4096, 4096)
 fp32 score tensor would take 5.4 GB. `.launches` counts launches.
 """
@@ -207,6 +211,54 @@ def _pv_plan(layout: str, width: int, gen: bool) -> dict:
     v_box = -(-n * 128 // 1024) * 1024 if layout == "cm40" else BOX
     stage = (0 if gen else 2 * BOX) + (2 if layout == "tm128" else 1) * v_box
     return _tile_plan(P_TABLE if gen else 0, stage, n, keys=PV_KEYS)
+
+
+# ---- H: the row kernel's plan ----------------------------------------------
+
+ROW_WARPS = 8        # warps an H block at most
+ROW_RUN = 8          # consecutive rows a slot of H's block takes at most
+SMEM_MAX = 232448    # shared memory one block may take on the H100
+GEN_TABLE = 512      # H's table of generated P pairs (123 of 4 bytes)
+
+
+def _softmax_smem(gen: bool, slots: int, stages: int, skv: int) -> int:
+    """H's shared memory (`softmax_bytes` in attn_parts.cu): `slots` x
+    `stages` rows of Skv bf16, then generated P's pair table or input P's
+    full and empty mbarriers of each row buffer."""
+    return 2 * slots * stages * skv + (GEN_TABLE if gen else
+                                       16 * slots * stages)
+
+
+def _softmax_plan(cells: int, blk: int, skv: int, gen: bool) -> dict:
+    """Launch plan of H's kernel for `cells` cells of `blk` rows of Skv
+    columns, P generated (`gen`) or an input: the cells split into
+    `groups` (grid y) of `cells_per_block` <= 8, as even as they go, a warp
+    each; `slots` of those warps in a block (8 // cells_per_block, fewer
+    where their rows do not fit), each taking `rows` consecutive rows
+    through `stages` row buffers (2, or 1 where two rows do not fit);
+    `grid` (x, y) for each batch row; the block's `threads` and shared
+    memory (`smem`). `max_skv` is the longest row the kernel takes: one
+    row buffer in SMEM_MAX. Raises ValueError beyond it."""
+    if cells < 1 or blk < 1 or skv < GROUP or skv % GROUP:
+        raise ValueError(f"attn_softmax: cells {cells}, blk {blk}, Skv {skv}")
+    fixed = GEN_TABLE if gen else 16
+    max_skv = (SMEM_MAX - fixed) // 2 // GROUP * GROUP
+    if skv > max_skv:
+        raise ValueError(f"attn_softmax: a row of Skv {skv} does not fit "
+                         f"the kernel's shared memory (Skv <= {max_skv})")
+    groups = -(-cells // ROW_WARPS)
+    cpb = -(-cells // groups)
+    slots, stages = max(1, ROW_WARPS // cpb), 2
+    while _softmax_smem(gen, slots, stages, skv) > SMEM_MAX:
+        if slots > 1:
+            slots -= 1
+        else:
+            stages = 1
+    rows = min(ROW_RUN, -(-blk // slots))
+    return dict(groups=groups, cells_per_block=cpb, slots=slots, rows=rows,
+                stages=stages, grid=(-(-blk // (slots * rows)), groups),
+                threads=32 * cpb * slots,
+                smem=_softmax_smem(gen, slots, stages, skv), max_skv=max_skv)
 
 
 def smallk_attention_plain(q, k, v, scale: float, *, channel_major=False,
@@ -446,12 +498,20 @@ def attn_softmax(*, seeds=None, p=None, op="exp", scale=1.0, cells=8,
     if src.device.type == "cpu":
         return attn_softmax_plain(**kw)
     _card_bf16("attn_softmax", src)
+    if p is not None and p.data_ptr() % 16:
+        raise ValueError("attn_softmax: the kernel takes a 16-byte aligned p "
+                         "(TMA bulk copies)")
+    if batch > 65535:
+        raise ValueError(f"attn_softmax: batch {batch} past the grid's 65535")
+    plan = _softmax_plan(cells, blk, skv, p is None)
     out = torch.empty(batch, cells * blk, GROUP, device=src.device,
                       dtype=torch.float32)
     code = _build.library().lib.rcdms_attn_softmax(
-        SOFTMAX_OPS[op], None if seeds is None else seeds.data_ptr(),
-        None if p is None else p.data_ptr(), out.data_ptr(), batch,
-        cells * blk, skv, blk, float(scale), _build.stream(src))
+        SOFTMAX_OPS[op], plan["cells_per_block"], plan["slots"],
+        plan["rows"], plan["stages"], plan["smem"],
+        None if seeds is None else seeds.data_ptr(),
+        None if p is None else p.data_ptr(), out.data_ptr(), batch, cells,
+        skv, blk, float(scale), _build.stream(src))
     _build.check(code, "rcdms_attn_softmax")
     attn_softmax.launches += 1
     return out

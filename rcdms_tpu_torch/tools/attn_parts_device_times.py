@@ -11,18 +11,31 @@ the device time reaches, and the median event time of 10 calls (which
 holds the wrapper's host time too).
 
     python -m rcdms_tpu_torch.tools.attn_parts_device_times [--out PATH]
+        [--kernel attn_scores|attn_pv|attn_softmax] [--parent CHECKOUT]
 
-It times the kernels of the `rcdms_tpu_torch` that Python imports. To time
-another checkout's (a parent commit's), run this file by path with that
-checkout first on the path:
+It times the kernels of the `rcdms_tpu_torch` that Python imports;
+`--kernel` keeps one kernel's variants. To time another checkout's (a
+parent commit's), run this file by path with that checkout first on the
+path:
 
     PYTHONPATH=<checkout> python3 <this file> --out <json>
+
+`--parent CHECKOUT` does that in turns on one card: the parent's kernels,
+this checkout's twice, the parent's again, each turn a process of its own
+run from its checkout's root (so each builds its own library there), then
+prints each variant's device times side by side; `--out` then holds every
+turn.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
@@ -103,11 +116,14 @@ def variants(dev: torch.device) -> list[tuple]:
     return rows
 
 
-def run(dev: torch.device) -> list[dict]:
-    """Every variant's row on the card (raises off a card)."""
+def run(dev: torch.device, only: str | None = None) -> list[dict]:
+    """Every variant's row on the card, or kernel `only`'s (raises off a
+    card)."""
     require_cuda(dev)
     out = []
     for kernel, name, shape, fn, plain, work in variants(dev):
+        if only is not None and kernel != only:
+            continue
         err = rel_err(fn(), plain())
         by_name = device_us(fn)
         device_ms = sum(by_name.values()) / 1e3
@@ -124,20 +140,60 @@ def run(dev: torch.device) -> list[dict]:
     return out
 
 
+def turns(parent: str, only: str | None) -> list[dict]:
+    """Parent, change, change, parent: this file run in a process of its
+    own from each checkout's root, with that checkout on the path; prints
+    each variant's device times side by side and returns the turns."""
+    here = str(Path(__file__).resolve().parents[2])
+    parent = str(Path(parent).resolve())
+    out = []
+    for label, root in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rows.json")
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--out",
+                   path] + (["--kernel", only] if only else [])
+            print(f"turn {len(out) + 1}: {label} ({root})", flush=True)
+            subprocess.run(cmd, cwd=root, check=True,
+                           env={**os.environ, "PYTHONPATH": root})
+            with open(path) as fh:
+                out.append(dict(label=label, root=root, **json.load(fh)))
+    print("device ms a call, parent / change / change / parent:", flush=True)
+    for i, row in enumerate(out[0]["rows"]):
+        times = [t["rows"][i]["device_ms"] for t in out]
+        shares = [t["rows"][i]["share"] for t in out]
+        parents, changes = times[::3], times[1:3]
+        print(f"  {row['kernel']:12s} {row['variant']:12s} "
+              + " / ".join(f"{t:.4f}" for t in times)
+              + f"  parent / change {min(parents) / max(changes):.2f}-"
+              f"{max(parents) / min(changes):.2f}x  change "
+              f"{min(shares[1:3]):.1%}-{max(shares[1:3]):.1%} of bound",
+              flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="write the rows here as JSON")
+    ap.add_argument("--out", help="write the rows (or turns) here as JSON")
+    ap.add_argument("--kernel",
+                    choices=("attn_scores", "attn_pv", "attn_softmax"),
+                    help="time only this kernel's variants")
+    ap.add_argument("--parent", help="a parent checkout to time in turns "
+                    "with this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attn_parts_device_times: needs a CUDA card")
     card = card_line()
-    print(f"{card}  B={B} Sq={SQ} Skv={SKV} dh={DH} blk={BLK}, bf16: "
-          f"device ms a call (torch.profiler), event ms (median of 10)",
-          flush=True)
-    rows = run(torch.device("cuda"))
+    if args.parent:
+        result = dict(card=card, turns=turns(args.parent, args.kernel))
+    else:
+        print(f"{card}  B={B} Sq={SQ} Skv={SKV} dh={DH} blk={BLK}, bf16: "
+              f"device ms a call (torch.profiler), event ms (median of 10)",
+              flush=True)
+        result = dict(card=card, rows=run(torch.device("cuda"), args.kernel))
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump(dict(card=card, rows=rows), fh, indent=1)
+            json.dump(result, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ from rcdms_tpu_torch.tools import attn_parts_device_times as apdt
 from rcdms_tpu_torch.tools import flash_smallk_study as pfs
 from rcdms_tpu_torch.tools import pv_overlap_study as pos
 from rcdms_tpu_torch.tools import pv_softmax_study as pps
-from rcdms_tpu_torch.tools.sass_mix import instruction_mix
+from rcdms_tpu_torch.tools.sass_mix import inner_loops, instruction_mix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16_REL, F32_REL = 1e-2, 1e-4
@@ -417,6 +417,11 @@ def test_attn_parts_device_times_refuses_the_cpu():
         apdt.run(torch.device("cpu"))
 
 
+def test_attn_parts_device_times_refuses_the_cpu_for_one_kernel():
+    with pytest.raises(RuntimeError):
+        apdt.run(torch.device("cpu"), "attn_softmax")
+
+
 def test_attn_parts_device_times_import_does_no_work():
     _import_quietly("attn_parts_device_times")
 
@@ -462,3 +467,37 @@ def test_sass_mix_counts_copies_and_shuffles():
     mix = instruction_mix(_SASS_COPIES)["_Z5framev"]
     assert mix == {"UBLKCP": 1, "LDS": 1, "HMUL2": 1, "STS": 1, "SHFL": 1,
                    "LDGSTS": 1, "total": 6}
+
+
+_SASS_LOOPS = """
+        Function : _Z3rowv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   VHMNMX R6, R4, R5, R6, !PT ;
+        /*0030*/              @!P0 BRA `(.L_x_1) ;
+.L_x_2:
+        /*0040*/                   LDS.128 R4, [R2] ;
+        /*0050*/                   FFMA R5, R4, R3, R2 ;
+        /*0060*/                   MUFU.EX2 R5, R5 ;
+        /*0070*/                   FADD R8, R8, R5 ;
+        /*0080*/               @P1 BRA 0x40 ;
+        /*0090*/                   BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+.L_x_3:
+        /*00b0*/                   BRA `(.L_x_3) ;
+"""
+
+
+def test_sass_mix_finds_inner_loops():
+    """A backward branch, by label or by address, spans a loop; the
+    innermost ones are kept (not the outer loop holding both, nor the
+    trap's branch to itself)."""
+    loops = inner_loops(_SASS_LOOPS)["_Z3rowv"]
+    assert [(lo, hi) for lo, hi, _, _ in loops] == [(0x10, 0x30),
+                                                    (0x40, 0x80)]
+    assert loops[0][3] == {"LDS": 1, "VHMNMX": 1, "BRA": 1}
+    assert loops[0][2] == {"LDS": 1, "VHMNMX": 1, "total": 3}
+    assert loops[1][2] == {"LDS": 1, "FFMA": 1, "MUFU.EX2": 1, "FADD": 1,
+                           "total": 5}
+    assert instruction_mix(_SASS_LOOPS)["_Z3rowv"]["total"] == 12

@@ -593,6 +593,42 @@ def test_cuda_attn_pv_edges(cuda, layout, width, bsz, cells, skv, src):
     assert ops.launch_counts("studies")["attn_pv"] == 1
 
 
+# H's edges: (Skv, cells, scale, blk of the input P; B = 3): one key group
+# (128), an odd count of groups (640); one cell (8 slots of one warp a
+# block) and three (2 slots of 3 warps); a negative and a zero scale; 129
+# rows, so a slot's last run is one row and its second row buffer stays
+# unused; a row of 65536 that fits one buffer, not two (one stage)
+SOFTMAX_EDGES = [(128, 1, -0.5, 128), (640, 3, 0.0, 128),
+                 (640, 1, -0.5, 129), (128, 3, 0.0, 129),
+                 (65536, 2, 1.0, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv,cells,scale,blk", SOFTMAX_EDGES)
+def test_cuda_attn_softmax_edges(cuda, skv, cells, scale, blk):
+    """H against its plain version at the row kernel's edges, every op
+    over P generated from seeds that differ between batch rows and over an
+    input P whose rows all differ: one launch a call."""
+    g = torch.Generator(cuda).manual_seed(9)
+    bsz = 3
+    seeds = (torch.randn(bsz, 8, 128, generator=g, device=cuda) + 2.0
+             ).to(torch.bfloat16)
+    assert (seeds[:, 0, 0] != 0).all()
+    p = torch.randn(bsz, blk, skv, generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    assert (p[:, 1:] != p[:, :-1]).any(-1).all()
+    ops.reset_launch_counts()
+    for src in (dict(seeds=seeds, skv=skv), dict(p=p)):
+        for op in ("exp", "exp2", "sum"):
+            kw = dict(op=op, scale=scale, cells=cells, **src)
+            out = attn_softmax(**kw)
+            ref = attn_softmax_plain(**kw)
+            assert out.shape == ref.shape
+            assert _rel(out, ref) <= 1e-4, (op, "seeds" in src)
+    torch.cuda.synchronize()
+    assert ops.launch_counts("studies")["attn_softmax"] == 6
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,skv,dh", [(128, 64, 40), (256, 192, 48),
                                        (128, 128, 16)])
@@ -654,6 +690,18 @@ def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
         attn_pv(odd, seeds=torch.ones(1, 8, 128, device=cuda,
                                       dtype=torch.bfloat16),
                 channel_major=True, cells=1)
+    # H: a row past one buffer of shared memory (the plan's max_skv),
+    # generated or an input; an input P off 16-byte alignment (TMA)
+    with pytest.raises(ValueError):
+        attn_softmax(p=torch.zeros(1, 1, 116224, device=cuda,
+                                   dtype=torch.bfloat16), cells=1)
+    with pytest.raises(ValueError):
+        attn_softmax(seeds=torch.ones(1, 8, 128, device=cuda,
+                                      dtype=torch.bfloat16), skv=116096,
+                     cells=1)
+    with pytest.raises(ValueError):
+        attn_softmax(p=flat[1:].view(1, 40, 512), cells=1)
     torch.cuda.synchronize()
     assert ops.launch_counts("studies")["attn_scores"] == 0
     assert ops.launch_counts("studies")["attn_pv"] == 0
+    assert ops.launch_counts("studies")["attn_softmax"] == 0

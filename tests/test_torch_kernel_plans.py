@@ -11,7 +11,9 @@ frame) and channel slice) and `rcdms_tpu_torch/ops/group_norm.py::_plan`
 (the fused GroupNorm + SiLU over a thread block cluster, bf16 and fp32)
 and `smallk._scores_plan` / `smallk._pv_plan` (the studies' kernels F and
 G: TMA + `wgmma` tile kernels, with a numpy model of G's generated P)
-are pure Python: they choose the tile shapes and
+and `smallk._softmax_plan` (kernel H: rows of P shared by the warps of a
+block's cells, with numpy models of its generated row and of its pair
+max and FFMA argument) are pure Python: they choose the tile shapes and
 compute the shared memory that the CUDA kernels lay out (the kernels refuse
 a plan whose bytes differ from their own). Here every shape of the story's
 main path and the study shapes (those `chip_smoke.py` and the card tests
@@ -548,3 +550,219 @@ def test_generated_p_walk_equals_gen_p(seed):
         .view(np.uint16)
     bits = int(seeds[0, 0, 0].view(torch.int16).item()) & 0xFFFF
     np.testing.assert_array_equal(_walked_p(512, 4096, bits), ref)
+
+
+# ---- H: the row kernel ------------------------------------------------------
+
+# (cells, blk, Skv, gen): the studies' shape (generated and input P), one
+# key group, an odd count of groups, rows that force fewer slots
+SOFTMAX_SHAPES = [(8, 512, 4096, True), (8, 512, 4096, False),
+                  (1, 512, 128, True), (3, 128, 128, False),
+                  (1, 129, 640, False), (3, 512, 640, True),
+                  (1, 512, 16384, True), (8, 512, 16384, False)]
+
+
+@pytest.mark.parametrize("cells,blk,skv,gen", SOFTMAX_SHAPES)
+def test_softmax_plan_fits(cells, blk, skv, gen):
+    """H's plan fits one block's shared memory, at most 8 warps, and takes
+    as many slots and stages as fit: two row buffers a slot, and 8 //
+    cells_per_block slots where they fit (the studies' shape: 8 cells, one
+    slot, 16 KB)."""
+    p = smallk._softmax_plan(cells, blk, skv, gen)
+    assert p["smem"] <= SMEM_LIMIT and p["threads"] <= 256
+    assert p["smem"] == smallk._softmax_smem(gen, p["slots"], p["stages"],
+                                             skv)
+    assert p["cells_per_block"] * p["groups"] >= cells
+    assert p["stages"] == 2
+    full = max(1, 8 // p["cells_per_block"])
+    assert p["slots"] == full or smallk._softmax_smem(
+        gen, p["slots"] + 1, 2, skv) > SMEM_LIMIT
+    if (cells, skv) == (8, 4096):
+        assert (p["slots"], p["rows"], p["threads"]) == (1, 8, 256)
+        assert p["smem"] == 2 * 2 * 4096 + (512 if gen else 32)
+
+
+@pytest.mark.parametrize("gen", [True, False], ids=["gen", "input"])
+def test_softmax_plan_refuses_a_row_that_does_not_fit(gen):
+    """The longest row H takes is one buffer in 232,448 bytes; one key
+    group more raises, and a row that fits once but not twice takes one
+    stage."""
+    top = smallk._softmax_plan(1, 16, 128, gen)["max_skv"]
+    assert smallk._softmax_smem(gen, 1, 1, top) <= SMEM_LIMIT
+    assert smallk._softmax_smem(gen, 1, 1, top + 128) > SMEM_LIMIT
+    p = smallk._softmax_plan(1, 16, top, gen)
+    assert (p["slots"], p["stages"]) == (1, 1) and p["smem"] <= SMEM_LIMIT
+    with pytest.raises(ValueError):
+        smallk._softmax_plan(1, 16, top + 128, gen)
+    for bad in ((0, 16, 128), (1, 0, 128), (1, 16, 100), (1, 16, 0)):
+        with pytest.raises(ValueError):
+            smallk._softmax_plan(*bad, gen)
+
+
+def _softmax_warps(plan: dict, batch: int, cells: int, blk: int):
+    """The (batch, cell, row) of every warp that computes one, as
+    `attn_softmax_kernel` maps its grid: warp w of block (x, y, z) is
+    cell y * cpb + w % cpb of batch row z, in slot w / cpb, which takes
+    rows (x * slots + slot) * rows ... (none past blk)."""
+    cpb, slots, rows = plan["cells_per_block"], plan["slots"], plan["rows"]
+    gx, gy = plan["grid"]
+    seen = collections.Counter()
+    for z in range(batch):
+        for y in range(gy):
+            for x in range(gx):
+                for w in range(plan["threads"] // 32):
+                    cell, slot = y * cpb + w % cpb, w // cpb
+                    first = (x * slots + slot) * rows
+                    if cell >= cells:
+                        continue
+                    for r in range(first, min(first + rows, blk)):
+                        seen[(z, cell, r)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("cells", [1, 3, 8, 9])
+@pytest.mark.parametrize("blk", [512, 129])
+def test_softmax_grid_gives_each_row_its_own_warp(cells, blk):
+    """Every (batch, cell, row) is computed, by exactly one warp: no cell
+    shares another's result, whatever the count of cells or rows."""
+    plan = smallk._softmax_plan(cells, blk, 4096, False)
+    seen = _softmax_warps(plan, 2, cells, blk)
+    assert seen == {(z, c, r): 1 for z in range(2) for c in range(cells)
+                    for r in range(blk)}
+
+
+def _lane_sums(values: np.ndarray) -> np.ndarray:
+    """H's lane layout over one row (Skv values): lane l reads 16-byte
+    chunk 32 k + l of pair k (columns 256 k + 8 l ... + 7: group 2 k for
+    lanes 0-15, 2 k + 1 for lanes 16-31) and chunk 32 pairs + l of an odd
+    last group (lanes 0-15), adding column i of each chunk into its sum i;
+    lanes l and l + 16 add their 8 sums (shuffle xor 16); lane l writes
+    float4 2 (l % 16) + l // 16 of the 128 outputs: sums 0-3 (l < 16) or
+    4-7."""
+    chunks = values.reshape(-1, 8)
+    groups = len(values) // 128
+    pairs, odd = groups // 2, groups % 2
+    acc = np.zeros((32, 8))
+    for lane in range(32):
+        for k in range(pairs):
+            acc[lane] += chunks[32 * k + lane]
+        if odd and lane < 16:
+            acc[lane] += chunks[32 * pairs + lane]
+    acc = acc + acc[np.arange(32) ^ 16]
+    out = np.full(128, np.nan)
+    for lane in range(32):
+        at = 2 * (lane % 16) + lane // 16
+        out[4 * at:4 * at + 4] = acc[lane, 4 * (lane // 16):][:4]
+    return out
+
+
+@pytest.mark.parametrize("skv", [128, 256, 640, 4096])
+def test_softmax_lanes_write_each_column_sum_once(skv):
+    """The lanes' reads, their half-warp combine and their float4 stores
+    give every one of the 128 outputs the sum of its column over all key
+    groups."""
+    values = np.random.default_rng(skv).normal(size=skv)
+    np.testing.assert_allclose(_lane_sums(values),
+                               values.reshape(-1, 128).sum(0), rtol=1e-12)
+
+
+def _generated_rows(seed_bits: int, first: int, n: int, skv: int,
+                    threads: int) -> np.ndarray:
+    """Rows first ... first + n - 1 of generated P as a slot of `threads`
+    threads writes them: a table of 123 bf16 pairs (k mod 117, k + 1 mod
+    117) times the seed; thread tid's chunks j = tid, tid + threads, ...
+    (columns 8 j ... + 7) hold the pairs at x, x + 2, x + 4, x + 6, where
+    x starts at (7 first + 8 tid) mod 117, walks 8 threads mod 117 a chunk
+    and 7 a row, each with a conditional subtract of 117."""
+    seed = np.array([seed_bits << 16], np.uint32).view(np.float32)[0]
+    k = np.arange(123)
+    table = np.stack([_bf16_bits((k % 117).astype(np.float32) * seed),
+                      _bf16_bits(((k + 1) % 117).astype(np.float32) * seed)],
+                     axis=1)
+    chunks, step = skv // 8, 8 * threads % 117
+    tid = np.arange(threads)
+    xr = (7 * first + 8 * tid) % 117
+    out = np.zeros((n, skv), np.uint16)
+    for i in range(n):
+        x = xr.copy()
+        for j0 in range(0, chunks, threads):
+            j, xs = j0 + tid, x
+            keep = j < chunks
+            for q in range(4):
+                out[i, 8 * j[keep] + 2 * q] = table[xs[keep] + 2 * q, 0]
+                out[i, 8 * j[keep] + 2 * q + 1] = table[xs[keep] + 2 * q, 1]
+            x = x + step
+            x = np.where(x >= 117, x - 117, x)
+        xr = xr + 7
+        xr = np.where(xr >= 117, xr - 117, xr)
+    return out
+
+
+@pytest.mark.parametrize("cells", [8, 3])
+@pytest.mark.parametrize("seed", [0.5, -1.3046875, 96.0])
+def test_softmax_generated_row_equals_gen_p(seed, cells):
+    """H's table-and-walk rows, slot by slot as its plan cuts a 512 x 4096
+    cell, bit for bit against `smallk.gen_p`."""
+    seeds = torch.full((1, 8, 128), seed, dtype=torch.bfloat16)
+    ref = smallk.gen_p(seeds, 512, 4096)[0].view(torch.int16).numpy() \
+        .view(np.uint16)
+    bits = int(seeds[0, 0, 0].view(torch.int16).item()) & 0xFFFF
+    plan = smallk._softmax_plan(cells, 512, 4096, True)
+    threads, span = 32 * plan["cells_per_block"], plan["rows"]
+    for first in range(0, 512, span):
+        n = min(span, 512 - first)
+        np.testing.assert_array_equal(
+            _generated_rows(bits, first, n, 4096, threads),
+            ref[first:first + n])
+
+
+def _softmax_model(bits: np.ndarray, scale: float, op: str) -> np.ndarray:
+    """H's arithmetic on rows of bf16 bits: the row's max (min for a
+    negative scale) of the bf16 values, m; e = 2^fma(x, a, -(m a)), a =
+    scale * log2 e in fp32, the fma rounded once; the 128 column sums of e
+    over the key groups, then over l, their sum. op "sum": the column sums
+    of x."""
+    x = (bits.astype(np.uint32) << 16).view(np.float32)
+    if op == "sum":
+        return x.reshape(len(x), -1, 128).sum(1, dtype=np.float32)
+    m = x.min(1) if scale < 0 else x.max(1)
+    if scale != 0:  # the bf16 extreme, scaled, is the scaled row's max
+        np.testing.assert_array_equal(
+            m * np.float32(scale), (x * np.float32(scale)).max(1))
+    a = np.float32(scale) * np.float32(smallk.LOG2E)
+    mb = -(m * a)
+    arg = (x.astype(np.float64) * np.float64(a)
+           + mb[:, None].astype(np.float64)).astype(np.float32)
+    e = np.exp2(arg.astype(np.float64)).astype(np.float32)
+    acc = e.reshape(len(e), -1, 128).sum(1, dtype=np.float32)
+    return acc * (np.float32(1) / acc.sum(1, keepdims=True))
+
+
+@pytest.mark.parametrize("op", ["exp", "exp2", "sum"])
+@pytest.mark.parametrize("scale", [1000.0, 1.0, -0.5, 0.0])
+@pytest.mark.parametrize("gen", [True, False], ids=["gen", "input"])
+def test_softmax_model_matches_plain(scale, op, gen):
+    """The kernel's pair max and FFMA argument, in numpy, within 1e-4 of
+    `attn_softmax_plain` (max |diff| / max |plain|), for generated P and
+    for an input P (uniform in [0, 0.001) at scale 1000, as the study's,
+    else normal), at an odd count of key groups."""
+    rng = np.random.default_rng(int(abs(scale)) + 3 * gen)
+    skv, cells = 640, 2
+    if gen:
+        seeds = torch.from_numpy(rng.normal(size=(2, 8, 128)).astype(
+            np.float32)).bfloat16()
+        kw, p = dict(seeds=seeds, skv=skv), smallk.gen_p(seeds, 512, skv)
+    else:
+        x = rng.uniform(0, 1e-3, (2, 64, skv)) if scale == 1000.0 else \
+            rng.normal(size=(2, 64, skv))
+        p = torch.from_numpy(x.astype(np.float32)).bfloat16()
+        kw = dict(p=p)
+    ref = smallk.attn_softmax_plain(op=op, scale=scale, cells=cells, **kw)
+    blk = p.shape[1]
+    for b in range(2):
+        bits = p[b].view(torch.int16).numpy().view(np.uint16)
+        got = _softmax_model(bits, scale, op)
+        for c in range(cells):
+            want = ref[b, c * blk:(c + 1) * blk].numpy()
+            rel = np.abs(got - want).max() / np.abs(want).max()
+            assert rel <= 1e-4, (b, c, rel)
