@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    GroupNorm kernels in fp32 and bf16; the small-head-dim attention
    kernels E-H, B = 80 batch-heads x 4096 x 4096 at dh 40, in bf16 only),
    TF32 off, tolerance max|kernel - plain| / max|plain| <= 1e-4 (fp32) and
-   2e-2 (bf16), with the median time of each side, of one PyTorch library
-   call that computes the same function where there is one (SDPA beside A,
+   2e-2 (bf16; H, whose outputs are fp32, 1e-4), with the median time of
+   each side, of one PyTorch library call that computes the same function
+   where there is one (SDPA beside A,
    B and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
    GN with SiLU, F.group_norm beside it without; the first port's fused
    GN kernel timed beside the cluster kernel where it takes the shape),
@@ -423,8 +424,7 @@ def check_kernels(dev, card: str) -> dict:
     the largest error over all shapes and both dtypes)."""
     from rcdms_tpu_torch import ops
     from rcdms_tpu_torch.ops.frame_attention import frame_attention
-    from rcdms_tpu_torch.tools import bound_ms, median_ms, rel_err
-    from rcdms_tpu_torch.tools.conv_device_times import device_us
+    from rcdms_tpu_torch.tools import bound_ms, device_us, median_ms, rel_err
 
     print(f"kernels on {card}: median ms of 10 calls: kernel, plain, "
           f"library call (where there is one), bound", flush=True)
@@ -484,9 +484,12 @@ def check_kernels(dev, card: str) -> dict:
                   + "".join(f" {other} {t:.4f} ms"
                             for other, t in others.items()),
                   flush=True)
-            if not rel <= TOL[dtype]:
+            # H's outputs are fp32 sums of fp32 exponentials: fp32's
+            # tolerance, whatever its P's dtype
+            tol = TOL[torch.float32 if name == "attn_softmax" else dtype]
+            if not rel <= tol:
                 raise AssertionError(f"{name} {label} {dtype}: relative "
-                                     f"error {rel:.3e} > {TOL[dtype]}")
+                                     f"error {rel:.3e} > {tol}")
             if device_ms is not None and not bound / device_ms <= 1.0:
                 raise AssertionError(f"{name} {label}: device time "
                                      f"{device_ms:.4f} ms under its bound "

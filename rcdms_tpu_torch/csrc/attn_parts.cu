@@ -22,10 +22,10 @@
 // (B, Sq, 128) fp32 outputs are 168 MB (0.05 ms at 3.35 TB/s); the input P
 // of G and H is 335 MB (0.10 ms) and the 8 cells of a batch row read the
 // same 4 MB block. H's exp rows are 1.342 G exponentials, every cell's
-// (0.34 ms at about 3.9 T a second on MUFU.EX2, 16 an SM a clock); its
-// reduce_only row is bytes, P once and the output (0.15 ms). An SM issues
-// 128 lane operations a clock, so the MUFU binds only where an element
-// costs at most 8 instructions in all.
+// (0.32 ms at 4.18 T a second on MUFU.EX2: 16 an SM a clock, 132 SMs,
+// 1980 MHz); its reduce_only row is bytes, P once and the output (0.15
+// ms). An SM issues 128 lane operations a clock, so the MUFU binds only
+// where an element costs at most 8 instructions in all.
 //
 // F and G are TMA + wgmma kernels. A block owns 128 rows: two consumer
 // warpgroups of 64 rows, each one m64 fp32 accumulator tile in registers,
@@ -64,8 +64,8 @@
 // element), and each warp makes its own two passes over it: the max on
 // bf16 pairs (__hmax2, two elements an instruction), then one FFMA and one
 // MUFU.EX2 an element, 8 sums a lane, l at the end from the lanes' sums.
-// ops/smallk.py::_softmax_plan fixes the cells and slots of rows a block
-// and the shared memory, and refuses a row that does not fit it.
+// ops/smallk.py::_softmax_plan fixes the cells and rows a block and the
+// shared memory, and refuses a row that does not fit it.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -442,13 +442,13 @@ constexpr int kGenPairs = 123;   // pairs (x, x + 1) of the table, x < 117 + 6
 constexpr int kGenTable = 512;   // the table's bytes
 static_assert(kGroup == 32 * 4, "a lane writes 4 of a row's 128 sums");
 
-// H's shared memory: `slots` x `stages` rows of Skv bf16 (16-byte aligned
-// at the start), then generated P's pair table, or input P's full and
-// empty mbarriers of each row buffer. Must agree with
+// H's shared memory: `stages` rows of Skv bf16 (16-byte aligned at the
+// start), then generated P's pair table, or input P's full and empty
+// mbarriers of each row buffer. Must agree with
 // ops/smallk.py::_softmax_smem.
-__host__ __device__ constexpr long softmax_bytes(bool gen, int slots,
-                                                 int stages, int skv) {
-  return 2L * slots * stages * skv + (gen ? kGenTable : 16 * slots * stages);
+__host__ __device__ constexpr long softmax_bytes(bool gen, int stages,
+                                                 int skv) {
+  return 2L * stages * skv + (gen ? kGenTable : 16 * stages);
 }
 
 // 2^x on the MUFU alone: .ftz keeps ptxas from wrapping it in the scaling
@@ -537,44 +537,34 @@ __device__ __forceinline__ void row_sums(float (&acc)[8], const uint4* row,
   });
 }
 
-// A slot's warps, as one barrier (ids 1 ... 8; 0 is __syncthreads).
-__device__ __forceinline__ void slot_sync(int slot, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "r"(threads)
-               : "memory");
-}
-
-// One block: local rows of batch row b = blockIdx.z for the `cpb` cells of
-// cell group blockIdx.y, in slots of cpb warps. Warp w computes cell
-// blockIdx.y * cpb + w % cpb (none past `cells`) in slot w / cpb; a slot
-// takes `rows` consecutive local rows from (blockIdx.x * slots + slot) *
-// rows on (none past blk), one after the other through `stages` (2, or 1
+// One block: `rows` consecutive local rows of batch row b = blockIdx.z
+// from blockIdx.x * rows on (none past blk), for the cpb cells of cell
+// group blockIdx.y: warp w computes cell blockIdx.y * cpb + w (none past
+// `cells`). The rows go one after the other through `stages` (2, or 1
 // where two rows do not fit) row buffers. Each row is read (one 1-D TMA
-// bulk copy on the buffer's full mbarrier, issued by the slot's first
-// lane, which reuses a buffer once its empty mbarrier has every warp's
-// arrival) or generated (by the slot's threads, then a slot barrier) once,
-// and every warp of the slot makes its own pass over it: its max (min for
-// a negative scale) on bf16 pairs, then e = 2^(x a - m a), a = scale log2
-// e, for exp and exp2 alike, summed a lane, then l over the warp at the
-// end. Every (batch, cell, row) is one warp's: nothing is shared across
-// cells but the row in shared memory.
+// bulk copy on the buffer's full mbarrier, issued by thread 0, which
+// reuses a buffer once its empty mbarrier has every warp's arrival) or
+// generated (by the block's threads, then __syncthreads) once, and every
+// warp makes its own pass over it: its max (min for a negative scale) on
+// bf16 pairs, then e = 2^(x a - m a), a = scale log2 e, for exp and exp2
+// alike, summed a lane, then l over the warp at the end. Every (batch,
+// cell, row) is one warp's: nothing is shared across cells but the row in
+// shared memory.
 template <bool SUM, bool GEN>
 __global__ void __launch_bounds__(kRowWarps * 32, 4)
     attn_softmax_kernel(const bf16* __restrict__ seeds,
                         const bf16* __restrict__ p, float* __restrict__ out,
-                        int cells, int Skv, int blk, int cpb, int rows,
-                        int stages, float scale) {
+                        int cells, int Skv, int blk, int rows, int stages,
+                        float scale) {
   extern __shared__ __align__(16) unsigned char row_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int slots = blockDim.x / 32 / cpb, slot = warp / cpb;
-  const int cell = blockIdx.y * cpb + warp % cpb, b = blockIdx.z;
-  const int first = (blockIdx.x * slots + slot) * rows;
-  const int n = max(0, min(rows, blk - first));  // the slot's rows
-  const int chunks = Skv / 8;                      // 16-byte chunks a row
-  uint4* ring = reinterpret_cast<uint4*>(row_smem) +
-                (long)slot * stages * chunks;
-  unsigned char* tail = row_smem + 2L * slots * stages * Skv;
-  const uint32_t full = smem_addr(tail) + 8 * slot * stages;
-  const uint32_t empty = smem_addr(tail) + 8 * (slots + slot) * stages;
+  const int cell = blockIdx.y * (blockDim.x / 32) + warp, b = blockIdx.z;
+  const int first = blockIdx.x * rows;
+  const int n = min(rows, blk - first);  // the block's rows
+  const int chunks = Skv / 8;            // 16-byte chunks a row
+  uint4* ring = reinterpret_cast<uint4*>(row_smem);
+  unsigned char* tail = row_smem + 2L * stages * Skv;
+  const uint32_t full = smem_addr(tail), empty = full + 8 * stages;
   uint32_t* table = reinterpret_cast<uint32_t*>(tail);
   if constexpr (GEN) {  // pairs (P(x mod 117), P(x + 1 mod 117))
     const float seed = __bfloat162float(seeds[(long)b * kSeedStride]);
@@ -583,9 +573,9 @@ __global__ void __launch_bounds__(kRowWarps * 32, 4)
           static_cast<float>(k % 117) * seed,
           static_cast<float>((k + 1) % 117) * seed));
   } else if (threadIdx.x == 0) {
-    for (int i = 0; i < slots * stages; ++i) {
-      mbar_init(smem_addr(tail) + 8 * i, 1);
-      mbar_init(smem_addr(tail) + 8 * (slots * stages + i), cpb);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, blockDim.x / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -625,17 +615,15 @@ __global__ void __launch_bounds__(kRowWarps * 32, 4)
 
   if constexpr (GEN) {
     // Generated P: chunk j (columns 8 j ... + 7) of local row r holds the
-    // table's pairs x, x + 2, x + 4, x + 6, x = (7 r + 8 j) mod 117. The
-    // slot's threads take chunks tid, tid + threads, ...: x walks 8 *
-    // threads mod 117 a chunk and 7 a row, each with one conditional
-    // subtract.
-    const int threads = 32 * cpb, tid = threadIdx.x - slot * threads;
-    const int step = 8 * threads % 117;
-    int xr = (7 * first + 8 * tid) % 117;
+    // table's pairs x, x + 2, x + 4, x + 6, x = (7 r + 8 j) mod 117. Thread
+    // t takes chunks t, t + threads, ...: x walks 8 * threads mod 117 a
+    // chunk and 7 a row, each with one conditional subtract.
+    const int step = 8 * blockDim.x % 117;
+    int xr = (7 * first + 8 * threadIdx.x) % 117;
     for (int i = 0; i < n; ++i) {
       uint4* buf = ring + (i % stages) * chunks;
       int x = xr;
-      for (int j = tid; j < chunks; j += threads) {
+      for (int j = threadIdx.x; j < chunks; j += blockDim.x) {
         buf[j] = make_uint4(table[x], table[x + 2], table[x + 4],
                             table[x + 6]);
         x += step;
@@ -643,13 +631,13 @@ __global__ void __launch_bounds__(kRowWarps * 32, 4)
       }
       xr += 7;
       if (xr >= 117) xr -= 117;
-      slot_sync(slot, threads);
+      __syncthreads();
       if (cell < cells) compute(buf, first + i);
-      if (stages == 1) slot_sync(slot, threads);  // before the next write
+      if (stages == 1) __syncthreads();  // before the next write
     }
   } else {
-    const bool producer = warp % cpb == 0 && lane == 0;
-    auto issue = [&](int i) {  // row i of the slot into buffer i % stages
+    const bool producer = threadIdx.x == 0;
+    auto issue = [&](int i) {  // row i of the block into buffer i % stages
       const int s = i % stages;
       mbar_expect_tx(full + 8 * s, 2 * Skv);
       bulk_load(smem_addr(ring + s * chunks),
@@ -751,14 +739,14 @@ cudaError_t pv_by_source(const void* seeds, const void* p, const void* v,
 template <bool SUM, bool GEN>
 cudaError_t launch_softmax(dim3 grid, int threads, int smem, cudaStream_t s,
                            const void* seeds, const void* p, float* out,
-                           int cells, int Skv, int blk, int cpb, int rows,
+                           int cells, int Skv, int blk, int rows,
                            int stages, float scale) {
   static const cudaError_t ready =
       allow_smem(attn_softmax_kernel<SUM, GEN>, kSmemMax);  // once a process
   if (ready != cudaSuccess) return ready;
   attn_softmax_kernel<SUM, GEN><<<grid, threads, smem, s>>>(
       static_cast<const bf16*>(seeds), static_cast<const bf16*>(p), out,
-      cells, Skv, blk, cpb, rows, stages, scale);
+      cells, Skv, blk, rows, stages, scale);
   return cudaGetLastError();
 }
 
@@ -839,34 +827,30 @@ extern "C" int rcdms_attn_pv(int vlayout, int n, int stages, int smem,
 // H. p == nullptr: P generated from seeds (B, 8, 128); else p (B, blk,
 // Skv), 16-byte aligned. op kExp / kExp2: the softmax of P * scale,
 // reduced; kSumOnly: the reduced sums of P. out (B, cells * blk, 128)
-// fp32, 16-byte aligned. Skv a multiple of 128. cpb, slots, rows, stages
-// and smem: the plan of ops/smallk.py::_softmax_plan, which must be the
+// fp32, 16-byte aligned. Skv a multiple of 128. cpb, rows, stages and
+// smem: the plan of ops/smallk.py::_softmax_plan, which must be the
 // kernel's layout.
-extern "C" int rcdms_attn_softmax(int op, int cpb, int slots, int rows,
-                                  int stages, int smem, const void* seeds,
-                                  const void* p, void* out, int B, int cells,
-                                  int Skv, int blk, float scale,
-                                  void* stream) {
+extern "C" int rcdms_attn_softmax(int op, int cpb, int rows, int stages,
+                                  int smem, const void* seeds, const void* p,
+                                  void* out, int B, int cells, int Skv,
+                                  int blk, float scale, void* stream) {
   using namespace rcdms;
   const bool gen = p == nullptr;
   if (B <= 0 || B > 65535 || cells <= 0 || Skv <= 0 || Skv % kGroup ||
-      blk <= 0 || cpb < 1 || slots < 1 || cpb * slots > kRowWarps ||
-      rows < 1 || stages < 1 || stages > 2 ||
-      (cells + cpb - 1) / cpb > 65535 || smem > kSmemMax ||
-      smem != softmax_bytes(gen, slots, stages, Skv) ||
+      blk <= 0 || cpb < 1 || cpb > kRowWarps || rows < 1 || stages < 1 ||
+      stages > 2 || (cells + cpb - 1) / cpb > 65535 || smem > kSmemMax ||
+      smem != softmax_bytes(gen, stages, Skv) ||
       (gen && seeds == nullptr) || (!gen && !aligned16(p)) ||
       !aligned16(out) || (op != kExp && op != kExp2 && op != kSumOnly))
     return cudaErrorInvalidValue;
-  const long span = (long)slots * rows;
-  const dim3 grid(static_cast<unsigned>((blk + span - 1) / span),
+  const dim3 grid(static_cast<unsigned>((blk + rows - 1) / rows),
                   static_cast<unsigned>((cells + cpb - 1) / cpb),
                   static_cast<unsigned>(B));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
-#define RCDMS_SM(SUM, GEN)                                                  \
-  return launch_softmax<SUM, GEN>(grid, 32 * cpb * slots, smem, s, seeds,   \
-                                  p, o, cells, Skv, blk, cpb, rows, stages, \
-                                  scale)
+#define RCDMS_SM(SUM, GEN)                                                \
+  return launch_softmax<SUM, GEN>(grid, 32 * cpb, smem, s, seeds, p, o,   \
+                                  cells, Skv, blk, rows, stages, scale)
   if (op == kSumOnly) {
     if (gen) RCDMS_SM(true, true);
     RCDMS_SM(true, false);

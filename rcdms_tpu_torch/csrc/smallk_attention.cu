@@ -24,7 +24,7 @@
 //
 // What bounds it on the H100: at dh 40 a score and its share of P V cost
 // 160 tensor-core flops but one MUFU.EX2, so the exponentials bound it
-// (1.342 G of them at B = 80: 0.34 ms at about 3.9 T a second). The TPU
+// (1.342 G of them at B = 80: 0.32 ms at 4.18 T a second). The TPU
 // kernels hold a whole 512 x 4096 fp32 score block in VMEM and form p from
 // its exact row max; an SM has 228 KB. Kernel A (attention.cu) streams K/V
 // with an online softmax, which rescales p as the row max grows and so

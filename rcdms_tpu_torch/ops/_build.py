@@ -72,10 +72,10 @@ SIGNATURES = {
     # stream
     "rcdms_attn_pv": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _P],
-    # op, cells_per_block, slots, rows, stages, smem, seeds, p, out, B,
-    # cells, Skv, blk, scale, stream
-    "rcdms_attn_softmax": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                           _I, _F, _P],
+    # op, cells_per_block, rows, stages, smem, seeds, p, out, B, cells,
+    # Skv, blk, scale, stream
+    "rcdms_attn_softmax": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _P],
 }
 
 

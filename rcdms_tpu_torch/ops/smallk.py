@@ -216,49 +216,40 @@ def _pv_plan(layout: str, width: int, gen: bool) -> dict:
 # ---- H: the row kernel's plan ----------------------------------------------
 
 ROW_WARPS = 8        # warps an H block at most
-ROW_RUN = 8          # consecutive rows a slot of H's block takes at most
+ROW_RUN = 8          # consecutive rows an H block takes at most
 SMEM_MAX = 232448    # shared memory one block may take on the H100
 GEN_TABLE = 512      # H's table of generated P pairs (123 of 4 bytes)
 
 
-def _softmax_smem(gen: bool, slots: int, stages: int, skv: int) -> int:
-    """H's shared memory (`softmax_bytes` in attn_parts.cu): `slots` x
-    `stages` rows of Skv bf16, then generated P's pair table or input P's
-    full and empty mbarriers of each row buffer."""
-    return 2 * slots * stages * skv + (GEN_TABLE if gen else
-                                       16 * slots * stages)
+def _softmax_smem(gen: bool, stages: int, skv: int) -> int:
+    """H's shared memory (`softmax_bytes` in attn_parts.cu): `stages` rows
+    of Skv bf16, then generated P's pair table or input P's full and empty
+    mbarriers of each row buffer."""
+    return 2 * stages * skv + (GEN_TABLE if gen else 16 * stages)
 
 
 def _softmax_plan(cells: int, blk: int, skv: int, gen: bool) -> dict:
     """Launch plan of H's kernel for `cells` cells of `blk` rows of Skv
     columns, P generated (`gen`) or an input: the cells split into
     `groups` (grid y) of `cells_per_block` <= 8, as even as they go, a warp
-    each; `slots` of those warps in a block (8 // cells_per_block, fewer
-    where their rows do not fit), each taking `rows` consecutive rows
-    through `stages` row buffers (2, or 1 where two rows do not fit);
-    `grid` (x, y) for each batch row; the block's `threads` and shared
-    memory (`smem`). `max_skv` is the longest row the kernel takes: one
-    row buffer in SMEM_MAX. Raises ValueError beyond it."""
+    each; a block takes `rows` consecutive rows through `stages` row
+    buffers (2, or 1 where two rows do not fit); `grid` (x, y) for each
+    batch row; the block's `threads` and shared memory (`smem`). `max_skv`
+    is the longest row the kernel takes: one row buffer in SMEM_MAX.
+    Raises ValueError beyond it."""
     if cells < 1 or blk < 1 or skv < GROUP or skv % GROUP:
         raise ValueError(f"attn_softmax: cells {cells}, blk {blk}, Skv {skv}")
-    fixed = GEN_TABLE if gen else 16
-    max_skv = (SMEM_MAX - fixed) // 2 // GROUP * GROUP
+    max_skv = (SMEM_MAX - _softmax_smem(gen, 1, 0)) // 2 // GROUP * GROUP
     if skv > max_skv:
         raise ValueError(f"attn_softmax: a row of Skv {skv} does not fit "
                          f"the kernel's shared memory (Skv <= {max_skv})")
     groups = -(-cells // ROW_WARPS)
     cpb = -(-cells // groups)
-    slots, stages = max(1, ROW_WARPS // cpb), 2
-    while _softmax_smem(gen, slots, stages, skv) > SMEM_MAX:
-        if slots > 1:
-            slots -= 1
-        else:
-            stages = 1
-    rows = min(ROW_RUN, -(-blk // slots))
-    return dict(groups=groups, cells_per_block=cpb, slots=slots, rows=rows,
-                stages=stages, grid=(-(-blk // (slots * rows)), groups),
-                threads=32 * cpb * slots,
-                smem=_softmax_smem(gen, slots, stages, skv), max_skv=max_skv)
+    stages = 2 if _softmax_smem(gen, 2, skv) <= SMEM_MAX else 1
+    rows = min(ROW_RUN, blk)
+    return dict(groups=groups, cells_per_block=cpb, rows=rows, stages=stages,
+                grid=(-(-blk // rows), groups), threads=32 * cpb,
+                smem=_softmax_smem(gen, stages, skv), max_skv=max_skv)
 
 
 def smallk_attention_plain(q, k, v, scale: float, *, channel_major=False,
@@ -507,8 +498,8 @@ def attn_softmax(*, seeds=None, p=None, op="exp", scale=1.0, cells=8,
     out = torch.empty(batch, cells * blk, GROUP, device=src.device,
                       dtype=torch.float32)
     code = _build.library().lib.rcdms_attn_softmax(
-        SOFTMAX_OPS[op], plan["cells_per_block"], plan["slots"],
-        plan["rows"], plan["stages"], plan["smem"],
+        SOFTMAX_OPS[op], plan["cells_per_block"], plan["rows"],
+        plan["stages"], plan["smem"],
         None if seeds is None else seeds.data_ptr(),
         None if p is None else p.data_ptr(), out.data_ptr(), batch, cells,
         skv, blk, float(scale), _build.stream(src))

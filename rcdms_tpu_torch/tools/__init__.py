@@ -15,7 +15,8 @@ formulations:
 `conv_device_times` prints the conv kernel's device time by kernel beside
 cuDNN's, `gn_device_times` the fused GroupNorm's beside the first port's
 kernel and F.group_norm, and `gn_cluster_study` the fused GroupNorm's at
-every launch plan and with one part of it changed, from `torch.profiler`.
+every launch plan and with one part of it changed, from `torch.profiler`
+(`device_us` here).
 
 Each module's `run(dev, dtype)` returns its rows (one dict each: the row's
 name and shape, its median time, its rate and its error against the study's
@@ -33,17 +34,21 @@ previous layer has just written it.
 
 from __future__ import annotations
 
+import collections
 import statistics
 import subprocess
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 # Published peaks of one H100 SXM5 at its 700 W limit: dense bf16 tensor
-# cores, fp32 outside them, HBM3, and MUFU.EX2 (16 an SM a clock).
+# cores, fp32 outside them, HBM3, and MUFU.EX2: 16 an SM a clock on 132
+# SMs at the 1980 MHz maximum SM clock (nvidia-smi's clocks.max.sm on the
+# H100 80GB HBM3).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-PEAK_EXPS = 3.9e12
+PEAK_EXPS = 132 * 16 * 1.98e9
 
 
 def bound_ms(flops: float = 0.0, exps: float = 0.0, nbytes: float = 0.0,
@@ -84,6 +89,28 @@ def median_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(fn, reps: int = 20, tries: int = 3) -> dict[str, float]:
+    """Microseconds of device time a call, per kernel name, over `reps`
+    profiled calls after three warm-up calls. A profile now and then
+    holds no device event at all: it is taken again, up to `tries`
+    times, then this raises."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = collections.Counter()
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                times[e.key] += e.device_time_total / reps
+        if times:
+            return dict(times)
+    raise RuntimeError(f"the profiler saw no device time in {tries} tries")
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:

@@ -22,8 +22,7 @@ from rcdms_tpu_torch.ops.flash import (
     attention_plain,
     flash_attention,
 )
-from rcdms_tpu_torch.tools import card_line, rel_err
-from rcdms_tpu_torch.tools.conv_device_times import device_us
+from rcdms_tpu_torch.tools import card_line, device_us, rel_err
 
 SHAPE, HEADS = (1, 5, 4096, 320), 8  # UNet level 0 self-attention
 

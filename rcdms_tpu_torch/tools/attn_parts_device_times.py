@@ -14,17 +14,12 @@ holds the wrapper's host time too).
         [--kernel attn_scores|attn_pv|attn_softmax] [--parent CHECKOUT]
 
 It times the kernels of the `rcdms_tpu_torch` that Python imports;
-`--kernel` keeps one kernel's variants. To time another checkout's (a
-parent commit's), run this file by path with that checkout first on the
-path:
-
-    PYTHONPATH=<checkout> python3 <this file> --out <json>
-
-`--parent CHECKOUT` does that in turns on one card: the parent's kernels,
-this checkout's twice, the parent's again, each turn a process of its own
-run from its checkout's root (so each builds its own library there), then
-prints each variant's device times side by side; `--out` then holds every
-turn.
+`--kernel` keeps one kernel's variants. `--parent CHECKOUT` times another
+checkout's kernels (a parent commit's) in turns with this one's on one
+card: the parent's, this checkout's twice, the parent's again, each turn
+this module of that checkout run in a process of its own from its root
+(so each builds its own library there), then prints each variant's
+device times side by side; `--out` then holds every turn.
 """
 
 from __future__ import annotations
@@ -50,14 +45,15 @@ from rcdms_tpu_torch.ops.smallk import (
 from rcdms_tpu_torch.tools import (
     bound_ms,
     card_line,
+    device_us,
     median_ms,
     rel_err,
     require_cuda,
 )
-from rcdms_tpu_torch.tools.conv_device_times import device_us
 
 B, SQ, SKV, DH, GROUP, BLK = 80, 4096, 4096, 40, 128, 512
 CELLS = SQ // BLK
+MODULE = "rcdms_tpu_torch.tools.attn_parts_device_times"
 
 
 def _bytes(*tensors: torch.Tensor) -> int:
@@ -141,9 +137,10 @@ def run(dev: torch.device, only: str | None = None) -> list[dict]:
 
 
 def turns(parent: str, only: str | None) -> list[dict]:
-    """Parent, change, change, parent: this file run in a process of its
-    own from each checkout's root, with that checkout on the path; prints
-    each variant's device times side by side and returns the turns."""
+    """Parent, change, change, parent: each checkout's own module in a
+    process of its own from its root, with that checkout on the path;
+    prints each variant's device times side by side (kernel `only`'s, if
+    given) and returns the turns."""
     here = str(Path(__file__).resolve().parents[2])
     parent = str(Path(parent).resolve())
     out = []
@@ -151,24 +148,26 @@ def turns(parent: str, only: str | None) -> list[dict]:
                         ("change", here), ("parent", parent)):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "rows.json")
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--out",
-                   path] + (["--kernel", only] if only else [])
             print(f"turn {len(out) + 1}: {label} ({root})", flush=True)
-            subprocess.run(cmd, cwd=root, check=True,
+            subprocess.run([sys.executable, "-m", MODULE, "--out",
+                            path], cwd=root, check=True,
                            env={**os.environ, "PYTHONPATH": root})
             with open(path) as fh:
-                out.append(dict(label=label, root=root, **json.load(fh)))
+                rows = [r for r in json.load(fh)["rows"]
+                        if only is None or r["kernel"] == only]
+            out.append(dict(label=label, root=root, rows=rows))
     print("device ms a call, parent / change / change / parent:", flush=True)
-    for i, row in enumerate(out[0]["rows"]):
-        times = [t["rows"][i]["device_ms"] for t in out]
-        shares = [t["rows"][i]["share"] for t in out]
+    for i, row in enumerate(out[1]["rows"]):
+        key = (row["kernel"], row["variant"])
+        times = [next(r["device_ms"] for r in t["rows"]
+                      if (r["kernel"], r["variant"]) == key) for t in out]
         parents, changes = times[::3], times[1:3]
+        shares = [row["bound_ms"] / t for t in changes]
         print(f"  {row['kernel']:12s} {row['variant']:12s} "
               + " / ".join(f"{t:.4f}" for t in times)
               + f"  parent / change {min(parents) / max(changes):.2f}-"
               f"{max(parents) / min(changes):.2f}x  change "
-              f"{min(shares[1:3]):.1%}-{max(shares[1:3]):.1%} of bound",
-              flush=True)
+              f"{min(shares):.1%}-{max(shares):.1%} of bound", flush=True)
     return out
 
 

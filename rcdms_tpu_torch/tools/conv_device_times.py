@@ -12,37 +12,12 @@ launch; these are the kernels' own times.
 
 from __future__ import annotations
 
-import collections
-
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
 from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3
-from rcdms_tpu_torch.tools import card_line
+from rcdms_tpu_torch.tools import card_line, device_us
 from rcdms_tpu_torch.tools import cm_conv_study as cs
-
-
-def device_us(fn, reps: int = 20, tries: int = 3) -> dict[str, float]:
-    """Microseconds of device time a call, per kernel name, over `reps`
-    profiled calls after three warm-up calls. A profile now and then
-    holds no device event at all: it is taken again, up to `tries`
-    times, then this raises."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = collections.Counter()
-        for e in prof.key_averages():
-            if e.device_time_total > 0:
-                times[e.key] += e.device_time_total / reps
-        if times:
-            return dict(times)
-    raise RuntimeError(f"the profiler saw no device time in {tries} tries")
 
 
 def main() -> None:

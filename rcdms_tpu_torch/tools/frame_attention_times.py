@@ -19,8 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
-from rcdms_tpu_torch.tools import PEAK_BYTES, card_line
-from rcdms_tpu_torch.tools.conv_device_times import device_us
+from rcdms_tpu_torch.tools import PEAK_BYTES, card_line, device_us
 
 # (b, f, n, c) with 8 heads: UNet levels 0-3, the prior (CFG batch 2)
 SHAPES = ((1, 5, 4096, 320), (1, 5, 1024, 640), (1, 5, 256, 1280),

@@ -22,9 +22,8 @@ from rcdms_tpu_torch.ops.group_norm import (
     group_norm_act_plain,
     group_norm_act_slab,
 )
-from rcdms_tpu_torch.tools import bound_ms, card_line, rel_err
+from rcdms_tpu_torch.tools import bound_ms, card_line, device_us, rel_err
 from rcdms_tpu_torch.tools import gn_fused_study as gs
-from rcdms_tpu_torch.tools.conv_device_times import device_us
 
 SHAPES = gs.SHAPES + [(5, 4096, 960)]
 

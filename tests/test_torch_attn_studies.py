@@ -28,6 +28,7 @@ The generated P tile: exact."""
 
 import ast
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -424,6 +425,42 @@ def test_attn_parts_device_times_refuses_the_cpu_for_one_kernel():
 
 def test_attn_parts_device_times_import_does_no_work():
     _import_quietly("attn_parts_device_times")
+
+
+def test_attn_parts_device_times_turns_run_each_checkouts_own_module(
+        monkeypatch, tmp_path):
+    """`--parent`: parent, change, change, parent, each that checkout's own
+    module (`-m`, from its root, on its path), its rows matched to the
+    change's by kernel and variant whatever their order, and kept to one
+    kernel's where asked."""
+    parent = tmp_path / "parent"
+    parent.mkdir()
+    calls = []
+
+    def row(kernel, variant, ms):
+        return dict(kernel=kernel, variant=variant, device_ms=ms,
+                    bound_ms=0.3)
+
+    def fake_run(cmd, cwd, check, env):
+        calls.append((cmd, cwd, env["PYTHONPATH"]))
+        old = cwd == str(parent)
+        rows = ([row("attn_softmax", "softmax", 0.7),
+                 row("attn_scores", "score_nt", 1.0),
+                 row("attn_softmax", "softmax gen", 1.5)] if old else
+                [row("attn_softmax", "softmax gen", 0.42),
+                 row("attn_softmax", "softmax", 0.40)])
+        with open(cmd[cmd.index("--out") + 1], "w") as fh:
+            json.dump(dict(card="card", rows=rows), fh)
+
+    monkeypatch.setattr(apdt.subprocess, "run", fake_run)
+    out = apdt.turns(str(parent), "attn_softmax")
+    assert [t["label"] for t in out] == ["parent", "change", "change",
+                                         "parent"]
+    assert [c[1] for c in calls] == [str(parent), REPO, REPO, str(parent)]
+    for cmd, cwd, path in calls:
+        assert cmd[1:3] == ["-m", apdt.MODULE] and path == cwd
+    assert [r["variant"] for r in out[0]["rows"]] == ["softmax",
+                                                      "softmax gen"]
 
 
 _SASS = """

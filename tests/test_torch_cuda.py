@@ -40,12 +40,14 @@ from rcdms_tpu_torch.ops.group_norm import (
     group_norm_act_slab,
 )
 from rcdms_tpu_torch.ops.smallk import (
+    BLK,
     attn_pv,
     attn_pv_plain,
     attn_scores,
     attn_scores_plain,
     attn_softmax,
     attn_softmax_plain,
+    gen_p,
     smallk_attention,
     smallk_attention_plain,
 )
@@ -594,13 +596,16 @@ def test_cuda_attn_pv_edges(cuda, layout, width, bsz, cells, skv, src):
 
 
 # H's edges: (Skv, cells, scale, blk of the input P; B = 3): one key group
-# (128), an odd count of groups (640); one cell (8 slots of one warp a
-# block) and three (2 slots of 3 warps); a negative and a zero scale; 129
-# rows, so a slot's last run is one row and its second row buffer stays
-# unused; a row of 65536 that fits one buffer, not two (one stage)
+# (128), an odd count of groups (640); one cell (a block of one warp) and
+# three (a block of 3 warps); a negative and a zero scale; 129 rows, so a
+# block's last run is one row and its second row buffer stays unused; a
+# row of 65536 that fits one buffer, not two (one stage); scale +-100, at
+# which a row's scaled values span past 88, so e overflows or underflows
+# unless the kernel takes the row's max (min for a negative scale)
 SOFTMAX_EDGES = [(128, 1, -0.5, 128), (640, 3, 0.0, 128),
                  (640, 1, -0.5, 129), (128, 3, 0.0, 129),
-                 (65536, 2, 1.0, 16)]
+                 (65536, 2, 1.0, 16), (640, 3, 100.0, 129),
+                 (128, 1, -100.0, 128)]
 
 
 @pytest.mark.gpu
@@ -617,6 +622,9 @@ def test_cuda_attn_softmax_edges(cuda, skv, cells, scale, blk):
     p = torch.randn(bsz, blk, skv, generator=g, device=cuda
                     ).to(torch.bfloat16)
     assert (p[:, 1:] != p[:, :-1]).any(-1).all()
+    if abs(scale) >= 100:  # every row spans past exp's range
+        for x in (p.float(), gen_p(seeds, BLK, skv).float()):
+            assert ((x.amax(-1) - x.amin(-1)) * abs(scale) > 88).all()
     ops.reset_launch_counts()
     for src in (dict(seeds=seeds, skv=skv), dict(p=p)):
         for op in ("exp", "exp2", "sum"):

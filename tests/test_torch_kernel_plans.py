@@ -555,7 +555,7 @@ def test_generated_p_walk_equals_gen_p(seed):
 # ---- H: the row kernel ------------------------------------------------------
 
 # (cells, blk, Skv, gen): the studies' shape (generated and input P), one
-# key group, an odd count of groups, rows that force fewer slots
+# key group, an odd count of groups, long rows (16384)
 SOFTMAX_SHAPES = [(8, 512, 4096, True), (8, 512, 4096, False),
                   (1, 512, 128, True), (3, 128, 128, False),
                   (1, 129, 640, False), (3, 512, 640, True),
@@ -564,21 +564,17 @@ SOFTMAX_SHAPES = [(8, 512, 4096, True), (8, 512, 4096, False),
 
 @pytest.mark.parametrize("cells,blk,skv,gen", SOFTMAX_SHAPES)
 def test_softmax_plan_fits(cells, blk, skv, gen):
-    """H's plan fits one block's shared memory, at most 8 warps, and takes
-    as many slots and stages as fit: two row buffers a slot, and 8 //
-    cells_per_block slots where they fit (the studies' shape: 8 cells, one
-    slot, 16 KB)."""
+    """H's plan fits one block's shared memory, a warp a cell of its
+    group (at most 8), two row buffers, and runs of up to 8 rows (the
+    studies' shape: 8 cells, 8 rows a block, 16 KB)."""
     p = smallk._softmax_plan(cells, blk, skv, gen)
-    assert p["smem"] <= SMEM_LIMIT and p["threads"] <= 256
-    assert p["smem"] == smallk._softmax_smem(gen, p["slots"], p["stages"],
-                                             skv)
+    assert p["smem"] <= SMEM_LIMIT
+    assert p["threads"] == 32 * p["cells_per_block"] <= 256
+    assert p["smem"] == smallk._softmax_smem(gen, p["stages"], skv)
     assert p["cells_per_block"] * p["groups"] >= cells
-    assert p["stages"] == 2
-    full = max(1, 8 // p["cells_per_block"])
-    assert p["slots"] == full or smallk._softmax_smem(
-        gen, p["slots"] + 1, 2, skv) > SMEM_LIMIT
+    assert p["stages"] == 2 and p["rows"] == min(8, blk)
     if (cells, skv) == (8, 4096):
-        assert (p["slots"], p["rows"], p["threads"]) == (1, 8, 256)
+        assert (p["rows"], p["threads"]) == (8, 256)
         assert p["smem"] == 2 * 2 * 4096 + (512 if gen else 32)
 
 
@@ -588,10 +584,10 @@ def test_softmax_plan_refuses_a_row_that_does_not_fit(gen):
     group more raises, and a row that fits once but not twice takes one
     stage."""
     top = smallk._softmax_plan(1, 16, 128, gen)["max_skv"]
-    assert smallk._softmax_smem(gen, 1, 1, top) <= SMEM_LIMIT
-    assert smallk._softmax_smem(gen, 1, 1, top + 128) > SMEM_LIMIT
+    assert smallk._softmax_smem(gen, 1, top) <= SMEM_LIMIT
+    assert smallk._softmax_smem(gen, 1, top + 128) > SMEM_LIMIT
     p = smallk._softmax_plan(1, 16, top, gen)
-    assert (p["slots"], p["stages"]) == (1, 1) and p["smem"] <= SMEM_LIMIT
+    assert p["stages"] == 1 and p["smem"] <= SMEM_LIMIT
     with pytest.raises(ValueError):
         smallk._softmax_plan(1, 16, top + 128, gen)
     for bad in ((0, 16, 128), (1, 0, 128), (1, 16, 100), (1, 16, 0)):
@@ -602,17 +598,16 @@ def test_softmax_plan_refuses_a_row_that_does_not_fit(gen):
 def _softmax_warps(plan: dict, batch: int, cells: int, blk: int):
     """The (batch, cell, row) of every warp that computes one, as
     `attn_softmax_kernel` maps its grid: warp w of block (x, y, z) is
-    cell y * cpb + w % cpb of batch row z, in slot w / cpb, which takes
-    rows (x * slots + slot) * rows ... (none past blk)."""
-    cpb, slots, rows = plan["cells_per_block"], plan["slots"], plan["rows"]
+    cell y * cpb + w of batch row z, and takes rows x * rows ... (none
+    past blk)."""
+    cpb, rows = plan["cells_per_block"], plan["rows"]
     gx, gy = plan["grid"]
     seen = collections.Counter()
     for z in range(batch):
         for y in range(gy):
             for x in range(gx):
                 for w in range(plan["threads"] // 32):
-                    cell, slot = y * cpb + w % cpb, w // cpb
-                    first = (x * slots + slot) * rows
+                    cell, first = y * cpb + w, x * rows
                     if cell >= cells:
                         continue
                     for r in range(first, min(first + rows, blk)):
@@ -668,7 +663,7 @@ def test_softmax_lanes_write_each_column_sum_once(skv):
 
 def _generated_rows(seed_bits: int, first: int, n: int, skv: int,
                     threads: int) -> np.ndarray:
-    """Rows first ... first + n - 1 of generated P as a slot of `threads`
+    """Rows first ... first + n - 1 of generated P as a block of `threads`
     threads writes them: a table of 123 bf16 pairs (k mod 117, k + 1 mod
     117) times the seed; thread tid's chunks j = tid, tid + threads, ...
     (columns 8 j ... + 7) hold the pairs at x, x + 2, x + 4, x + 6, where
@@ -701,8 +696,8 @@ def _generated_rows(seed_bits: int, first: int, n: int, skv: int,
 @pytest.mark.parametrize("cells", [8, 3])
 @pytest.mark.parametrize("seed", [0.5, -1.3046875, 96.0])
 def test_softmax_generated_row_equals_gen_p(seed, cells):
-    """H's table-and-walk rows, slot by slot as its plan cuts a 512 x 4096
-    cell, bit for bit against `smallk.gen_p`."""
+    """H's table-and-walk rows, block by block as its plan cuts a 512 x
+    4096 cell, bit for bit against `smallk.gen_p`."""
     seeds = torch.full((1, 8, 128), seed, dtype=torch.bfloat16)
     ref = smallk.gen_p(seeds, 512, 4096)[0].view(torch.int16).numpy() \
         .view(np.uint16)
@@ -739,13 +734,14 @@ def _softmax_model(bits: np.ndarray, scale: float, op: str) -> np.ndarray:
 
 
 @pytest.mark.parametrize("op", ["exp", "exp2", "sum"])
-@pytest.mark.parametrize("scale", [1000.0, 1.0, -0.5, 0.0])
+@pytest.mark.parametrize("scale", [1000.0, 100.0, 1.0, -0.5, -100.0, 0.0])
 @pytest.mark.parametrize("gen", [True, False], ids=["gen", "input"])
 def test_softmax_model_matches_plain(scale, op, gen):
     """The kernel's pair max and FFMA argument, in numpy, within 1e-4 of
     `attn_softmax_plain` (max |diff| / max |plain|), for generated P and
     for an input P (uniform in [0, 0.001) at scale 1000, as the study's,
-    else normal), at an odd count of key groups."""
+    else normal), at an odd count of key groups; at scale +-100 a row's
+    scaled values span past 88, where e needs the row's extreme."""
     rng = np.random.default_rng(int(abs(scale)) + 3 * gen)
     skv, cells = 640, 2
     if gen:
