@@ -90,12 +90,49 @@ Phases, in order; any failure raises and the exit code is nonzero:
    finite, its int8 convs counted, its seconds and SSIM against 7a's
    frames printed.
 
+9. train (`rcdms_tpu_torch/train/`): (1) A (both row-sum families), B and
+   C at UNet level-0 shapes and D at the prior's, in bf16 and fp32, with
+   operands that require grad: the op's `torch.autograd.Function` launches
+   the kernel once a call, and its gradients for a seeded cotangent match
+   autograd through the function the JAX backward differentiates
+   (`attention_reference`, `frame_attention_reference`,
+   `geglu_ff_reference`, `gelu_ff_reference`) in plain PyTorch on the
+   card, at phase 3's tolerances; each case's peak memory is printed
+   (A's plain backward materialises the level-0 scores); (2) the tiny
+   pipeline's trainers in fp32 on the card against the same trainers on
+   the CPU, same weights, batch and `TrainNoise`, 3 steps of each stage
+   at lr 1e-4: every loss within 1e-4 relative, the parameters after
+   step 3 within 1e-4 of each tensor's max, step 1's gradients within
+   1e-3 of it (a norm's weight gradient sums over every token, and the
+   two devices sum in other orders: up to 1.2e-4 at the UNet mid block's
+   LayerNorm on an H100). A key projection's bias, whose gradient is
+   zero but for float noise, is left out of the gradients; a tensor that
+   starts at zero (the biases, the zero-initialised projections) is all
+   Adam updates, which turn noise in a near-zero gradient into up to 2 lr
+   a step (lr * g / (|g| + eps)), and is held at that;
+   (3) full width (`full_configs(temporal_zero_init=False)`, b = 1, 5
+   frames, 512 px, 91 tokens), bf16 compute over fp32 masters, seeded
+   random weights, AdamW lr 1e-5, warmup 0, clip 1.0 (stage 2) and 10.0
+   (stage 1): the raw batch (seeded pixels and token ids, one known
+   frame) through each stage's frozen `encode_batch`, then 3
+   steps of stage 2 (UNet + fusion) and, after its state is freed, 3 of
+   stage 1 (prior). Every loss and gradient finite, the global gradient
+   norm above 0, the tensors with an all-zero gradient printed; the
+   forward launches a step (stage 2: A, B, C; stage 1: B, D; A in both
+   encodes); stage 2's first step again with remat: loss within 1e-3
+   relative, global gradient norm within 1e-2, more forward launches;
+   per stage the median seconds of steps 2-3 and the peak memory
+   (`torch.cuda.max_memory_allocated`), beside the card's line. Rows go
+   to chiprun_out/chip_smoke_train.json.
+
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
-again, phase 8 the story's in the served requests: each path's counts are
-set to 0 just before it and read just after.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+again, phase 8 the story's in the served requests, phase 9 the story's in
+each training step and encode: each path's counts are set to 0 just
+before it and read just after.
+The line before the last is a JSON object with one entry per kernel (the
+story kernels' `train_launches`: phase 9's forward launches a full-width
+step of each stage); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -103,6 +140,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import sys
 import time
 from typing import Callable, NamedTuple, Optional
@@ -1323,6 +1361,357 @@ def run_serve(dev, card: str, entry: dict) -> dict:
                 int8_convs=int8_convs, int8_ssim=int8_ssim)
 
 
+# ---- phase 9: training ----------------------------------------------------
+
+def _split_noise(name: str, t: torch.Tensor):
+    """(the rest, the noise part) of a gradient: a key projection's bias
+    shifts every score of a query alike, so its gradient is float noise
+    around zero. It is a whole `to_k.bias`, and the middle third of the
+    fusion stacks' packed `in_proj_bias`."""
+    if name.endswith("to_k.bias"):
+        return t[:0], t
+    if name.endswith("in_proj_bias"):
+        q, k, v = t.chunk(3)
+        return torch.cat([q, v]), k
+    return t, t[:0]
+
+
+def _rel_to_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    if want.numel() == 0:
+        return 0.0
+    return _max_diff(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def train_kernel_cases(dev, dtype):
+    """(label, op, reference, operands): A at UNet level 0 (self, the
+    rounded family) and in the CLIP tower (the fp32 family), B at level 0,
+    C at level 0's FF, D at the prior's FF (b = 1: 485 rows)."""
+    from rcdms_tpu_torch.ops.flash import attention_reference, \
+        flash_attention
+    from rcdms_tpu_torch.ops.frame_attention import (
+        frame_attention,
+        frame_attention_reference,
+    )
+    from rcdms_tpu_torch.ops.geglu import (
+        geglu_ff,
+        geglu_ff_reference,
+        gelu_ff,
+        gelu_ff_reference,
+    )
+
+    g = torch.Generator(dev).manual_seed(9)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def ff(rows, c, inner, geglu):
+        up = 2 * inner if geglu else inner
+        return [r(rows, c), r(up, c, scale=c ** -0.5), r(up, scale=0.1),
+                r(c, inner, scale=inner ** -0.5), r(c, scale=0.1)]
+
+    unet = [r(1, 5, 4096, 320) for _ in range(3)]
+    clip = [r(5, 257, 1664) for _ in range(3)]
+    return [
+        ("attention", "unet self Sq=4096 dh=40 rounded",
+         lambda *a: flash_attention(*a, 8, row_sum="rounded"),
+         lambda *a: attention_reference(*a, 8, 40 ** -0.5), unet),
+        ("attention", "clip-vision S=257 dh=104 fp32",
+         lambda *a: flash_attention(*a, 16, row_sum="fp32"),
+         lambda *a: attention_reference(*a, 16, 104 ** -0.5), clip),
+        ("frame_attention", "1x5x4096x320",
+         lambda *a: frame_attention(*a, 8),
+         lambda *a: frame_attention_reference(*a, 8, 40 ** -0.5),
+         [r(1, 5, 4096, 320) for _ in range(3)]),
+        ("geglu_ff", "20480x320 inner 1280", geglu_ff, geglu_ff_reference,
+         ff(20480, 320, 1280, True)),
+        ("gelu_ff", "485x2048 inner 8192", gelu_ff, gelu_ff_reference,
+         ff(485, 2048, 8192, False)),
+    ]
+
+
+def check_kernel_grads(dev) -> list:
+    """Phase 9 (1): each story op under autograd on the card against
+    autograd through its reference function."""
+    from rcdms_tpu_torch import ops
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, label, op, ref, operands in train_kernel_cases(dev, dtype):
+            leaves = [t.requires_grad_() for t in operands]
+            cot = torch.randn(operands[0].shape, device=dev,
+                              generator=torch.Generator(dev).manual_seed(
+                                  10)).to(dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            out = op(*leaves)
+            launches = ops.launch_counts("story")[name]
+            if launches != 1 or out.grad_fn is None:
+                raise AssertionError(f"{name} {label} {dtype}: {launches} "
+                                     f"launches, grad_fn {out.grad_fn}")
+            got = torch.autograd.grad(out, leaves, cot)
+            del out
+            want = torch.autograd.grad(ref(*leaves), leaves, cot)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            rel = max(_max_diff(a, b) / b.float().abs().max().item()
+                      for a, b in zip(got, want))
+            rows.append(dict(kernel=name, shape=label, dtype=str(dtype)[6:],
+                             launches=launches, grad_rel_err=rel,
+                             peak_bytes=peak))
+            print(f"train kernel {name:16s} {str(dtype)[6:]:8s} {label:34s} "
+                  f"launches {launches} grad rel_err {rel:.2e} peak "
+                  f"{peak / 2**30:.2f} GiB above the operands", flush=True)
+            if not rel <= TOL[dtype]:
+                raise AssertionError(f"{name} {label} {dtype}: gradients "
+                                     f"{rel:.3e} off the reference")
+            del got, want, leaves, operands
+    return rows
+
+
+def tiny_raw_batch(configs, dev, seed: int, pixels: int) -> dict:
+    """A raw protocol batch of both stages' keys, b = 1, frame 0 known:
+    seeded token ids, CLIP-preprocessed reference, source and mask images
+    and [-1, 1] target and source pixels."""
+    from rcdms_tpu_torch.sample.pipeline import padding_mask
+
+    g = torch.Generator().manual_seed(seed)
+    f, t = configs.prior.num_frames, configs.prior.num_text_tokens
+    csize = configs.vision.image_size
+    ids, _ = token_rows(g, f, t, configs.text_s1.eos_token_id, dev)
+    known = torch.zeros(1, f, dtype=torch.bool, device=dev)
+    known[0, 0] = True
+    mean = torch.tensor(CLIP_MEAN, device=dev)
+    std = torch.tensor(CLIP_STD, device=dev)
+    ref = (torch.rand(1, f, csize, csize, 3, generator=g).to(dev)
+           - mean) / std
+    target = torch.rand(1, f, pixels, pixels, 3, generator=g).to(dev) * 2 - 1
+    source = torch.where(known[..., None, None, None], target, -1.0)
+    return dict(
+        input_ids=ids, text_mask=padding_mask(
+            ids, configs.text_s1.eos_token_id),
+        reference_clip=ref,
+        source_clip=torch.where(known[..., None, None, None], ref,
+                                clip_constant(0.0, csize, dev)),
+        mask_clip=torch.where(known[..., None, None, None],
+                              clip_constant(1.0, csize, dev),
+                              clip_constant(0.0, csize, dev)),
+        target=target, source=source, frame_known=known)
+
+
+def check_tiny_training(dev) -> dict:
+    """Phase 9 (2): the tiny trainers in fp32 on the card against the
+    CPU, 3 steps each on the same weights, batch and noise."""
+    import copy
+
+    from rcdms_tpu_torch.configs import OptimizerConfig
+    from rcdms_tpu_torch.sample.pipeline import tiny_configs
+    from rcdms_tpu_torch.train import loop, stage1, stage2
+    from rcdms_tpu_torch.train.optim import make_optimizer
+    from rcdms_tpu_torch.train.train_state import TrainState
+
+    configs = tiny_configs()
+    lr, steps = 1e-4, 3
+    results = {}
+    for stage, mod, clip in ((2, stage2, 1.0), (1, stage1, 10.0)):
+        cfg = OptimizerConfig(learning_rate=lr, warmup_steps=0,
+                              grad_clip_norm=clip)
+        cpu, towers = mod.build_trainer(configs, cfg, torch.float32,
+                                        seed=stage, device="cpu")
+        raw = tiny_raw_batch(configs, torch.device("cpu"), 20 + stage, 32)
+        encode_args = ({"generator": torch.Generator().manual_seed(3)}
+                       if stage == 2 else {})
+        batch = mod.encode_batch(*towers, raw, **encode_args)
+        card = TrainState.create(copy.deepcopy(cpu.module).to(dev),
+                                 make_optimizer(cfg))
+        card_batch = type(batch)(*(x.to(dev) for x in batch))
+        zero_init = {n for n, p in cpu.params.items() if not p.any()}
+        g = torch.Generator().manual_seed(4)
+        losses, grad_errs = [], None
+        for step in range(steps):
+            noise = cpu.module.draw_noise(batch, g)
+            loss, grads = loop.compute_gradients(cpu, batch, noise)
+            loss_c, grads_c = loop.compute_gradients(card, card_batch,
+                                                     noise.to(dev))
+            losses.append((loss.item(), loss_c.item()))
+            if step == 0:
+                grad_errs = sorted((_rel_to_max(
+                    _split_noise(n, grads_c[n].cpu())[0],
+                    _split_noise(n, w)[0]), n) for n, w in grads.items())
+            cpu.apply_gradients(grads)
+            card.apply_gradients(grads_c)
+        torch.cuda.synchronize()
+        loss_err = max(abs(a - b) / abs(a) for a, b in losses)
+        param_err, zero_init_err = 0.0, 0.0
+        for n, w in cpu.params.items():
+            got, want = card.params[n].detach().cpu(), w.detach()
+            if n in zero_init:
+                zero_init_err = max(zero_init_err, _max_diff(got, want)
+                                    / (2 * lr * steps))
+            else:
+                param_err = max(param_err, _rel_to_max(got, want))
+        grad_err, worst = grad_errs[-1]
+        results[f"stage{stage}"] = dict(
+            losses=losses, loss_err=loss_err, grad_err=grad_err,
+            worst_grad=worst, param_err=param_err,
+            zero_init_param_err=zero_init_err)
+        print(f"train tiny stage {stage}: card vs CPU, fp32, {steps} steps: "
+              f"losses {[round(a, 6) for a, _ in losses]}, loss rel err "
+              f"{loss_err:.2e}; step-1 gradients {grad_err:.2e} of each "
+              f"tensor's max (worst {grad_errs[-3:]}); parameters "
+              f"{param_err:.2e} of each tensor's max, those that start at "
+              f"zero {zero_init_err:.3f} of 2 lr a step", flush=True)
+        if not (loss_err <= 1e-4 and grad_err <= 1e-3 and param_err <= 1e-4
+                and zero_init_err <= 1.0):
+            raise AssertionError(f"tiny stage {stage} on the card disagrees "
+                                 f"with the CPU: {results[f'stage{stage}']}")
+    return results
+
+
+def full_width_stage(stage: int, dev, card: str, steps: int = 3) -> dict:
+    """Phase 9 (3) for one stage: build, encode, `steps` steps (stage 2's
+    first also with remat); returns its numbers."""
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.configs import OptimizerConfig
+    from rcdms_tpu_torch.sample.pipeline import full_configs
+    from rcdms_tpu_torch.train import loop, stage1, stage2
+
+    configs = full_configs(temporal_zero_init=False)
+    mod, clip = (stage2, 1.0) if stage == 2 else (stage1, 10.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, towers = mod.build_trainer(
+        configs, OptimizerConfig(learning_rate=1e-5, warmup_steps=0,
+                                 grad_clip_norm=clip),
+        torch.bfloat16, seed=stage, device=dev)
+    raw = tiny_raw_batch(configs, dev, 30 + stage, PIXELS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    trained = sum(p.numel() for p in state.params.values())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    encode_args = ({"generator": torch.Generator(dev).manual_seed(5)}
+                   if stage == 2 else {})
+    batch = mod.encode_batch(*towers, raw, **encode_args)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encode_launches = ops.launch_counts("story")
+    print(f"train stage {stage}: {card}: built in {build_s:.1f} s "
+          f"({trained / 1e9:.3f} B parameters trained), encode_batch "
+          f"{encode_s:.2f} s, its launches {encode_launches}", flush=True)
+    if encode_launches["attention"] == 0:
+        raise AssertionError(f"stage {stage}'s encode launched no A")
+    g = torch.Generator(dev).manual_seed(6)
+    rows, remat = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps):
+        noise = state.module.draw_noise(batch, g)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loop.compute_gradients(state, batch, noise)
+        launches = ops.launch_counts("story")
+        # per-tensor norms before the optimizer clips the gradients in
+        # place; read after the step
+        norms = torch.stack(torch._foreach_norm(list(grads.values())))
+        norm = torch.linalg.vector_norm(norms)
+        if stage == 2 and step == 0:
+            remat = remat_step(state, batch, noise, loss, norm, launches)
+            t0 += remat["seconds"]
+        state.apply_gradients(grads)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        zero = [n for n, v in zip(grads, norms.tolist()) if v == 0]
+        finite = bool(torch.isfinite(loss)) and bool(
+            torch.isfinite(norms).all())
+        rows.append(dict(step=step + 1, loss=loss.item(), seconds=seconds,
+                         grad_norm=norm.item(), launches=launches,
+                         zero_grad_tensors=zero))
+        print(f"train stage {stage}: step {step + 1} loss "
+              f"{loss.item():.6f}, {seconds:.3f} s, global grad norm "
+              f"{norm.item():.4e}, forward launches {launches}, tensors "
+              f"with an all-zero gradient {zero}", flush=True)
+        if not finite or not norm.item() > 0:
+            raise AssertionError(f"stage {stage} step {step + 1}: loss or "
+                                 f"gradients non-finite, or zero norm")
+        want = (("attention", "frame_attention", "geglu_ff") if stage == 2
+                else ("frame_attention", "gelu_ff"))
+        if any(launches[k] == 0 for k in want):
+            raise AssertionError(f"stage {stage} step {step + 1} launched "
+                                 f"{launches}")
+        del grads
+    peak = max(torch.cuda.max_memory_allocated(),
+               remat["peak_without_bytes"] if remat else 0)
+    median = statistics.median(r["seconds"] for r in rows[1:])
+    print(f"train stage {stage}: {card}: median step {median:.3f} s "
+          f"(steps 2-{steps}), peak memory {peak / 2**30:.2f} GiB", flush=True)
+    del state, towers, batch
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, trained_params=trained, encode_s=encode_s,
+                encode_launches=encode_launches, steps=rows,
+                median_step_s=median, peak_bytes=peak,
+                **({} if remat is None else dict(remat=remat)))
+
+
+def remat_step(state, batch, noise, loss, norm, launches) -> dict:
+    """Stage 2's first step again, the UNet's sub-blocks checkpointed:
+    the same loss (1e-3) and global gradient norm (1e-2), more forward
+    launches (the recomputes)."""
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.train import loop
+
+    unet = state.module.unet
+    levels = list(unet.down_blocks) + list(unet.up_blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for level in levels:
+        level.remat = True
+    try:
+        ops.reset_launch_counts()
+        loss_r, grads_r = loop.compute_gradients(state, batch, noise)
+        launches_r = ops.launch_counts("story")
+        norm_r = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(list(grads_r.values())))).item()
+    finally:
+        for level in levels:
+            level.remat = False
+    del grads_r
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss_err = abs(loss_r.item() - loss.item()) / abs(loss.item())
+    norm_err = abs(norm_r - norm.item()) / norm.item()
+    print(f"train stage 2: remat step 1 loss {loss_r.item():.6f} (rel err "
+          f"{loss_err:.2e}), global grad norm rel err {norm_err:.2e}, "
+          f"{seconds:.3f} s, forward launches {launches_r} against "
+          f"{launches}, peak {peak / 2**30:.2f} GiB (without remat "
+          f"{base / 2**30:.2f})", flush=True)
+    if not (loss_err <= 1e-3 and norm_err <= 1e-2) or sum(
+            launches_r.values()) <= sum(launches.values()):
+        raise AssertionError("the remat step disagrees or recomputed no "
+                             "kernel")
+    return dict(loss=loss_r.item(), loss_err=loss_err, norm_err=norm_err,
+                launches=launches_r, peak_bytes=peak,
+                peak_without_bytes=base, seconds=seconds)
+
+
+def run_train(dev, card: str) -> dict:
+    """Phase 9: kernel gradients, tiny trainers vs the CPU, full width."""
+    print(f"train on {card}", flush=True)
+    kernel_rows = check_kernel_grads(dev)
+    torch.cuda.empty_cache()
+    tiny = check_tiny_training(dev)
+    full = {f"stage{s}": full_width_stage(s, dev, card) for s in (2, 1)}
+    result = dict(card=card, kernels=kernel_rows, tiny=tiny, full=full)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_train.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1361,6 +1750,7 @@ def main() -> int:
     print(f"serve: {card}: seconds a story at batch 1 "
           f"{served['batch1_s']:.3f}, at batch 2 {served['batch2_s']:.3f}",
           flush=True)
+    trained = run_train(dev, card)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1373,6 +1763,9 @@ def main() -> int:
             library_ms=s["library_ms"], shape=s["shape"]))
         if name in served["launches"]:
             kernels[-1]["serve_launches"] = served["launches"][name]
+            kernels[-1]["train_launches"] = {
+                stage: r["steps"][0]["launches"][name]
+                for stage, r in trained["full"].items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

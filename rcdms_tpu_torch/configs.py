@@ -1,9 +1,10 @@
 """The port's config dataclasses: the seven frozen model configs the port
 builds from, with their defaults and the presets it calls (`tiny()`,
-`CLIPTextConfig.sd15` / `.bigg`), and the dataset protocol's config. A
-copy of `rcdms_tpu/configs`, field for field, so the port imports nothing
-of the JAX package; the optimizer, mesh and train configs wait for a
-training slice.
+`CLIPTextConfig.sd15` / `.bigg`), the dataset protocol's config, and the
+optimizer, mesh and two train configs. A copy of `rcdms_tpu/configs`,
+field for field, so the port imports nothing of the JAX package. The mesh
+config is carried for the train configs' sake; one-card training reads
+none of it.
 """
 
 from __future__ import annotations
@@ -216,3 +217,64 @@ class DatasetConfig:
             "pororosv": ("pororo", "loopy", "eddy", "harry", "poby",
                          "tongtong", "crong", "rody", "petty"),
         }[self.name]
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + warmup schedule (reference run scripts: lr 1e-5, warmup 2000,
+    weight decay 1e-2, grad clip)."""
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 1e-2
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 2000
+    max_steps: int = 1_000_000
+    grad_clip_norm: Optional[float] = 1.0
+    schedule: str = "constant_with_warmup"
+    accumulate_steps: int = 1  # gradient accumulation (optax.MultiSteps)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh spec: a `('data',)` axis with optimizer state sharded
+    over it, and an optional tensor axis."""
+
+    data: int = -1   # -1: all remaining devices
+    tensor: int = 1  # optional tensor-parallel axis over heads/channels
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        t = max(1, self.tensor)
+        d = self.data if self.data > 0 else n_devices // t
+        if d * t != n_devices:
+            raise ValueError(f"mesh {d}x{t} != {n_devices} devices")
+        return d, t
+
+
+@dataclass(frozen=True)
+class Stage1TrainConfig:
+    prior: PriorConfig = field(default_factory=PriorConfig)
+    optimizer: OptimizerConfig = field(
+        default_factory=lambda: OptimizerConfig(grad_clip_norm=10.0))
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    batch_size: int = 8             # global
+    noise_offset: float = 0.1
+    checkpoint_every: int = 5000
+    zero2: bool = True              # shard optimizer state over data axis
+    compute_dtype: str = "bfloat16"
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class Stage2TrainConfig:
+    unet: StoryUNetConfig = field(default_factory=StoryUNetConfig)
+    fusion: FusionConfig = field(default_factory=FusionConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    batch_size: int = 8             # global
+    noise_offset: float = 0.1
+    checkpoint_every: int = 10000
+    zero2: bool = True
+    compute_dtype: str = "bfloat16"
+    seed: int = 42

@@ -1,17 +1,24 @@
-"""Diffusion schedulers for sampling, over float64 tables.
+"""Diffusion schedulers over float64 tables.
 
-The port's counterpart of `rcdms_tpu/core/schedulers.py` for the two
-samplers of the serving path:
+The port's counterpart of `rcdms_tpu/core/schedulers.py`:
 
-  * stage 1: UnCLIP (squaredcos_cap_v2 betas, prediction 'sample',
-    fixed_small_log variance, clip 10) with an explicit `prev_timestep`;
-  * stage 2: DDIM (linear 0.00085 -> 0.012, 'leading' spacing,
+  * stage-1 sampling: UnCLIP (squaredcos_cap_v2 betas, prediction
+    'sample', fixed_small_log variance, clip 10) with an explicit
+    `prev_timestep`;
+  * stage-2 sampling: DDIM (linear 0.00085 -> 0.012, 'leading' spacing,
     set_alpha_to_one, clip 1), eta = 0 by default; eta > 0 adds the
-    stochastic term, on noise the caller supplies.
+    stochastic term, on noise the caller supplies;
+  * training: DDPM (stage 1 squaredcos_cap_v2 with 'sample' prediction,
+    stage 2 scaled_linear 0.00085 -> 0.012 with 'epsilon'), its forward
+    process `add_noise`, the v target `velocity` and the ancestral `step`.
 
-Timesteps are plain ints (PyTorch runs eagerly), so every per-step
-coefficient is a Python float taken from the float64 tables; only the
-sample arithmetic runs on tensors.
+The samplers' timesteps are plain ints (PyTorch runs eagerly), so their
+per-step coefficients are Python floats taken from the float64 tables.
+Training draws a timestep per story or per frame, so DDPM's methods take
+an integer tensor t of shape (b,) or (b, f) and gather fp32 coefficients
+from the tables, as the JAX package's `_gather` does: a (b, f) t
+broadcasts over the sample's trailing axes, and a bf16 sample promotes to
+fp32 against them, as jnp's promotion makes it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ def make_betas(schedule: str, num_train_timesteps: int = 1000,
     if schedule == "linear":
         return np.linspace(beta_start, beta_end, num_train_timesteps,
                            dtype=np.float64)
+    if schedule == "scaled_linear":
+        return np.linspace(beta_start ** 0.5, beta_end ** 0.5,
+                           num_train_timesteps, dtype=np.float64) ** 2
     if schedule == "squaredcos_cap_v2":
         def alpha_bar(t):
             return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
@@ -51,7 +61,7 @@ class DiffusionSchedule:
     num_train_timesteps: int = 1000
     beta_start: float = 0.0001
     beta_end: float = 0.02
-    prediction_type: str = "epsilon"   # epsilon | sample
+    prediction_type: str = "epsilon"   # epsilon | sample | v_prediction
     clip_sample: bool = False
     clip_sample_range: float = 1.0
 
@@ -64,23 +74,102 @@ class DiffusionSchedule:
     def alphas_cumprod(self) -> np.ndarray:
         return np.cumprod(1.0 - self.betas)
 
+    @cached_property
+    def one_minus_alphas_cumprod(self) -> np.ndarray:
+        # in float64, against fp32 cancellation at small t
+        return 1.0 - self.alphas_cumprod
+
     def _acp(self, t: int) -> float:
         """alphas_cumprod[t], and 1.0 before the start (set_alpha_to_one)."""
         return float(self.alphas_cumprod[t]) if t >= 0 else 1.0
 
-    def pred_x0(self, model_output: torch.Tensor, sample: torch.Tensor,
-                t: int) -> torch.Tensor:
+    @staticmethod
+    def _gather(table: np.ndarray, t: torch.Tensor,
+                ndim: int) -> torch.Tensor:
+        """table[t] in fp32, shaped (t.shape + (1,) * ...) to broadcast
+        against a sample of `ndim` dims whose leading axes are t's."""
+        vals = torch.as_tensor(table, dtype=torch.float32,
+                               device=t.device)[t]
+        return vals.reshape(vals.shape + (1,) * (ndim - vals.dim()))
+
+    def _sqrt_coefs(self, t, ndim: int):
+        """(sqrt(acp_t), sqrt(1 - acp_t)): Python floats from the float64
+        tables for an int t (the samplers), fp32 tensors gathered by
+        `_gather` for an integer tensor t (DDPM)."""
+        if isinstance(t, torch.Tensor):
+            return (self._gather(self.alphas_cumprod, t, ndim).sqrt(),
+                    self._gather(self.one_minus_alphas_cumprod, t,
+                                 ndim).sqrt())
         acp = self._acp(t)
+        return math.sqrt(acp), math.sqrt(1.0 - acp)
+
+    def pred_x0(self, model_output: torch.Tensor, sample: torch.Tensor,
+                t) -> torch.Tensor:
+        """x0 from the model output at timestep t (an int or an integer
+        tensor, `_sqrt_coefs`)."""
+        sqrt_acp, sqrt_omacp = self._sqrt_coefs(t, sample.dim())
         if self.prediction_type == "epsilon":
-            x0 = (sample - math.sqrt(1.0 - acp) * model_output) \
-                / math.sqrt(acp)
+            x0 = (sample - sqrt_omacp * model_output) / sqrt_acp
         elif self.prediction_type == "sample":
             x0 = model_output
+        elif self.prediction_type == "v_prediction":
+            x0 = sqrt_acp * sample - sqrt_omacp * model_output
         else:
             raise ValueError(self.prediction_type)
         if self.clip_sample:
             x0 = x0.clamp(-self.clip_sample_range, self.clip_sample_range)
         return x0
+
+
+@dataclass(frozen=True)
+class DDPMSchedule(DiffusionSchedule):
+    """diffusers `DDPMScheduler` with fixed-small variance: the training
+    forward process and the ancestral step, over integer tensor t."""
+
+    @classmethod
+    def stage1_train(cls) -> "DDPMSchedule":
+        return cls(beta_schedule="squaredcos_cap_v2",
+                   prediction_type="sample", clip_sample=True,
+                   clip_sample_range=1.0)
+
+    @classmethod
+    def stage2_train(cls) -> "DDPMSchedule":
+        return cls(beta_schedule="scaled_linear", beta_start=0.00085,
+                   beta_end=0.012, prediction_type="epsilon",
+                   clip_sample=True, clip_sample_range=1.0)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) noise."""
+        sqrt_acp, sqrt_omacp = self._sqrt_coefs(t, x0.dim())
+        return sqrt_acp * x0 + sqrt_omacp * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target sqrt(acp_t) noise - sqrt(1 - acp_t) x0."""
+        sqrt_acp, sqrt_omacp = self._sqrt_coefs(t, x0.dim())
+        return sqrt_acp * noise - sqrt_omacp * x0
+
+    def step(self, model_output: torch.Tensor, t: torch.Tensor,
+             sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """One ancestral step x_t -> x_{t-1} on caller-supplied noise; no
+        noise where t = 0."""
+        ndim = sample.dim()
+        first = (t > 0).reshape(t.shape + (1,) * (ndim - t.dim()))
+        prev = (t - 1).clamp_min(0)
+        acp_prev = torch.where(
+            first, self._gather(self.alphas_cumprod, prev, ndim), 1.0)
+        beta_prod_prev = torch.where(
+            first, self._gather(self.one_minus_alphas_cumprod, prev, ndim),
+            0.0)
+        beta_t = self._gather(self.betas, t, ndim)
+        beta_prod_t = self._gather(self.one_minus_alphas_cumprod, t, ndim)
+        x0 = self.pred_x0(model_output, sample, t)
+        mean = (acp_prev.sqrt() * beta_t / beta_prod_t * x0
+                + (1.0 - beta_t).sqrt() * beta_prod_prev / beta_prod_t
+                * sample)
+        var = (beta_prod_prev / beta_prod_t * beta_t).clamp_min(1e-20)
+        return mean + first.to(mean.dtype) * var.sqrt() * noise
 
 
 @dataclass(frozen=True)

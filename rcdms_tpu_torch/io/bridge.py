@@ -1,5 +1,8 @@
 """Flax parameter trees (numpy leaves) -> torch state dicts for every tower
-of the port: the inverse of `rcdms_tpu/io/convert.py`.
+of the port: the inverse of `rcdms_tpu/io/convert.py`. A JAX training
+state crosses too (`train_state_dicts`): its parameters, the optax Adam
+moments (trees shaped as the parameters, through the same functions), the
+accumulated gradients of `optax.MultiSteps`, and the counts.
 
 The state-dict names are the diffusers / HF / reference names that
 `convert.py` reads, so `convert_*(to_*_state_dict(params))` gives the flax
@@ -12,7 +15,7 @@ weight (out, in); Conv kernel (kh, kw, in, out) -> Conv2d weight
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -323,3 +326,56 @@ def load_pipeline_params(pipeline: torch.nn.Module, params: Mapping) -> None:
     """Load a JAX pipeline's params into a `StoryPipeline` in place."""
     for tower, sd in pipeline_state_dicts(params, pipeline.configs).items():
         load_state_dict(getattr(pipeline, tower), sd)
+
+
+def stage1_state_dict(params: Mapping, cfg: PriorConfig) -> SD:
+    """The JAX stage-1 trainable tree (the prior's) -> the state dict of
+    `train.stage1.Stage1Trainer`."""
+    return {f"prior.{k}": v for k, v in prior_state_dict(params, cfg).items()}
+
+
+def stage2_state_dict(params: Mapping, cfg: StoryUNetConfig) -> SD:
+    """The JAX stage-2 trainable tree {"params": {"unet", "fusion"}} -> the
+    state dict of `train.stage2.Stage2Trainer`."""
+    p = _unwrap(params)
+    sd = {f"unet.{k}": v for k, v in unet_state_dict(p["unet"], cfg).items()}
+    sd.update({f"fusion.{k}": v
+               for k, v in fusion_state_dict(p["fusion"]).items()})
+    return sd
+
+
+def _states_with(tree, name: str) -> list:
+    """The optax states (NamedTuples) in `tree` that have a field `name`,
+    depth first; parameter trees (dicts) are not entered."""
+    if isinstance(tree, tuple):
+        found = [tree] if name in getattr(tree, "_fields", ()) else []
+        return found + [s for v in tree for s in _states_with(v, name)]
+    return []
+
+
+def _one(states: list, what: str):
+    if len(states) != 1:
+        raise ValueError(f"expected one {what} in the optimizer state, "
+                         f"found {len(states)}")
+    return states[0]
+
+
+def train_state_dicts(state, to_state_dict: Callable[[Mapping], SD]
+                      ) -> dict:
+    """A JAX `TrainState` (numpy leaves, e.g. after `jax.device_get`) of
+    `rcdms_tpu.train.optim.make_optimizer`'s chain -> "params", "mu",
+    "nu" and "acc" (None without accumulation) as state dicts by the
+    port's names (`to_state_dict`: `stage1_state_dict` or
+    `stage2_state_dict` with its config bound), and the ints "count"
+    (Adam's), "mini_step", "gradient_step" and "step", as
+    `train.train_state.TrainState.load_state_dicts` takes them."""
+    adam = _one(_states_with(state.opt_state, "nu"), "Adam state")
+    multi = _states_with(state.opt_state, "mini_step")
+    multi = _one(multi, "MultiSteps state") if multi else None
+    return dict(
+        params=to_state_dict(state.params), mu=to_state_dict(adam.mu),
+        nu=to_state_dict(adam.nu),
+        acc=None if multi is None else to_state_dict(multi.acc_grads),
+        count=int(adam.count), step=int(state.step),
+        mini_step=0 if multi is None else int(multi.mini_step),
+        gradient_step=0 if multi is None else int(multi.gradient_step))

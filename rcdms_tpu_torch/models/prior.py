@@ -19,7 +19,6 @@ temporal modules (odd), as `convert_rcdms_prior` reads it.
 
 from __future__ import annotations
 
-
 import torch
 import torch.nn as nn
 
@@ -99,6 +98,10 @@ class FramePrior(nn.Module):
             h = self.transformer_blocks[i + 1](h)
         out = self.proj_to_clip_embeddings
         return out(self.norm_out(h)[:, :, -1].to(out.weight.dtype))
+
+    def normalize(self, emb: torch.Tensor) -> torch.Tensor:
+        """The training target: (emb - clip_mean) / clip_std."""
+        return (emb - self.cfg.clip_mean) / self.cfg.clip_std
 
     def denormalize(self, latents: torch.Tensor) -> torch.Tensor:
         """`post_process_latents`: latents * clip_std + clip_mean."""

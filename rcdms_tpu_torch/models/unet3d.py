@@ -6,6 +6,10 @@ after every spatial transformer (and at the levels without one), and a
 Module names follow diffusers' UNet (`down_blocks.l.{resnets, attentions,
 motion_modules, downsamplers}`, `mid_block`, `up_blocks`), the names
 `rcdms_tpu/io/convert.py::convert_rcdms_unet3d` reads.
+
+`cfg.remat` checkpoints each down and up sub-block (resnet, spatial and
+temporal modules) while autograd records, as `nn.remat(_SubBlock)` does in
+the JAX package: its activations are recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rcdms_tpu_torch.configs import StoryUNetConfig
 from rcdms_tpu_torch.core.attention import SpatialTransformer
@@ -34,6 +39,7 @@ class _Level(nn.Module):
                  temb: int, use_cross: bool, resample: str | None):
         super().__init__()
         heads = cfg.num_attention_heads
+        self.remat = cfg.remat
         self.resnets = nn.ModuleList([
             ResnetBlock(c_in, out, temb, cfg.norm_groups, cfg.norm_eps)
             for c_in in in_channels])
@@ -50,6 +56,14 @@ class _Level(nn.Module):
             self.upsamplers = nn.ModuleList([Upsample(out)])
 
     def sub_block(self, j: int, x, temb, context):
+        """resnet j -> [spatial j] -> [temporal j], checkpointed under
+        `remat` while autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._sub_block, j, x, temb, context,
+                              use_reentrant=False)
+        return self._sub_block(j, x, temb, context)
+
+    def _sub_block(self, j: int, x, temb, context):
         x = self.resnets[j](x, temb)
         if len(self.attentions):
             x = self.attentions[j](x, context)

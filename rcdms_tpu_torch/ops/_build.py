@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from rcdms_tpu_torch.ops._grad import traced
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rcdms_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -180,7 +182,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def cuda_operands(name: str, *tensors: torch.Tensor) -> int:
     """Check that a kernel's operands are contiguous float32 or bfloat16
     tensors on one CUDA device, all of one dtype; return the dtype code the
-    C entry points take. Raises on anything else."""
+    C entry points take. Raises on anything else, and first where grad mode
+    is on and an operand requires grad: the kernel's output would carry no
+    autograd graph, so its gradients would be lost without a word (the
+    story ops reach their kernels through a `torch.autograd.Function`,
+    `ops/_grad.py`, whose forward runs with grad mode off)."""
+    if traced(*tensors):
+        raise RuntimeError(f"{name}: a raw kernel launch on operands that "
+                           f"require grad would drop their gradients; "
+                           f"call the op, or launch under torch.no_grad()")
     first = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != first.device:

@@ -16,7 +16,9 @@ with identical leading dims. No padding: the kernel masks a ragged Skv
 runs the `mma.sync` kernel with the launch plan of `_plan` (dh a multiple
 of 8 up to 256, 16-byte aligned operands: every site of the main path),
 fp32 the CUDA-core kernel (dh up to 256). `flash_attention.launches`
-counts launches.
+counts launches. Where autograd records it (an operand requires grad, grad
+mode on), the same forward runs inside a `torch.autograd.Function` whose
+backward differentiates `attention_reference` (`ops/_grad.py`).
 
 In bf16 the two TPU kernels round alike (P = exp(s - max) to bf16 before
 P.V) but take the row sum l from different P: `_nt_kernel` from the rounded
@@ -32,11 +34,13 @@ that the plan carries.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from rcdms_tpu_torch.ops import _build
+from rcdms_tpu_torch.ops._grad import differentiable
 
 MAX_HEAD_DIM = 256
 ROW_SUMS = ("rounded", "fp32")
@@ -111,13 +115,26 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(-3, -2).reshape(q.shape).to(q.dtype)
 
 
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        heads: int, scale: float) -> torch.Tensor:
+    """The function A's backward differentiates, at both families' sites:
+    `rcdms_tpu/ops/flash.py::_nt_xla_reference` (:173-194, the UNet's) and
+    `::_xla_reference` (:79-85, CLIP's) compute it alike: fp32 scores and
+    softmax, the probabilities cast to q.dtype, a q.dtype product with v."""
+    qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    o = torch.matmul(torch.softmax(s, dim=-1).to(q.dtype), vh)
+    return o.transpose(-3, -2).reshape(q.shape)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float | None = None, *,
                     row_sum: str) -> torch.Tensor:
     """Fused attention over token-major, head-interleaved operands (see the
     module docstring). scale defaults to dh ** -0.5; `row_sum` names the
     TPU kernel family whose bf16 rounding the site follows
-    (`attention_plain`)."""
+    (`attention_plain`). Differentiable: gradients of
+    `attention_reference` (`ops/_grad.py`)."""
     c = q.shape[-1]
     if c % heads or k.shape[-1] != c or v.shape != k.shape \
             or q.shape[:-2] != k.shape[:-2]:
@@ -130,8 +147,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if row_sum not in ROW_SUMS:
         raise ValueError(f"flash_attention: row_sum {row_sum!r}, not one "
                          f"of {ROW_SUMS}")
+    return differentiable(
+        functools.partial(_attention, heads=heads, scale=scale,
+                          row_sum=row_sum),
+        functools.partial(attention_reference, heads=heads, scale=scale),
+        q, k, v)
+
+
+def _attention(q, k, v, heads: int, scale: float,
+               row_sum: str) -> torch.Tensor:
+    """A's forward: the plain version on the CPU, the kernel on a card."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, heads, scale, row_sum=row_sum)
+    dh = q.shape[-1] // heads
     dtype = _build.cuda_operands("flash_attention", q, k, v)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")

@@ -17,7 +17,9 @@ channel slice, and the output written back by bulk copies from shared
 memory. Every other shape, and fp32, takes the general kernel (one warp a
 (token, head)); neither falls back to the plain version.
 `frame_attention.launches` counts launches, `frame_attention.tiled_launches`
-those that took the tiled kernel.
+those that took the tiled kernel. Where autograd records it, the same
+forward runs inside a `torch.autograd.Function` whose backward
+differentiates `frame_attention_reference` (`ops/_grad.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import functools
 import torch
 
 from rcdms_tpu_torch.ops import _build
+from rcdms_tpu_torch.ops._grad import differentiable
 
 MAX_FRAMES = 8
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -112,6 +115,12 @@ def _plan(b: int, f: int, n: int, c: int, heads: int) -> dict:
                 grid=min(tiles, SMS * blocks_per_sm))
 
 
+def _split_frames(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, f, n, c) -> (b, n, heads, f, dh)."""
+    b, f, n, c = t.shape
+    return t.reshape(b, f, n, heads, c // heads).permute(0, 2, 3, 1, 4)
+
+
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           heads: int, scale: float) -> torch.Tensor:
     """Plain PyTorch version of kernel B, result in q.dtype.
@@ -123,11 +132,7 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in fp32; then, as there (:85-103), the fp32 max, exp, sum, reciprocal
     and P.V, with one rounding of the output."""
     b, f, n, c = q.shape
-    dh = c // heads
-
-    def split(t):  # (b, f, n, c) -> (b, n, heads, f, dh)
-        return t.reshape(b, f, n, heads, dh).permute(0, 2, 3, 1, 4)
-
+    split = functools.partial(_split_frames, heads=heads)
     if q.dtype == torch.float32:
         p = torch.softmax(torch.matmul(split(q), split(k).transpose(-1, -2))
                           * scale, dim=-1)
@@ -141,10 +146,25 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, f, n, c).to(q.dtype)
 
 
+def frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, heads: int,
+                              scale: float) -> torch.Tensor:
+    """The function B's backward differentiates,
+    `rcdms_tpu/ops/frame_attention.py::_bfnc_xla_reference` (:106-112,
+    through `_xla_reference` :50-65): fp32 scores and softmax across the
+    frames, the probabilities cast to q.dtype, a q.dtype product with v."""
+    s = torch.matmul(_split_frames(q.float(), heads),
+                     _split_frames(k.float(), heads).transpose(-1, -2))
+    p = torch.softmax(s * scale, dim=-1).to(q.dtype)
+    o = torch.matmul(p, _split_frames(v, heads)).permute(0, 3, 1, 2, 4)
+    return o.reshape(q.shape)
+
+
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: float | None = None) -> torch.Tensor:
     """q, k, v: (b, f, n, c) with c = heads * dh; attention across f at
-    every token. scale defaults to dh ** -0.5."""
+    every token. scale defaults to dh ** -0.5. Differentiable: gradients of
+    `frame_attention_reference` (`ops/_grad.py`)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape \
             or q.shape[-1] % heads:
         raise ValueError(f"frame_attention: q {tuple(q.shape)}, k "
@@ -153,8 +173,17 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, f, n, c = q.shape
     if scale is None:
         scale = (c // heads) ** -0.5
+    return differentiable(
+        functools.partial(_frame_attention, heads=heads, scale=scale),
+        functools.partial(frame_attention_reference, heads=heads,
+                          scale=scale), q, k, v)
+
+
+def _frame_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
+    """B's forward: the plain version on the CPU, a kernel on a card."""
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads, scale)
+    b, f, n, c = q.shape
     dtype = _build.cuda_operands("frame_attention", q, k, v)
     if not 1 <= f <= MAX_FRAMES:
         raise ValueError(f"frame_attention: {f} frames, kernel takes 1..8")

@@ -16,15 +16,21 @@ passes of the TMA + `wgmma` GEMM kernel with the plan of `_plan` (c and
 inner multiples of 8, 16-byte aligned x, w1, w2: every FF of the main
 path): pass 1 writes the activated (rows, inner) intermediate, pass 2 the
 output. fp32 runs the fused CUDA-core kernel. `.launches` counts wrapper
-calls (one FF, whatever its passes).
+calls (one FF, whatever its passes). Where autograd records it, the same
+forward runs inside a `torch.autograd.Function` whose backward
+differentiates `geglu_ff_reference` / `gelu_ff_reference`
+(`ops/_grad.py`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.ops import _build
+from rcdms_tpu_torch.ops._grad import differentiable
 
 BM, BK, STAGES = 128, 64, 4  # rows a block, K a stage, depth of the ring
 SMS = 132                    # an H100 SXM's multiprocessors: one wave
@@ -96,6 +102,26 @@ def gelu_ff_plain(x, w1, b1, w2, b2):
     return _down(F.gelu(_up(x, w1, b1)), w2, b2, x.dtype)
 
 
+def geglu_ff_reference(x, w1, b1, w2, b2):
+    """The function C's backward differentiates,
+    `rcdms_tpu/ops/geglu.py::_xla_reference` (:64-72): both products and
+    bias adds in x.dtype, each rounded, the gate's gelu in fp32 rounded to
+    x.dtype, and h * gelu(g) rounded."""
+    dtype = x.dtype
+    h, gate = (x @ w1.to(dtype).t() + b1.to(dtype)).chunk(2, dim=-1)
+    h = h * F.gelu(gate.float()).to(dtype)
+    return h @ w2.to(dtype).t() + b2.to(dtype)
+
+
+def gelu_ff_reference(x, w1, b1, w2, b2):
+    """The function D's backward differentiates,
+    `rcdms_tpu/ops/geglu.py::_xla_gelu_reference` (:75-82): as
+    `geglu_ff_reference` without the gate."""
+    dtype = x.dtype
+    h = F.gelu((x @ w1.to(dtype).t() + b1.to(dtype)).float()).to(dtype)
+    return h @ w2.to(dtype).t() + b2.to(dtype)
+
+
 def _gemm(p: dict, x, w, bias, y, m: int, n: int, k: int) -> None:
     code = _build.library().lib.rcdms_ff_gemm(
         MODES[p["mode"]], p["bn"], p["smem"], x.data_ptr(), w.data_ptr(),
@@ -132,22 +158,30 @@ def _ff(name: str, geglu: bool, x, w1, b1, w2, b2):
     return out
 
 
-def geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """GEGLU feed-forward over x (..., c)."""
+def _forward(geglu: bool, x, w1, b1, w2, b2) -> torch.Tensor:
+    """C's or D's forward: the plain version on the CPU, the kernel on a
+    card."""
     if x.device.type == "cpu":
-        return geglu_ff_plain(x, w1, b1, w2, b2)
-    out = _ff("geglu_ff", True, x, w1, b1, w2, b2)
-    geglu_ff.launches += 1
+        plain = geglu_ff_plain if geglu else gelu_ff_plain
+        return plain(x, w1, b1, w2, b2)
+    op = geglu_ff if geglu else gelu_ff
+    out = _ff(op.__name__, geglu, x, w1, b1, w2, b2)
+    op.launches += 1
     return out
+
+
+def geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
+    """GEGLU feed-forward over x (..., c). Differentiable: gradients of
+    `geglu_ff_reference` (`ops/_grad.py`)."""
+    return differentiable(functools.partial(_forward, True),
+                          geglu_ff_reference, x, w1, b1, w2, b2)
 
 
 def gelu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """GELU feed-forward over x (..., c)."""
-    if x.device.type == "cpu":
-        return gelu_ff_plain(x, w1, b1, w2, b2)
-    out = _ff("gelu_ff", False, x, w1, b1, w2, b2)
-    gelu_ff.launches += 1
-    return out
+    """GELU feed-forward over x (..., c). Differentiable: gradients of
+    `gelu_ff_reference` (`ops/_grad.py`)."""
+    return differentiable(functools.partial(_forward, False),
+                          gelu_ff_reference, x, w1, b1, w2, b2)
 
 
 geglu_ff.launches = 0

@@ -1,0 +1,109 @@
+"""The training state of one stage: the port's counterpart of
+`rcdms_tpu/train/train_state.py`.
+
+It holds the step (one a micro-step, as `TrainState.step`), the fp32
+master parameters, the optimizer state and the compute module, in which
+the loss runs. Mixed precision is flax's `dtype=bf16` over fp32
+parameters: the compute module holds bf16 copies of the parameters (the
+norms and the time MLP stay fp32, `core/layers.py::_Fp32Params`), the
+gradients of the copies are widened to fp32 and applied to the masters,
+and after each update the copies are rounded again from the masters. Flax
+computes the same: its Dense casts the fp32 parameter to bf16, and the
+transpose of that cast widens the bf16 cotangent. (`torch.autocast` would
+round at the places of its op lists instead.) In fp32 the masters are the
+module's own parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from rcdms_tpu_torch.train.optim import AdamW, OptState
+
+
+class TrainState:
+    """step, fp32 masters `params` (name -> tensor), `opt_state` and the
+    compute `module`, whose parameters are the trainable set."""
+
+    def __init__(self, module: nn.Module, optimizer: AdamW,
+                 params: Dict[str, torch.Tensor], opt_state: OptState,
+                 step: int = 0):
+        self.module = module
+        self.optimizer = optimizer
+        self.params = params
+        self.opt_state = opt_state
+        self.step = step
+
+    @classmethod
+    def create(cls, module: nn.Module, optimizer: AdamW,
+               dtype=torch.float32) -> "TrainState":
+        """`module` with fp32 parameters, all of them trained, becomes the
+        compute module in `dtype` (channels-last on a card, as the
+        inference towers); the masters keep its fp32 values."""
+        fp32 = {n: p.detach() for n, p in module.named_parameters()}
+        module.to(dtype)
+        if next(module.parameters()).device.type == "cuda":
+            module.to(memory_format=torch.channels_last)
+        params = {}
+        for n, p in module.named_parameters():
+            if p.dtype == torch.float32:
+                params[n] = p
+            else:
+                params[n] = torch.empty_like(p, dtype=torch.float32)
+                params[n].copy_(fp32[n])
+            del fp32[n]
+        return cls(module, optimizer, params, optimizer.init(params))
+
+    def gradients(self) -> Dict[str, torch.Tensor]:
+        """The compute module's gradients widened to fp32, by name (zero
+        where a parameter got none); the module's own are released."""
+        grads = {}
+        for n, p in self.module.named_parameters():
+            g = p.grad
+            grads[n] = (torch.zeros_like(self.params[n]) if g is None
+                        else g.float())
+            p.grad = None
+        return grads
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """The optimizer's micro-step on the masters, then the copies
+        rounded from them where it updated; the step advances. Returns
+        what `AdamW.update` returns (the global gradient norm, or None)."""
+        norm = self.optimizer.update(self.params, grads, self.opt_state)
+        if norm is not None:
+            self._round_copies()
+        self.step += 1
+        return norm
+
+    @torch.no_grad()
+    def _round_copies(self) -> None:
+        pairs = [(p, self.params[n]) for n, p in self.module.named_parameters()
+                 if p is not self.params[n]]
+        if pairs:
+            torch._foreach_copy_(*map(list, zip(*pairs)))
+
+    def load_state_dicts(self, dicts: dict) -> None:
+        """The masters, moments, counts and step from `dicts`
+        (`io/bridge.py::train_state_dicts`: numpy arrays by parameter
+        name), then the copies rounded from the masters."""
+        st = self.opt_state
+        with torch.no_grad():
+            for key, target in (("params", self.params), ("mu", st.mu),
+                                ("nu", st.nu), ("acc", st.acc)):
+                if target is None:
+                    continue
+                src = dicts[key]
+                if set(src) != set(target):
+                    raise KeyError(f"{key}: names differ: "
+                                   f"{sorted(set(src) ^ set(target))[:5]}")
+                for n, t in target.items():
+                    t.copy_(torch.tensor(src[n]))
+        self._round_copies()
+        st.count, st.mini_step, st.gradient_step = (
+            dicts["count"], dicts["mini_step"], dicts["gradient_step"])
+        self.step = dicts["step"]

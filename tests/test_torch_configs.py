@@ -23,6 +23,8 @@ from rcdms_tpu_torch import configs as pconfigs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("TemporalConfig", "PriorConfig", "StoryUNetConfig", "VAEConfig",
          "CLIPTextConfig", "CLIPVisionConfig", "FusionConfig")
+TRAIN_NAMES = ("OptimizerConfig", "MeshConfig", "Stage1TrainConfig",
+               "Stage2TrainConfig")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,7 +55,7 @@ def _fields(cls):
             for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", NAMES + ("DatasetConfig",))
+@pytest.mark.parametrize("name", NAMES + ("DatasetConfig",) + TRAIN_NAMES)
 def test_fields_types_and_defaults_match(name):
     jcls, pcls = getattr(jconfigs, name), getattr(pconfigs, name)
     assert _fields(pcls) == _fields(jcls)
@@ -85,6 +87,37 @@ def test_prior_properties_match():
             jcfg.inner_dim, jcfg.additional_tokens, jcfg.seq_len)
 
 
+@pytest.mark.parametrize("name", TRAIN_NAMES[2:])
+def test_train_configs_match(name):
+    """The train configs' defaults (stage 1 clips at 10.0, stage 2 at 1.0;
+    both global batch 8, noise offset 0.1, bf16), and `port_config` of a
+    JAX train config with non-default nested configs."""
+    jcls, pcls = getattr(jconfigs, name), getattr(pconfigs, name)
+    assert pcls().optimizer.grad_clip_norm == (
+        10.0 if name == "Stage1TrainConfig" else 1.0)
+    assert (pcls().batch_size, pcls().noise_offset, pcls().compute_dtype) \
+        == (8, 0.1, "bfloat16")
+    jcfg = jcls(optimizer=jconfigs.OptimizerConfig(
+        learning_rate=1e-3, accumulate_steps=2, schedule="cosine"),
+        mesh=jconfigs.MeshConfig(data=4), seed=7)
+    pcfg = port_config(jcfg)
+    assert isinstance(pcfg, pcls)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("data,tensor,n", [(-1, 1, 8), (4, 2, 8), (-1, 2, 8),
+                                           (3, 1, 8), (-1, 3, 8)])
+def test_mesh_axis_sizes_match(data, tensor, n):
+    def sizes(cfg):
+        try:
+            return cfg.axis_sizes(n)
+        except ValueError as e:
+            return str(e)
+
+    assert sizes(pconfigs.MeshConfig(data, tensor)) == sizes(
+        jconfigs.MeshConfig(data, tensor))
+
+
 @pytest.mark.parametrize("dataset", ["flintstones", "pororosv"])
 def test_dataset_properties_match(dataset):
     jcfg = jconfigs.DatasetConfig(name=dataset, image_size=64, clip_size=28)
@@ -108,8 +141,11 @@ _BLOCKED = textwrap.dedent("""
     names = ["chip_smoke"] + [
         m.name for m in pkgutil.walk_packages(rcdms_tpu_torch.__path__,
                                               "rcdms_tpu_torch.")]
-    assert {"rcdms_tpu_torch.cli.serve", "rcdms_tpu_torch.ops.quant"} \
-        <= set(names)
+    assert {"rcdms_tpu_torch.cli.serve", "rcdms_tpu_torch.ops.quant",
+            "rcdms_tpu_torch.ops._grad", "rcdms_tpu_torch.train.loop",
+            "rcdms_tpu_torch.train.optim", "rcdms_tpu_torch.train.stage1",
+            "rcdms_tpu_torch.train.stage2",
+            "rcdms_tpu_torch.train.train_state"} <= set(names)
     for name in names:
         importlib.import_module(name)
     for name in blocked:

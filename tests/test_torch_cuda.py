@@ -11,15 +11,25 @@ two differ in summation order only) and 2e-2 in bf16 (kernel A, B and
 the FF kernels round where their plain versions round, and sum in another
 order; the conv and GroupNorm kernels round once, as their plain versions
 do; the small-head-dim kernels E-H take bf16 only and round where their
-plain versions round)."""
+plain versions round). Under autograd A-D run inside their
+`torch.autograd.Function`s (`ops/_grad.py`): gradients to the same
+tolerances."""
 
+import copy
+import importlib
 import math
 
 import pytest
 import torch
 
 from rcdms_tpu_torch import ops
-from rcdms_tpu_torch.ops.flash import attention_plain, flash_attention
+from rcdms_tpu_torch.core.attention import SpatialTransformer
+from rcdms_tpu_torch.core.layers import init_like_flax_
+from rcdms_tpu_torch.ops.flash import (
+    attention_plain,
+    attention_reference,
+    flash_attention,
+)
 from rcdms_tpu_torch.ops.frame_attention import (
     frame_attention,
     frame_attention_plain,
@@ -28,8 +38,10 @@ from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3, cm_conv3x3_plain
 from rcdms_tpu_torch.ops.geglu import (
     geglu_ff,
     geglu_ff_plain,
+    geglu_ff_reference,
     gelu_ff,
     gelu_ff_plain,
+    gelu_ff_reference,
 )
 from rcdms_tpu_torch.ops.group_norm import (
     _plan as gn_plan,
@@ -53,6 +65,7 @@ from rcdms_tpu_torch.ops.smallk import (
 )
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+fa = importlib.import_module("rcdms_tpu_torch.ops.frame_attention")
 
 
 @pytest.fixture
@@ -713,3 +726,76 @@ def test_cuda_smallk_wrappers_raise_on_bad_operands(cuda):
     assert ops.launch_counts("studies")["attn_scores"] == 0
     assert ops.launch_counts("studies")["attn_pv"] == 0
     assert ops.launch_counts("studies")["attn_softmax"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_grads_match_their_reference(cuda, dtype):
+    """A-D on operands that require grad: one kernel launch a call, and
+    the gradients of autograd through the function the JAX backward
+    differentiates, on the same card."""
+    g = torch.Generator(cuda).manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(
+            dtype).requires_grad_()
+
+    c, inner = 96, 384
+    cases = [
+        ("attention", lambda *a: flash_attention(*a, 2, row_sum="rounded"),
+         lambda *a: attention_reference(*a, 2, 48 ** -0.5),
+         [r(2, 300, 96), r(2, 91, 96), r(2, 91, 96)]),
+        ("attention", lambda *a: flash_attention(*a, 2, row_sum="fp32"),
+         lambda *a: attention_reference(*a, 2, 48 ** -0.5),
+         [r(2, 257, 96) for _ in range(3)]),
+        ("frame_attention", lambda *a: frame_attention(*a, 3),
+         lambda *a: fa.frame_attention_reference(*a, 3, 32 ** -0.5),
+         [r(2, 5, 97, 96) for _ in range(3)]),
+        ("geglu_ff", geglu_ff, geglu_ff_reference,
+         [r(70, c), r(2 * inner, c, scale=0.1), r(2 * inner, scale=0.1),
+          r(c, inner, scale=0.05), r(c, scale=0.1)]),
+        ("gelu_ff", gelu_ff, gelu_ff_reference,
+         [r(70, c), r(inner, c, scale=0.1), r(inner, scale=0.1),
+          r(c, inner, scale=0.05), r(c, scale=0.1)]),
+    ]
+    for name, op, ref, leaves in cases:
+        ops.reset_launch_counts()
+        out = op(*leaves)
+        assert ops.launch_counts("story")[name] == 1, name
+        cot = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+        got = torch.autograd.grad(out, leaves, cot)
+        want = torch.autograd.grad(ref(*leaves), leaves, cot)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and _rel(a, b) <= TOL[dtype], name
+        with torch.no_grad():  # no Function: the kernel alone
+            assert torch.equal(op(*leaves), out), name
+
+
+@pytest.mark.gpu
+def test_cuda_spatial_transformer_trains_like_the_cpu(cuda):
+    """A level-0 spatial transformer (320 channels, 8 heads of 40, 91
+    context tokens; 5 frames of 32 x 32) in bf16 with weights that require
+    grad: every parameter gets a gradient on the card, within 2e-2 of its
+    tensor's max of the same module's on the CPU. Before the kernels ran
+    under autograd, the card left the attention projections and the FF
+    without gradients."""
+    g = torch.Generator().manual_seed(2)
+    block = SpatialTransformer(320, 8, 40, 768, 32)
+    init_like_flax_(block, g)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    block = block.to(torch.bfloat16)
+    x = torch.randn(1, 5, 32, 32, 320, generator=g).bfloat16()
+    ctx = torch.randn(1, 5, 91, 768, generator=g).bfloat16()
+    card = copy.deepcopy(block).to(cuda)
+    ops.reset_launch_counts()
+    for module, args in ((block, (x, ctx)),
+                         (card, (x.to(cuda), ctx.to(cuda)))):
+        module(*args).float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts("story")
+    assert counts["attention"] == 2 and counts["geglu_ff"] == 1, counts
+    for (n, p), q in zip(card.named_parameters(), block.parameters()):
+        assert p.grad is not None, n
+        assert _rel(p.grad.cpu(), q.grad) <= 2e-2, n
