@@ -124,15 +124,38 @@ Phases, in order; any failure raises and the exit code is nonzero:
    per stage the median seconds of steps 2-3 and the peak memory
    (`torch.cuda.max_memory_allocated`), beside the card's line. Rows go
    to chiprun_out/chip_smoke_train.json.
+10. train CLIs (`rcdms_tpu_torch/cli/train_stage{1,2}.py`): (a)
+   `train_stage2.run` at full width and depth (1.285 B parameters), bf16
+   over fp32 masters, seeded random init, b = 1, lr 1e-5, warmup 0, on a
+   full-width synthetic Flintstones story repeated (`OneStory`), prefetch
+   on, `--max-train-steps 2 --checkpointing-steps 2 --log-every 1`: the
+   step-2 checkpoint equal to the trained state bit for bit; one more
+   step in memory on the CLI's generators of step 2; then
+   `--resume-from-checkpoint` to step 3: the restored masters, moments
+   and counts equal the file's bit for bit, the resumed step-2 loss
+   within 1e-3 relative of the in-memory one, and the resumed step's
+   launches (its encode and forward) equal phase 9's stage-2 step and
+   encode; then `evaluate.build_pipeline` with `--stage2-ckpt` loads
+   the UNet and fusion stacks equal to their masters cast to bf16 bit
+   for bit; (b) `train_stage1.run` at full width with the prior cut to 4
+   of its 20 layers, 2 steps and a checkpoint, restored into the state
+   bit for bit; each run's logged step and data seconds (`StepTimer`),
+   save and restore seconds, bytes on disk and peak memory printed, the
+   checkpoints (under build/chip_smoke_train/) deleted; (c) the native
+   feeder built with g++ on the host, 5-frame stories of 128 px packed
+   to 512 px / 224 clip equal to the numpy protocol bit for bit, ms a
+   story of each. Rows go to chiprun_out/chip_smoke_train_cli.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
 again, phase 8 the story's in the served requests, phase 9 the story's in
-each training step and encode: each path's counts are set to 0 just
-before it and read just after.
+each training step and encode, phase 10 the story's in each CLI run: each
+path's counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
-step of each stage); the last line is {"ok": true, "device": {...}}.
+step of each stage; `train_cli_launches`: phase 10's launches in each
+CLI run, encodes included); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -1712,6 +1735,355 @@ def run_train(dev, card: str) -> dict:
     return result
 
 
+# ---- phase 10: the training entry points -----------------------------------
+
+TRAIN_CLI_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+
+
+class OneStory:
+    """A full-width synthetic Flintstones dataset that repeats one story
+    batch, so that a resumed step sees the batch of the unbroken one (the
+    CLIs' data iterator restarts on resume)."""
+
+    def __init__(self, batch_size: int = 1):
+        from rcdms_tpu_torch.configs import DatasetConfig
+        from rcdms_tpu_torch.data.datasets import SyntheticStoryDataset
+
+        self.cfg = DatasetConfig(name="flintstones")
+        self._batch = next(SyntheticStoryDataset(
+            cfg=self.cfg, num_items=batch_size).batches(batch_size, seed=0))
+
+    def batches(self, batch_size, **_):
+        while True:
+            yield self._batch
+
+
+class _Timed:
+    """Wraps the checkpoint module's save and restore and TrainState's
+    load, recording their seconds (card synchronised), the bytes a save
+    wrote, and whether each load left the state's masters and moments
+    equal to the file's bit for bit."""
+
+    def __init__(self):
+        from rcdms_tpu_torch.io import checkpoint
+        from rcdms_tpu_torch.train.train_state import TrainState
+
+        self.rows = []
+        self._undo = [(checkpoint, "save_checkpoint"),
+                      (checkpoint, "restore_checkpoint"),
+                      (TrainState, "load_state_dicts")]
+        self._orig = [getattr(o, n) for o, n in self._undo]
+        save, restore, load = self._orig
+        rows = self.rows
+
+        def timed_save(directory, step, state, metadata=None, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wrote = save(directory, step, state, metadata, **kw)
+            path = os.path.join(directory, str(step), checkpoint.STATE_FILE)
+            rows.append(dict(op="save", step=step, wrote=wrote,
+                             s=time.perf_counter() - t0,
+                             bytes=os.path.getsize(path) if wrote else 0))
+            return wrote
+
+        def timed_restore(directory, target=None, step=None):
+            t0 = time.perf_counter()
+            out = restore(directory, target, step)
+            rows.append(dict(op="restore", step=out[2],
+                             s=time.perf_counter() - t0))
+            return out
+
+        def timed_load(state, dicts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load(state, dicts)
+            torch.cuda.synchronize()
+            row = dict(op="load", s=time.perf_counter() - t0)
+            row["equal"] = _state_equals_file(state.state_dicts(), dicts)
+            rows.append(row)
+
+        for (o, n), fn in zip(self._undo, (timed_save, timed_restore,
+                                           timed_load)):
+            setattr(o, n, fn)
+
+    def close(self):
+        for (o, n), fn in zip(self._undo, self._orig):
+            setattr(o, n, fn)
+
+
+def _state_equals_file(state: dict, saved: dict) -> bool:
+    """The masters, moments and counts of `state` (on the card) equal those
+    of `saved` (a restored tree, on the host) bit for bit."""
+    for key in ("params", "mu", "nu"):
+        if set(state[key]) != set(saved[key]):
+            return False
+        for n, t in state[key].items():
+            if not torch.equal(t.view(torch.int32),
+                               saved[key][n].to(t.device).view(torch.int32)):
+                return False
+    return all(state[k] == saved[k] for k in ("count", "mini_step",
+                                               "gradient_step", "step"))
+
+
+def _cli_args(mod, *extra):
+    return mod.parse_args([
+        "--device", "cuda", "--batch-size", "1", "--learning-rate", "1e-5",
+        "--warmup-steps", "0", "--log-every", "1", "--checkpointing-steps",
+        "2", "--report-to", "none", *extra])
+
+
+def _logged(out: str) -> dict:
+    """metrics.jsonl of a CLI's output directory, by step (the last line
+    of a step wins: a resumed run logs its steps again)."""
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        return {r["step"]: r for r in map(json.loads, fh) if r}
+
+
+def _cli_row(stage: int, out: str, timed: "_Timed", launches: dict,
+             steps: int, card: str) -> dict:
+    from rcdms_tpu_torch.io.checkpoint import latest_step
+
+    logged = _logged(out)
+    mine = sorted(logged)[-steps:]  # this run's steps
+    step_s = [logged[i]["step_time"] for i in mine]
+    data_s = [logged[i]["data_time"] for i in mine]
+    saves = [r for r in timed.rows if r["op"] == "save" and r["wrote"]]
+    row = dict(
+        stage=stage, steps=steps, step_s=step_s, data_s=data_s,
+        median_step_s=statistics.median(step_s[1:] or step_s),
+        median_data_s=statistics.median(data_s),
+        save_s=[r["s"] for r in saves], ckpt_bytes=[r["bytes"] for r in saves],
+        restore_s=[r["s"] for r in timed.rows if r["op"] == "load"],
+        peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+        latest_step=latest_step(out),
+        losses=[logged[i]["loss"] for i in mine])
+    print(f"train cli stage {stage}: {card}: steps {row['step_s']} s (median "
+          f"of the later {row['median_step_s']:.3f}), data "
+          f"{row['data_s']} s, saves {row['save_s']} s of "
+          f"{row['ckpt_bytes']} bytes, restores {row['restore_s']} s, peak "
+          f"{row['peak_bytes'] / 2**30:.2f} GiB, launches {launches}, "
+          f"losses {row['losses']}", flush=True)
+    if not all(math.isfinite(v) for v in row["losses"]):
+        raise AssertionError(f"stage {stage}: non-finite losses")
+    return row
+
+
+def train_cli_stage2(dev, card: str, step_launches: dict) -> dict:
+    """Phase 10 (a): `cli.train_stage2.run` at full width and depth, 2
+    steps with a checkpoint at 2; one more step in memory; a resume to 3
+    from the checkpoint (bit for bit restore, the step-2 loss within 1e-3
+    relative, a step's forward launches equal phase 9's); `--stage2-ckpt`
+    into the inference pipeline bit for bit; the checkpoints deleted."""
+    import shutil
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import common, evaluate, train_stage2
+    from rcdms_tpu_torch.io.checkpoint import restore_checkpoint
+    from rcdms_tpu_torch.sample.pipeline import full_configs
+    from rcdms_tpu_torch.train.loop import train_step
+
+    configs = full_configs(temporal_zero_init=False)
+    dataset = OneStory()
+    out = os.path.join(TRAIN_CLI_DIR, "stage2")
+    shutil.rmtree(out, ignore_errors=True)
+    rows = {}
+    try:
+        args = _cli_args(train_stage2, "--max-train-steps", "2",
+                         "--output-dir", out)
+        timed = _Timed()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            res = train_stage2.run(args, dataset, configs)
+        finally:
+            timed.close()
+        launches = ops.launch_counts("story")
+        rows["run"] = _cli_row(2, out, timed, launches, 2, card)
+        state, towers = res.state, res.towers
+        saved = restore_checkpoint(out)[0]
+        if not _state_equals_file(state.state_dicts(), saved):
+            raise AssertionError("the step-2 checkpoint differs from the "
+                                 "trained state")
+        del saved
+        # step 2 in memory, on the CLI's own generators for step 2
+        raw = common.batch_to_device(next(dataset.batches(1)), dev)
+        encode_gen, step_gen = common.step_generators(args.seed, 2, dev)
+        with torch.no_grad():
+            batch = train_stage2.encode(towers, raw, encode_gen)
+        loss_mem = train_step(state, batch, generator=step_gen).item()
+        names = sorted(state.params)[:: max(1, len(state.params) // 4)]
+        sums = {n: state.params[n].double().sum().item() for n in names}
+        del res, state, towers, batch, raw
+        torch.cuda.empty_cache()
+
+        args = _cli_args(train_stage2, "--max-train-steps", "3",
+                         "--output-dir", out, "--resume-from-checkpoint", out)
+        timed = _Timed()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            res = train_stage2.run(args, dataset, configs)
+        finally:
+            timed.close()
+        resumed = ops.launch_counts("story")
+        rows["resumed"] = _cli_row(2, out, timed, resumed, 1, card)
+        loss_res = _logged(out)[2]["loss"]
+        rel = abs(loss_res - loss_mem) / abs(loss_mem)
+        equal = [r["equal"] for r in timed.rows if r["op"] == "load"]
+        print(f"train cli stage 2: resumed step-2 loss {loss_res:.6f} "
+              f"against {loss_mem:.6f} in memory (rel {rel:.2e}); restore "
+              f"bit for bit {equal}; master sums in memory "
+              f"{list(sums.values())[:2]}; a step's forward launches "
+              f"{resumed}, phase 9's {step_launches}", flush=True)
+        if equal != [True] or not rel <= 1e-3:
+            raise AssertionError("the resumed run's restore or step-2 loss "
+                                 "disagrees")
+        if step_launches is not None and resumed != step_launches:
+            raise AssertionError(f"a resumed step launched {resumed}, phase "
+                                 f"9's step and encode {step_launches}")
+        del res
+        torch.cuda.empty_cache()
+
+        # the inference pipeline from the training checkpoint
+        t0 = time.perf_counter()
+        pipe, _, _ = evaluate.build_pipeline(evaluate.parse_args([
+            "--dataset", "flintstones", "--dtype", "bfloat16", "--device",
+            "cuda", "--stage2-ckpt", out]))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        masters = restore_checkpoint(out)[0]["params"]
+        n = 0
+        for tower in ("unet", "fusion"):
+            for name, p in getattr(pipe, tower).named_parameters():
+                want = masters[f"{tower}.{name}"].to(dev, p.dtype)
+                if not torch.equal(p, want):
+                    raise AssertionError(f"--stage2-ckpt: {tower}.{name} "
+                                         f"is not its master")
+                n += 1
+        print(f"train cli stage 2: --stage2-ckpt build {build_s:.2f} s; "
+              f"{n} UNet and fusion tensors equal their masters cast to "
+              f"bf16 bit for bit", flush=True)
+        del pipe, masters
+        torch.cuda.empty_cache()
+        rows.update(loss_in_memory=loss_mem, loss_resumed=loss_res,
+                    loss_rel=rel, stage2_ckpt_build_s=build_s,
+                    stage2_ckpt_tensors=n)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return rows
+
+
+def train_cli_stage1(dev, card: str) -> dict:
+    """Phase 10 (b): `cli.train_stage1.run` at full width, the prior cut to
+    4 of its 20 layers: 2 steps and a checkpoint; the checkpoint restored
+    into the state bit for bit."""
+    import dataclasses
+    import shutil
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import train_stage1
+    from rcdms_tpu_torch.io.checkpoint import restore_checkpoint
+    from rcdms_tpu_torch.sample.pipeline import full_configs
+
+    configs = full_configs(temporal_zero_init=False)
+    configs = dataclasses.replace(configs, prior=dataclasses.replace(
+        configs.prior, num_layers=4))
+    out = os.path.join(TRAIN_CLI_DIR, "stage1")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        args = _cli_args(train_stage1, "--max-train-steps", "2",
+                         "--output-dir", out)
+        timed = _Timed()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            res = train_stage1.run(args, OneStory(), configs)
+            res.state.load_state_dicts(restore_checkpoint(out)[0])
+        finally:
+            timed.close()
+        launches = ops.launch_counts("story")
+        row = _cli_row(1, out, timed, launches, 2, card)
+        row["trained_params"] = sum(p.numel()
+                                    for p in res.state.params.values())
+        equal = [r["equal"] for r in timed.rows if r["op"] == "load"]
+        if equal != [True]:
+            raise AssertionError("stage 1's restore is not bit for bit")
+        del res
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return row
+
+
+def check_native_feeder(card: str, stories: int = 4) -> dict:
+    """Phase 10 (c): the native feeder built with g++ on the host, 5-frame
+    stories of 128 px frames packed to 512 px / 224 clip, equal to the
+    numpy protocol bit for bit; ms a story of each."""
+    import numpy as np
+
+    from rcdms_tpu_torch.configs import DatasetConfig
+    from rcdms_tpu_torch.data import native_feeder
+    from rcdms_tpu_torch.data.protocol import (
+        StoryTokenizer,
+        build_story_example,
+    )
+
+    t0 = time.perf_counter()
+    lib = native_feeder.build_library()
+    build_s = time.perf_counter() - t0
+    cfg = DatasetConfig(name="flintstones")
+    tok = StoryTokenizer(cfg)
+    rng = np.random.RandomState(0)
+    frames = [rng.randint(0, 256, (5, 128, 128, 3), np.uint8)
+              for _ in range(stories)]
+    known = [i % 5 for i in range(stories)]
+    feeder = native_feeder.NativeFeeder(num_threads=4, buffer_depth=2)
+    try:
+        feeder.pack_batch(frames, known, cfg.image_size, cfg.clip_size)
+        t0 = time.perf_counter()
+        got = feeder.pack_batch(frames, known, cfg.image_size, cfg.clip_size)
+        feeder_ms = (time.perf_counter() - t0) * 1e3 / stories
+        t0 = time.perf_counter()
+        want = [build_story_example(list(f), ["c"] * 5, k, tok, cfg=cfg)
+                for f, k in zip(frames, known)]
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / stories
+        for i, ex in enumerate(want):
+            for key in ("target", "source", "reference_clip", "source_clip",
+                        "mask_clip", "mask_label"):
+                if not np.array_equal(got[key][i], ex[key]):
+                    raise AssertionError(f"feeder {key} story {i} differs "
+                                         f"from the numpy protocol")
+    finally:
+        feeder.close()
+    print(f"native feeder: {card}: built in {build_s:.2f} s ({lib.name}); "
+          f"{stories} stories of 5 x 128 px -> 512 / 224: feeder "
+          f"{feeder_ms:.2f} ms a story (4 threads), numpy protocol "
+          f"{numpy_ms:.2f} ms a story, equal bit for bit", flush=True)
+    return dict(build_s=build_s, feeder_ms=feeder_ms, numpy_ms=numpy_ms,
+                stories=stories)
+
+
+def run_train_cli(dev, card: str, step_launches: Optional[dict]) -> dict:
+    """Phase 10: the training entry points (module docstring);
+    `step_launches` is phase 9's stage-2 step and encode launches."""
+    import shutil
+
+    print(f"train cli on {card}", flush=True)
+    os.makedirs(TRAIN_CLI_DIR, exist_ok=True)
+    usage = shutil.disk_usage(TRAIN_CLI_DIR)
+    print(f"train cli: disk free {usage.free / 1e9:.1f} GB of "
+          f"{usage.total / 1e9:.1f} GB", flush=True)
+    result = dict(card=card, stage2=train_cli_stage2(dev, card,
+                                                     step_launches),
+                  stage1=train_cli_stage1(dev, card),
+                  feeder=check_native_feeder(card))
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_train_cli.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1751,6 +2123,17 @@ def main() -> int:
           f"{served['batch1_s']:.3f}, at batch 2 {served['batch2_s']:.3f}",
           flush=True)
     trained = run_train(dev, card)
+    step2 = trained["full"]["stage2"]
+    step_launches = {k: v + step2["encode_launches"][k]
+                     for k, v in step2["steps"][0]["launches"].items()}
+    train_cli = run_train_cli(dev, card, step_launches)
+    cli_launches = {"stage2": train_cli["stage2"]["run"]["launches"],
+                    "stage2_resumed": train_cli["stage2"]["resumed"][
+                        "launches"],
+                    "stage1": train_cli["stage1"]["launches"]}
+    for name in cli_launches["stage2"]:
+        if sum(c[name] for c in cli_launches.values()) == 0:
+            raise AssertionError(f"the training CLIs never launched {name}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1766,6 +2149,8 @@ def main() -> int:
             kernels[-1]["train_launches"] = {
                 stage: r["steps"][0]["launches"][name]
                 for stage, r in trained["full"].items()}
+            kernels[-1]["train_cli_launches"] = {
+                run: counts[name] for run, counts in cli_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

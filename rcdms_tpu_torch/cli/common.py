@@ -1,7 +1,9 @@
 """Shared CLI plumbing — the counterpart of `rcdms_tpu/cli/common.py`:
 tower builders (seeded random init, or a pretrained diffusers / HF
 directory converted by `io/convert.py`), the trained reference checkpoint
-loaders, and the inputs and conditioning cache of a story.
+loaders, the inputs and conditioning cache of a story, and the training
+CLIs' flags, one-process guard, per-step generators and loop
+(`train_loop`).
 
 Every builder draws its random init as `core/layers.py::init_like_flax_`
 does, from `torch.Generator(device).manual_seed(seed)`, then overlays the
@@ -15,7 +17,7 @@ import logging
 import os
 import pickle
 import warnings
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from rcdms_tpu_torch.configs import (
     CLIPVisionConfig,
     DatasetConfig,
     FusionConfig,
+    OptimizerConfig,
     PriorConfig,
     StoryUNetConfig,
     VAEConfig,
@@ -51,6 +54,7 @@ from rcdms_tpu_torch.sample.pipeline import (
 )
 
 logger = logging.getLogger("rcdms_tpu_torch.cli")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _safetensors_sibling(path: str) -> str:
@@ -326,3 +330,247 @@ def build_story_inputs(captions: Sequence[str],
         source_clip=put(source_cl), mask_clip=put(mask_cl),
         source_pixels=put(source_px),
         frame_known=put(np.arange(f) < known))
+
+
+# ---------------------------------------------------------------------------
+# the training CLIs' shared plumbing (train_stage1.py, train_stage2.py)
+# ---------------------------------------------------------------------------
+
+def require_one_process() -> None:
+    """Raises SystemExit under a launcher of several processes
+    (`WORLD_SIZE` > 1) or an initialised process group: the training CLIs
+    run one process on one card, and N independent trainings that look
+    like one run are worse than an error. Data parallelism is ROADMAP.md
+    Queue 1 item 16."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world > 1 or (dist.is_available() and dist.is_initialized()):
+        raise SystemExit(
+            f"the training CLIs run one process on one card (WORLD_SIZE "
+            f"{world}); data-parallel training over several processes is "
+            f"not ported yet (ROADMAP.md Queue 1 item 16)")
+
+
+def step_generators(seed: int, step: int, device
+                    ) -> Tuple[torch.Generator, torch.Generator]:
+    """(the encode's, the step's) generators of training step `step`,
+    seeded from (seed, 2 step) and (seed, 2 step + 1) as the JAX CLIs fold
+    2 step and 2 step + 1 into their key: a resumed run draws at a step
+    what an unbroken run draws there."""
+    return tuple(torch.Generator(device).manual_seed(
+        story_seed(seed, 2 * step + k)) for k in (0, 1))
+
+
+def batch_to_device(raw: Dict[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """A protocol batch (numpy, possibly read-only views of the native
+    feeder's ring) as tensors on `device`, copied, token ids as int64."""
+    out = {}
+    for k, v in raw.items():
+        t = torch.from_numpy(np.array(v))
+        if k.startswith("input_ids"):
+            t = t.long()
+        out[k] = t.to(device)
+    return out
+
+
+def add_training_flags(p, defaults) -> None:
+    """The flags both training CLIs share, with the JAX CLIs' defaults
+    (`defaults`: the stage's TrainConfig), and --device."""
+    opt = defaults.optimizer
+    p.add_argument("--learning-rate", type=float, default=opt.learning_rate)
+    p.add_argument("--warmup-steps", type=int, default=opt.warmup_steps)
+    p.add_argument("--max-train-steps", type=int, default=1_000_000)
+    p.add_argument("--batch-size", type=int, default=defaults.batch_size,
+                   help="global (one process: the card's batch)")
+    p.add_argument("--noise-offset", type=float,
+                   default=defaults.noise_offset)
+    p.add_argument("--max-grad-norm", type=float,
+                   default=opt.grad_clip_norm)
+    p.add_argument("--checkpointing-steps", type=int,
+                   default=defaults.checkpoint_every)
+    p.add_argument("--no-zero2", action="store_true",
+                   help="accepted for the JAX CLI's command lines; one "
+                        "card has no optimizer state to shard")
+    p.add_argument("--accumulate-steps", type=int, default=1)
+    p.add_argument("--seed", type=int, default=defaults.seed)
+    p.add_argument("--dtype", default=defaults.compute_dtype,
+                   choices=["bfloat16", "float32"],
+                   help="compute dtype of the trained model and the frozen "
+                        "towers, over fp32 masters (the reference trains "
+                        "fp16; norms and softmax statistics stay fp32)")
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the steps "
+                        "[--profile-start, --profile-start + "
+                        "--profile-steps) into this directory")
+    p.add_argument("--profile-start", type=int, default=10)
+    p.add_argument("--profile-steps", type=int, default=3)
+    p.add_argument("--no-prefetch", action="store_true",
+                   help="no background batch-prefetch thread")
+    p.add_argument("--report-to", default="tensorboard",
+                   help="comma list of trackers: tensorboard, wandb, "
+                        "comet_ml (JSONL is always written; a tracker whose "
+                        "package is missing is skipped)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda never falls back to the CPU")
+
+
+def optimizer_config(args) -> OptimizerConfig:
+    return OptimizerConfig(
+        learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
+        max_steps=args.max_train_steps, grad_clip_norm=args.max_grad_norm,
+        accumulate_steps=args.accumulate_steps)
+
+
+def device_of(args) -> torch.device:
+    """--device, refusing cuda where torch sees no card (no CPU
+    fallback)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch sees no CUDA device "
+                           "(pass --device cpu to run on the CPU)")
+    return device
+
+
+def train_dataset(args):
+    """The dataset of the flags: tiny synthetic stories, or the h5 file's
+    train split, with the native feeder's ring as deep as prefetching
+    needs."""
+    if args.synthetic:
+        from rcdms_tpu_torch.data.datasets import SyntheticStoryDataset
+
+        return SyntheticStoryDataset()
+    from rcdms_tpu_torch.data.datasets import StoryH5Dataset
+    from rcdms_tpu_torch.data.prefetch import required_feeder_depth
+
+    return StoryH5Dataset(
+        dataset_from_args(args), "train", args.tokenizer_path,
+        use_native_feeder=args.native_feeder,
+        feeder_buffer_depth=(2 if args.no_prefetch
+                             else required_feeder_depth(1)))
+
+
+def trainable(module: nn.Module) -> nn.Module:
+    """A builder's fp32 tower made trainable again (train mode, grads)."""
+    return module.train().requires_grad_(True)
+
+
+def load_masters(module: nn.Module, params: Dict[str, torch.Tensor],
+                 prefix: str = "") -> nn.Module:
+    """The fp32 masters of a training checkpoint whose names start with
+    `prefix` into `module`'s parameters, in place (each keeps its device
+    and dtype). Raises unless they name every parameter exactly."""
+    own = dict(module.named_parameters())
+    theirs = {n[len(prefix):]: t for n, t in params.items()
+              if n.startswith(prefix)}
+    if set(own) != set(theirs):
+        raise KeyError(f"checkpoint masters under {prefix!r} and "
+                       f"{type(module).__name__}'s parameters differ: "
+                       f"{sorted(set(own) ^ set(theirs))[:5]}")
+    with torch.no_grad():
+        for n, p in own.items():
+            if p.shape != theirs[n].shape:
+                raise ValueError(f"{prefix}{n}: checkpoint "
+                                 f"{tuple(theirs[n].shape)}, model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(theirs[n])
+    return module
+
+
+class TrainRun(NamedTuple):
+    """What a training CLI's `run` returns: the state, the frozen towers
+    (in the order the stage's `encode_batch` takes them) and the global
+    step reached."""
+
+    state: object
+    towers: tuple
+    step: int
+
+
+def train_loop(args, state, towers, encode: Callable, dataset,
+               device) -> TrainRun:
+    """The JAX CLIs' loop on one card. Each step: the profile window's
+    tick, the next batch (prefetched unless --no-prefetch), the data
+    timer, `encode(raw, generator)` (the frozen towers, no grad), then
+    `train.loop.train_step` on the step's generator; a log line at
+    --log-every and at the first step (the only points where the loss
+    comes to the host), a checkpoint every --checkpointing-steps, a
+    SIGTERM check. A final save after the loop; a SIGTERM saves at the
+    step boundary and returns."""
+    from rcdms_tpu_torch.data.prefetch import PrefetchIterator
+    from rcdms_tpu_torch.io.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from rcdms_tpu_torch.train.loop import train_step
+    from rcdms_tpu_torch.utils.logging import (
+        MetricLogger,
+        ProfileWindow,
+        StepTimer,
+    )
+    from rcdms_tpu_torch.utils.preemption import PreemptionGuard
+
+    log = MetricLogger(args.output_dir,
+                       report_to=tuple(args.report_to.split(",")),
+                       run_config=vars(args))
+    start_step = 0
+    if args.resume_from_checkpoint:
+        restored, _, start_step = restore_checkpoint(
+            args.resume_from_checkpoint)
+        state.load_state_dicts(restored)
+        del restored
+        print(f"resumed from step {start_step}")
+
+    def save(step: int, **meta) -> None:
+        save_checkpoint(args.output_dir, step, state.state_dicts(),
+                        {"last_global_step": step, **meta})
+
+    # one process: it reads every row of the batch (shard 0 of 1); the data
+    # iterator restarts on resume, as the JAX CLIs' does
+    batches = dataset.batches(args.batch_size, seed=args.seed)
+    if not args.no_prefetch:
+        # overlap host decode and packing with the card's step; the native
+        # feeder's ring is sized for this depth (train_dataset)
+        batches = PrefetchIterator(batches, depth=1)
+    guard = PreemptionGuard.install()
+    profiler = ProfileWindow(args.profile_dir, args.profile_start,
+                             args.profile_steps)
+    timer = StepTimer()
+    try:
+        for step_i in range(start_step, args.max_train_steps):
+            profiler.tick(step_i)
+            raw = batch_to_device(next(batches), device)
+            timer.data_loaded()
+            encode_gen, step_gen = step_generators(args.seed, step_i, device)
+            with torch.no_grad():
+                batch = encode(raw, encode_gen)
+            loss = train_step(state, batch, generator=step_gen)
+            del raw, batch
+            if step_i % args.log_every == 0 or step_i == start_step:
+                loss = loss.item()  # waits for the card
+                step_time, data_time = timer.step_done()
+                log.log(step_i, {"loss": loss, "step_time": step_time,
+                                 "data_time": data_time})
+                print(f"step {step_i} loss {loss:.5f} ({step_time:.2f}s "
+                      f"step, {data_time:.2f}s data)", flush=True)
+            else:
+                timer.step_done()
+            if (step_i + 1) % args.checkpointing_steps == 0:
+                save(step_i + 1)
+            if guard.should_stop_global():
+                # SIGTERM (preemption): save at the step boundary, exit
+                # cleanly
+                save(step_i + 1, preempted=True)
+                print(f"preempted: checkpoint saved at step {step_i + 1}",
+                      flush=True)
+                return TrainRun(state, towers, step_i + 1)
+        save(args.max_train_steps)
+        return TrainRun(state, towers, args.max_train_steps)
+    finally:
+        profiler.close()
+        if isinstance(batches, PrefetchIterator):
+            batches.close()
+        guard.uninstall()
+        log.close()

@@ -54,6 +54,11 @@ from rcdms_tpu_torch.configs import (
     VAEConfig,
 )
 from rcdms_tpu_torch.data.protocol import clip_preprocess, white_image
+from rcdms_tpu_torch.io.checkpoint import (
+    STATE_FILE,
+    is_checkpoint_dir,
+    restore_checkpoint,
+)
 from rcdms_tpu_torch.ops.quant import set_quant_mode
 from rcdms_tpu_torch.sample.eval import (
     Stage1EvalAccumulator,
@@ -69,7 +74,6 @@ from rcdms_tpu_torch.sample.pipeline import (
     for_inference,
 )
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def parse_args(argv=None):
@@ -99,6 +103,16 @@ def parse_args(argv=None):
     p.add_argument("--tokenizer-path", default=None,
                    help="CLIP tokenizer directory (needs transformers); "
                         "without it, a crc32 word hash")
+    p.add_argument("--stage1-ckpt", default=None,
+                   help="a train_stage1 checkpoint directory: its fp32 "
+                        "masters into the prior")
+    p.add_argument("--stage2-ckpt", default=None,
+                   help="a train_stage2 checkpoint directory: its fp32 "
+                        "masters into the UNet and fusion stacks")
+    p.add_argument("--converted-ckpt", default=None,
+                   help="a directory written by `rcdms_tpu_torch.cli."
+                        "convert` holding the FULL pipeline's weights; "
+                        "read after every other source")
     p.add_argument("--rcdms-stage1-ckpt", default=None,
                    help="reference DeepSpeed stage-1 blob "
                         "(mp_rank_00_model_states.pt or its checkpoint dir)")
@@ -109,7 +123,7 @@ def parse_args(argv=None):
     p.add_argument("--num-stories", type=int, default=16)
     p.add_argument("--num-inference-steps", type=int, default=20)
     p.add_argument("--guidance-scale", type=float, default=2.0)
-    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+    p.add_argument("--dtype", default="float32", choices=sorted(common.DTYPES),
                    help="compute dtype")
     p.add_argument("--encoder-propagation", type=int, default=0,
                    help="OPT-IN approximate fast sampling: recompute the "
@@ -175,15 +189,33 @@ def _configs(args):
         unet=StoryUNetConfig(), fusion=FusionConfig())
 
 
+CONVERTED_KIND = "rcdms_tpu-converted-pipeline"
+TOWERS = ("text_s1", "text_s2", "vision", "vae", "prior", "unet", "fusion")
+
+
+def restore_port_checkpoint(path: str):
+    """(state, metadata, step) of the newest step of a checkpoint directory
+    written by this package (`io/checkpoint.py`). An orbax directory of
+    the JAX package raises: reading one needs jax and orbax, and its
+    converter to this format is ROADMAP.md Queue 1 item 12."""
+    if os.path.isdir(path) and not is_checkpoint_dir(path) and any(
+            name.isdigit() for name in os.listdir(path)):
+        raise ValueError(
+            f"{path} holds no checkpoint of rcdms_tpu_torch (no "
+            f"<step>/{STATE_FILE}); an orbax checkpoint of the JAX package "
+            f"needs its converter first (ROADMAP.md Queue 1 item 12)")
+    return restore_checkpoint(path)
+
+
 def build_pipeline(args):
     """(StoryPipeline, dataset, DatasetConfig) for the flags: each tower
     from its builder (seeded random init, or converted pretrained weights),
-    then the trained reference checkpoints over the prior, UNet and
-    fusion stacks."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device "
-                           "(pass --device cpu to run on the CPU)")
+    then the training checkpoints' masters (--stage1-ckpt over the prior,
+    --stage2-ckpt over the UNet and fusion stacks), the trained reference
+    checkpoints, and last a converted pipeline (--converted-ckpt) over
+    every tower. A tower that any checkpoint loads into is built in fp32
+    and cast to --dtype after the load."""
+    device = common.device_of(args)
     if args.quantize:
         set_quant_mode(args.quantize)
     dataset, ds_cfg, cfg = _configs(args)
@@ -199,13 +231,16 @@ def build_pipeline(args):
             cfg, unet=apply_to_unet_config(cfg.unet, overrides),
             prior=apply_to_unet_config(cfg.prior, overrides))
 
-    dtype = DTYPES[args.dtype]
+    dtype = common.DTYPES[args.dtype]
     kw = dict(dtype=dtype, device=device)
-    # a tower a reference checkpoint loads into stays fp32 until it is
-    # loaded, so the cast (and the int8 route's quantization) sees the
-    # checkpoint's fp32 values
-    s1 = dict(kw, dtype=torch.float32) if args.rcdms_stage1_ckpt else kw
-    s2 = dict(kw, dtype=torch.float32) if args.rcdms_stage2_ckpt else kw
+    # a tower a checkpoint loads into stays fp32 until it is loaded, so the
+    # cast (and the int8 route's quantization) sees the checkpoint's values
+    fp32 = dict(kw, dtype=torch.float32)
+    build = {name: fp32 if args.converted_ckpt else kw for name in TOWERS}
+    if args.rcdms_stage1_ckpt or args.stage1_ckpt:
+        build["prior"] = fp32
+    if args.rcdms_stage2_ckpt or args.stage2_ckpt:
+        build["unet"] = build["fusion"] = fp32
     sd = args.sd_pretrained
 
     def sub(name):
@@ -213,22 +248,43 @@ def build_pipeline(args):
 
     towers = dict(
         text_s1=common.build_text_encoder(cfg.text_s1,
-                                          args.text_s1_pretrained, **kw),
+                                          args.text_s1_pretrained,
+                                          **build["text_s1"]),
         text_s2=common.build_text_encoder(cfg.text_s2, sub("text_encoder"),
-                                          **kw),
+                                          **build["text_s2"]),
         vision=common.build_vision_encoder(cfg.vision,
-                                           args.vision_pretrained, **kw),
-        vae=common.build_vae(cfg.vae, sub("vae"), **kw),
-        prior=common.build_prior(cfg.prior, args.prior_pretrained, **s1),
-        unet=common.build_unet(cfg.unet, sub("unet"), **s2),
-        fusion=common.build_fusion(cfg.fusion, **s2))
+                                           args.vision_pretrained,
+                                           **build["vision"]),
+        vae=common.build_vae(cfg.vae, sub("vae"), **build["vae"]),
+        prior=common.build_prior(cfg.prior, args.prior_pretrained,
+                                 **build["prior"]),
+        unet=common.build_unet(cfg.unet, sub("unet"), **build["unet"]),
+        fusion=common.build_fusion(cfg.fusion, **build["fusion"]))
+    if args.stage1_ckpt:
+        masters = restore_port_checkpoint(args.stage1_ckpt)[0]["params"]
+        common.load_masters(towers["prior"], masters, "prior.")
+        del masters
+    if args.stage2_ckpt:
+        masters = restore_port_checkpoint(args.stage2_ckpt)[0]["params"]
+        common.load_masters(towers["unet"], masters, "unet.")
+        common.load_masters(towers["fusion"], masters, "fusion.")
+        del masters
     if args.rcdms_stage1_ckpt:
-        towers["prior"] = for_inference(common.load_rcdms_stage1(
-            args.rcdms_stage1_ckpt, towers["prior"]), dtype)
+        common.load_rcdms_stage1(args.rcdms_stage1_ckpt, towers["prior"])
     if args.rcdms_stage2_ckpt:
         common.load_rcdms_stage2(args.rcdms_stage2_ckpt, towers["unet"],
                                  towers["fusion"])
-        for name in ("unet", "fusion"):
+    if args.converted_ckpt:
+        state, meta, _ = restore_port_checkpoint(args.converted_ckpt)
+        if meta.get("kind") != CONVERTED_KIND:
+            raise ValueError(
+                f"{args.converted_ckpt} is not a convert-CLI checkpoint "
+                f"(metadata kind={meta.get('kind')!r})")
+        for name in TOWERS:
+            towers[name].load_state_dict(state["params"][name], strict=True)
+        del state
+    for name in TOWERS:
+        if build[name] is fp32:
             towers[name] = for_inference(towers[name], dtype)
     pipeline = StoryPipeline(
         cfg, num_steps=args.num_inference_steps,

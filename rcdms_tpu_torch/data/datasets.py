@@ -4,8 +4,10 @@ tests and smoke runs. Host-side numpy only.
 
 `StoryH5Dataset` opens the h5 file at first use, and imports h5py and
 OpenCV only then (Pillow only for the super-resolution PNG directory), so
-a dataset that is only asked for its tokenizer opens no file. The JAX
-package's native C++ feeder is not ported yet.
+a dataset that is only asked for its tokenizer opens no file. With
+`use_native_feeder` the pixel tensors of a batch are packed by the C++
+feeder (`data/native_feeder.py`, built with g++ at first use), bit for
+bit the numpy protocol's.
 """
 
 from __future__ import annotations
@@ -32,10 +34,23 @@ class StoryH5Dataset:
     cfg: DatasetConfig
     subset: str = "train"
     tokenizer_path: Optional[str] = None
+    # the C++ feeder packs the pixel tensors in a thread pool; a feeder
+    # that fails to build or load raises here
+    use_native_feeder: bool = False
+    feeder_threads: int = 4
+    # ring depth of the feeder's outputs: a yielded batch stays valid for
+    # feeder_buffer_depth - 1 further batches (data/prefetch.py sizes it)
+    feeder_buffer_depth: int = 2
     _h5: object = field(default=None, repr=False)
+    _feeder: object = field(default=None, repr=False)
 
     def __post_init__(self):
         self.tokenizer = StoryTokenizer(self.cfg, self.tokenizer_path)
+        if self.use_native_feeder:
+            from rcdms_tpu_torch.data.native_feeder import NativeFeeder
+
+            self._feeder = NativeFeeder(self.feeder_threads,
+                                        self.feeder_buffer_depth)
 
     def _ensure_open(self):
         if self._h5 is None:
@@ -87,6 +102,31 @@ class StoryH5Dataset:
         return [self._decode_frame(h5[f"image{i}"][index], rng)
                 for i in range(f)]
 
+    def _native_batch(self, idxs, rng: np.random.RandomState,
+                      drop_text: bool) -> Dict[str, np.ndarray]:
+        """One batch packed by the C++ feeder. It draws from `rng` in the
+        Python path's order (a story's frame picks, its known length, its
+        caption drops), and the feeder's pixels are the protocol's bit for
+        bit, so the flag changes no batch."""
+        h5 = self._ensure_open()
+        f = self.cfg.num_frames
+        stories, kls, ids_rows, mask_rows = [], [], [], []
+        for i in idxs:
+            stories.append(np.stack(self._load_frames(int(i), rng)))
+            kls.append(int(rng.randint(0, f)))
+            drop = (rng.rand(f) < self.cfg.text_drop_rate
+                    if drop_text else np.zeros(f, bool))
+            caps = h5["text"][int(i)].decode("utf-8").split("|")
+            toks = self.tokenizer(["" if d else c.lower()
+                                   for c, d in zip(caps, drop)])
+            ids_rows.append(toks["input_ids"])
+            mask_rows.append(toks["attention_mask"])
+        out = self._feeder.pack_batch(stories, kls, self.cfg.image_size,
+                                      self.cfg.clip_size)
+        out["input_ids"] = np.stack(ids_rows)
+        out["text_mask"] = np.stack(mask_rows)
+        return out
+
     def batches(self, batch_size: int, *, seed: int = 0, shard_id: int = 0,
                 num_shards: int = 1, shuffle: bool = True,
                 drop_text: bool = True) -> Iterator[Dict[str, np.ndarray]]:
@@ -105,8 +145,13 @@ class StoryH5Dataset:
             order = rng.permutation(n) if shuffle else np.arange(n)
             order = order[shard_id::num_shards]
             for start in range(0, len(order) - batch_size + 1, batch_size):
-                yield collate([self.example(int(i), rng, drop_text=drop_text)
-                               for i in order[start:start + batch_size]])
+                idxs = order[start:start + batch_size]
+                if self._feeder is not None:
+                    yield self._native_batch(idxs, rng, drop_text)
+                else:
+                    yield collate([self.example(int(i), rng,
+                                                drop_text=drop_text)
+                                   for i in idxs])
             epoch += 1
 
 

@@ -87,10 +87,28 @@ class TrainState:
         if pairs:
             torch._foreach_copy_(*map(list, zip(*pairs)))
 
+    def state_dicts(self) -> dict:
+        """The inverse of `load_state_dicts`, with the keys of
+        `io/bridge.py::train_state_dicts`: "params", "mu", "nu" and "acc"
+        (None without accumulation) by parameter name, the state's own
+        tensors (not copies), and the ints "count", "mini_step",
+        "gradient_step" and "step"."""
+        st = self.opt_state
+
+        def own(tensors):
+            return None if tensors is None else {
+                n: t.detach() for n, t in tensors.items()}
+
+        return dict(params=own(self.params), mu=own(st.mu), nu=own(st.nu),
+                    acc=own(st.acc), count=st.count,
+                    mini_step=st.mini_step,
+                    gradient_step=st.gradient_step, step=self.step)
+
     def load_state_dicts(self, dicts: dict) -> None:
         """The masters, moments, counts and step from `dicts`
-        (`io/bridge.py::train_state_dicts`: numpy arrays by parameter
-        name), then the copies rounded from the masters."""
+        (`state_dicts`, or `io/bridge.py::train_state_dicts`: tensors or
+        numpy arrays by parameter name), then the copies rounded from the
+        masters."""
         st = self.opt_state
         with torch.no_grad():
             for key, target in (("params", self.params), ("mu", st.mu),
@@ -102,8 +120,11 @@ class TrainState:
                     raise KeyError(f"{key}: names differ: "
                                    f"{sorted(set(src) ^ set(target))[:5]}")
                 for n, t in target.items():
-                    t.copy_(torch.tensor(src[n]))
+                    v = src[n]
+                    t.copy_(v if isinstance(v, torch.Tensor)
+                            else torch.tensor(v))
         self._round_copies()
         st.count, st.mini_step, st.gradient_step = (
-            dicts["count"], dicts["mini_step"], dicts["gradient_step"])
-        self.step = dicts["step"]
+            int(dicts["count"]), int(dicts["mini_step"]),
+            int(dicts["gradient_step"]))
+        self.step = int(dicts["step"])

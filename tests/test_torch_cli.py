@@ -311,9 +311,7 @@ def test_generate_checks_counts_before_the_build(monkeypatch, captions,
         pgenerate.main(argv + CPU)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--shard-story"], ["--stage1-ckpt", "x"], ["--stage2-ckpt", "x"],
-    ["--converted-ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--shard-story"]])
 def test_flags_left_for_later_are_rejected(flag, capsys):
     with pytest.raises(SystemExit) as e:
         pevaluate.parse_args(CPU + flag)
@@ -322,6 +320,22 @@ def test_flags_left_for_later_are_rejected(flag, capsys):
         pgenerate.parse_args(["--caption", "c"] + CPU + flag)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,dest", [
+    ("--stage1-ckpt", "stage1_ckpt"), ("--stage2-ckpt", "stage2_ckpt"),
+    ("--converted-ckpt", "converted_ckpt")])
+def test_training_checkpoint_flags_parse(flag, dest):
+    """The flags that read the training CLIs' and convert's checkpoints
+    parse in evaluate, generate and serve (serve and generate take
+    evaluate's model flags), default None."""
+    from rcdms_tpu_torch.cli import serve as pserve
+
+    assert getattr(pevaluate.parse_args(CPU), dest) is None
+    assert getattr(pevaluate.parse_args(CPU + [flag, "d"]), dest) == "d"
+    assert getattr(pgenerate.parse_args(
+        ["--caption", "c"] + CPU + [flag, "d"]).eval, dest) == "d"
+    assert getattr(pserve.parse_args(CPU + [flag, "d"]).eval, dest) == "d"
 
 
 def test_default_device_is_cuda_without_fallback():

@@ -1,7 +1,8 @@
 """The port's own config dataclasses (rcdms_tpu_torch/configs.py) against
 the JAX package's (rcdms_tpu/configs): the same fields, types, defaults and
-presets, and the port's import boundary: with `rcdms_tpu`, `jax`, `flax`
-and Pillow blocked, every module of the port and chip_smoke.py imports.
+presets, and the port's import boundary: with `rcdms_tpu`, `jax`, `flax`,
+`optax`, `orbax` and Pillow blocked, every module of the port and
+chip_smoke.py imports.
 
 `port_config` turns a JAX config into the port's, field by field; the
 tests that build JAX configs hand the port its own copy through it.
@@ -132,7 +133,7 @@ _BLOCKED = textwrap.dedent("""
     import pkgutil
     import sys
 
-    blocked = ("rcdms_tpu", "jax", "flax", "PIL")
+    blocked = ("rcdms_tpu", "jax", "flax", "optax", "orbax", "PIL")
     for name in blocked:
         sys.modules[name] = None
 
@@ -145,7 +146,14 @@ _BLOCKED = textwrap.dedent("""
             "rcdms_tpu_torch.ops._grad", "rcdms_tpu_torch.train.loop",
             "rcdms_tpu_torch.train.optim", "rcdms_tpu_torch.train.stage1",
             "rcdms_tpu_torch.train.stage2",
-            "rcdms_tpu_torch.train.train_state"} <= set(names)
+            "rcdms_tpu_torch.train.train_state",
+            "rcdms_tpu_torch.cli.train_stage1",
+            "rcdms_tpu_torch.cli.train_stage2",
+            "rcdms_tpu_torch.cli.convert", "rcdms_tpu_torch.io.checkpoint",
+            "rcdms_tpu_torch.utils.logging",
+            "rcdms_tpu_torch.utils.preemption",
+            "rcdms_tpu_torch.data.prefetch",
+            "rcdms_tpu_torch.data.native_feeder"} <= set(names)
     for name in names:
         importlib.import_module(name)
     for name in blocked:

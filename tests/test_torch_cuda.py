@@ -799,3 +799,105 @@ def test_cuda_spatial_transformer_trains_like_the_cpu(cuda):
     for (n, p), q in zip(card.named_parameters(), block.parameters()):
         assert p.grad is not None, n
         assert _rel(p.grad.cpu(), q.grad) <= 2e-2, n
+
+
+@pytest.mark.gpu
+def test_cuda_native_feeder_at_full_shape(cuda):
+    """The feeder, built with g++ on the card machine's host, packs
+    Flintstones stories (5 frames of 128 px -> 512 px, 224 px CLIP) equal
+    to the numpy protocol bit for bit."""
+    import numpy as np
+
+    from rcdms_tpu_torch.configs import DatasetConfig
+    from rcdms_tpu_torch.data.native_feeder import NativeFeeder
+    from rcdms_tpu_torch.data.protocol import (
+        StoryTokenizer,
+        build_story_example,
+    )
+
+    cfg = DatasetConfig(name="flintstones")
+    rng = np.random.RandomState(4)
+    stories = [rng.randint(0, 256, (5, 128, 128, 3), np.uint8)
+               for _ in range(3)]
+    feeder = NativeFeeder(num_threads=4)
+    try:
+        out = feeder.pack_batch(stories, [0, 1, 4], cfg.image_size,
+                                cfg.clip_size)
+        for i, (story, known) in enumerate(zip(stories, (0, 1, 4))):
+            want = build_story_example(list(story), ["c"] * 5, known,
+                                       StoryTokenizer(cfg), cfg=cfg)
+            for key in ("target", "source", "reference_clip", "source_clip",
+                        "mask_clip", "mask_label"):
+                assert np.array_equal(out[key][i], want[key]), (key, i)
+    finally:
+        feeder.close()
+
+
+@pytest.mark.gpu
+def test_cuda_train_stage2_run_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """One tiny `cli.train_stage2.run` (3 steps, fp32, one repeated 32 px
+    story) on the card against the same run on the CPU: every loss within
+    1e-4 relative. The card's generators draw other numbers than the
+    CPU's, so here every draw of both runs (the towers' init, the
+    posterior noise, the step's noise) comes from a CPU generator of the
+    same seed as the device generator the CLI made, and is moved to the
+    device."""
+    import json
+
+    from rcdms_tpu_torch.cli import common, train_stage2
+    from rcdms_tpu_torch.configs import DatasetConfig
+    from rcdms_tpu_torch.data.datasets import SyntheticStoryDataset
+    from rcdms_tpu_torch.train import loop, stage2
+
+    twins = {}
+
+    def on_cpu(generator):
+        key = id(generator)
+        if key not in twins:  # the generator is kept, so its id is unique
+            twins[key] = (generator, torch.Generator().manual_seed(
+                generator.initial_seed()))
+        return twins[key][1]
+
+    init = common.init_like_flax_
+
+    def init_on_cpu(module, generator):
+        twin = copy.deepcopy(module).to("cpu")
+        init(twin, on_cpu(generator))
+        with torch.no_grad():
+            for p, q in zip(module.state_dict().values(),
+                            twin.state_dict().values()):
+                p.copy_(q)
+
+    monkeypatch.setattr(common, "init_like_flax_", init_on_cpu)
+    draw = loop.TrainNoise.draw.__func__
+
+    def draw_on_cpu(cls, generator, *args):
+        *shapes, device = args
+        return draw(cls, on_cpu(generator), *shapes, "cpu").to(device)
+
+    monkeypatch.setattr(loop.TrainNoise, "draw", classmethod(draw_on_cpu))
+    monkeypatch.setattr(stage2, "draw_noise", lambda shape, generator,
+                        device: torch.randn(shape, generator=on_cpu(
+                            generator)).to(device))
+
+    class OneBatch:
+        cfg = DatasetConfig(image_size=32, clip_size=28)
+
+        def batches(self, batch_size, **_):
+            batch = next(SyntheticStoryDataset(cfg=self.cfg).batches(1))
+            while True:
+                yield batch
+
+    losses = {}
+    for device in ("cpu", "cuda"):
+        out = str(tmp_path / device)
+        train_stage2.run(train_stage2.parse_args([
+            "--synthetic", "--device", device, "--dtype", "float32",
+            "--batch-size", "1", "--max-train-steps", "3", "--log-every",
+            "1", "--warmup-steps", "0", "--learning-rate", "1e-4",
+            "--report-to", "none", "--output-dir", out]), OneBatch())
+        with open(f"{out}/metrics.jsonl") as fh:
+            losses[device] = [json.loads(line)["loss"] for line in fh]
+    assert len(losses["cpu"]) == 3
+    for a, b in zip(losses["cpu"], losses["cuda"]):
+        assert abs(a - b) <= 1e-4 * abs(a), losses
