@@ -145,17 +145,33 @@ Phases, in order; any failure raises and the exit code is nonzero:
    feeder built with g++ on the host, 5-frame stories of 128 px packed
    to 512 px / 224 clip equal to the numpy protocol bit for bit, ms a
    story of each. Rows go to chiprun_out/chip_smoke_train_cli.json.
+11. data-parallel training (`rcdms_tpu_torch/train/distributed.py`,
+   `sharding.py`, the ZeRO-2 step of `optim.py`): (a) phase 10 (a)'s
+   2-step `train_stage2.run` again under a one-rank NCCL group joined
+   from torchrun's variables (set here for this process): its logged
+   losses and its masters equal phase 10's bit for bit, its launches
+   phase 10's, its checkpoint (the moments gathered to the host) the
+   trained state; step seconds, peak memory and launches a step printed;
+   (b) two spawned processes on the one card in a gloo group (NCCL
+   refuses two ranks on one device), phase 10 (b)'s stage 1 (prior cut
+   to 4 layers) in fp32 at global batch 2 on two stories, with ZeRO-2
+   and with --no-zero2, against one process (this one, no group) at
+   batch 2: the logged losses and the step-2 masters and moments within
+   1e-5 relative (max |diff| over the set's largest magnitude); whether
+   ZeRO-2 equals --no-zero2 bit for bit is printed. Rows go to
+   chiprun_out/chip_smoke_train_dp.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
 again, phase 8 the story's in the served requests, phase 9 the story's in
-each training step and encode, phase 10 the story's in each CLI run: each
-path's counts are set to 0 just before it and read just after.
+each training step and encode, phase 10 the story's in each CLI run,
+phase 11 the story's in each rank's run: each path's counts are set to 0
+just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
-CLI run, encodes included); the last line is {"ok": true, "device":
-{...}}.
+CLI run, encodes included; `dp_launches`: phase 11's, each rank's 2-step
+run); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1868,12 +1884,15 @@ def _cli_row(stage: int, out: str, timed: "_Timed", launches: dict,
     return row
 
 
-def train_cli_stage2(dev, card: str, step_launches: dict) -> dict:
+def train_cli_stage2(dev, card: str, step_launches: dict,
+                     keep: dict) -> dict:
     """Phase 10 (a): `cli.train_stage2.run` at full width and depth, 2
     steps with a checkpoint at 2; one more step in memory; a resume to 3
     from the checkpoint (bit for bit restore, the step-2 loss within 1e-3
     relative, a step's forward launches equal phase 9's); `--stage2-ckpt`
-    into the inference pipeline bit for bit; the checkpoints deleted."""
+    into the inference pipeline bit for bit; the checkpoints deleted.
+    `keep` gets the 2-step run's masters (host copies), losses and
+    launches, for phase 11 (a)."""
     import shutil
 
     from rcdms_tpu_torch import ops
@@ -1905,6 +1924,8 @@ def train_cli_stage2(dev, card: str, step_launches: dict) -> dict:
             raise AssertionError("the step-2 checkpoint differs from the "
                                  "trained state")
         del saved
+        keep.update(masters={n: t.cpu() for n, t in state.params.items()},
+                    losses=rows["run"]["losses"], launches=launches)
         # step 2 in memory, on the CLI's own generators for step 2
         raw = common.batch_to_device(next(dataset.batches(1)), dev)
         encode_gen, step_gen = common.step_generators(args.seed, 2, dev)
@@ -2063,9 +2084,11 @@ def check_native_feeder(card: str, stories: int = 4) -> dict:
                 stories=stories)
 
 
-def run_train_cli(dev, card: str, step_launches: Optional[dict]) -> dict:
+def run_train_cli(dev, card: str, step_launches: Optional[dict],
+                  keep: dict) -> dict:
     """Phase 10: the training entry points (module docstring);
-    `step_launches` is phase 9's stage-2 step and encode launches."""
+    `step_launches` is phase 9's stage-2 step and encode launches; `keep`
+    as `train_cli_stage2`'s."""
     import shutil
 
     print(f"train cli on {card}", flush=True)
@@ -2074,12 +2097,282 @@ def run_train_cli(dev, card: str, step_launches: Optional[dict]) -> dict:
     print(f"train cli: disk free {usage.free / 1e9:.1f} GB of "
           f"{usage.total / 1e9:.1f} GB", flush=True)
     result = dict(card=card, stage2=train_cli_stage2(dev, card,
-                                                     step_launches),
+                                                     step_launches, keep),
                   stage1=train_cli_stage1(dev, card),
                   feeder=check_native_feeder(card))
     shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_train_cli.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
+# ---- phase 11: data-parallel training --------------------------------------
+
+DP_DIR = os.path.join(REPO, "build", "chip_smoke_dp")
+DP_JOIN_S = 300  # seconds the two rank processes of phase 11 (b) may take
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def dp_one_rank(dev, card: str, phase10: dict) -> dict:
+    """Phase 11 (a): phase 10 (a)'s 2-step `cli.train_stage2.run` again
+    under a one-rank NCCL group joined from torchrun's variables (set here
+    for this process): its logged losses and masters equal phase 10's bit
+    for bit, its launches phase 10's, and its checkpoint (the moments
+    gathered to the host by `save_train_state`) the trained state."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import train_stage2
+    from rcdms_tpu_torch.io.checkpoint import restore_checkpoint
+    from rcdms_tpu_torch.sample.pipeline import full_configs
+    from rcdms_tpu_torch.train import distributed
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = os.path.join(DP_DIR, "stage2_one_rank")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        distributed.maybe_initialize("cuda")
+        backend = dist.get_backend()
+        args = _cli_args(train_stage2, "--max-train-steps", "2",
+                         "--output-dir", out)
+        timed = _Timed()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            res = train_stage2.run(args, OneStory(),
+                                   full_configs(temporal_zero_init=False))
+        finally:
+            timed.close()
+        launches = ops.launch_counts("story")
+        row = _cli_row(2, out, timed, launches, 2, card)
+        state = res.state
+        del res
+        masters_equal = all(
+            _bits_equal(t, phase10["masters"][n].to(t.device))
+            for n, t in state.params.items())
+        file_equal = _state_equals_file(state.state_dicts(),
+                                        restore_checkpoint(out)[0])
+        row.update(backend=backend, world=dist.get_world_size(),
+                   losses_equal=row["losses"] == phase10["losses"],
+                   masters_equal=masters_equal, file_equal=file_equal,
+                   launches_a_step={k: v / 2 for k, v in launches.items()})
+        print(f"dp one rank: {card}: stage 2 under a one-rank {backend} "
+              f"group: losses {row['losses']} (phase 10 "
+              f"{phase10['losses']}); losses equal bit for bit "
+              f"{row['losses_equal']}, masters {masters_equal}, checkpoint "
+              f"{file_equal}; launches a step {row['launches_a_step']}",
+              flush=True)
+        if not (row["losses_equal"] and masters_equal and file_equal):
+            raise AssertionError("the one-rank group's stage-2 run differs "
+                                 "from phase 10's")
+        if launches != phase10["launches"]:
+            raise AssertionError(f"the one-rank run launched {launches}, "
+                                 f"phase 10 {phase10['launches']}")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(out, ignore_errors=True)
+    return row
+
+
+class TwoStories:
+    """Two full-width synthetic Flintstones stories, repeated: shard r of
+    n at batch b reads rows [r b, (r + 1) b) of the two, so two ranks at
+    batch 1 read together what one process reads at batch 2."""
+
+    def __init__(self):
+        from rcdms_tpu_torch.configs import DatasetConfig
+        from rcdms_tpu_torch.data.datasets import SyntheticStoryDataset
+
+        self.cfg = DatasetConfig(name="flintstones")
+        self._batch = next(SyntheticStoryDataset(
+            cfg=self.cfg, num_items=2).batches(2, seed=0))
+
+    def batches(self, batch_size, shard_id=0, num_shards=1, **_):
+        if batch_size * num_shards != 2:
+            raise ValueError(f"{num_shards} shards of {batch_size} rows")
+        lo = shard_id * batch_size
+        rows = {k: v[lo:lo + batch_size] for k, v in self._batch.items()}
+        while True:
+            yield rows
+
+
+def _dp_stage1(out: str, batch_size: int, *extra):
+    """Phase 10 (b)'s stage 1 (the prior cut to 4 layers) in fp32, 2 steps
+    of --batch-size `batch_size` on `TwoStories`, one checkpoint."""
+    import dataclasses
+
+    from rcdms_tpu_torch.cli import train_stage1
+    from rcdms_tpu_torch.sample.pipeline import full_configs
+
+    configs = full_configs(temporal_zero_init=False)
+    configs = dataclasses.replace(configs, prior=dataclasses.replace(
+        configs.prior, num_layers=4))
+    args = train_stage1.parse_args([
+        "--device", "cuda", "--batch-size", str(batch_size), "--dtype",
+        "float32", "--learning-rate", "1e-5", "--warmup-steps", "0",
+        "--log-every", "1", "--max-train-steps", "2", "--report-to", "none",
+        "--output-dir", out, *extra])
+    return train_stage1.run(args, TwoStories(), configs)
+
+
+def _dp_rank(rank: int, store: str, root: str) -> None:
+    """Phase 11 (b)'s rank `rank` (a spawned process): joins the two-rank
+    gloo group on the one card, runs `_dp_stage1` with ZeRO-2 and with
+    --no-zero2, and writes its launches, seconds and peak memory."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.train import distributed
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    distributed.maybe_initialize("cuda", init_method=f"file://{store}",
+                                 world_size=2, rank=rank, local_rank=0,
+                                 backend="gloo")
+    try:
+        rows = {}
+        for mode, extra in (("zero2", ()), ("replicated", ("--no-zero2",))):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _dp_stage1(os.path.join(root, mode), 2, *extra)
+            torch.cuda.synchronize()
+            rows[mode] = dict(launches=ops.launch_counts("story"),
+                              s=time.perf_counter() - t0,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(rows, fh)
+    finally:
+        distributed.shutdown()
+
+
+def _losses(out: str) -> list:
+    return [r["loss"] for _, r in sorted(_logged(out).items())]
+
+
+def _set_rel(got: dict, want: dict) -> float:
+    """max |got - want| / max |want| over a set of named tensors."""
+    diff = max(float((got[n] - want[n]).abs().max()) for n in want)
+    return diff / max(float(t.abs().max()) for t in want.values())
+
+
+def dp_two_ranks(card: str) -> dict:
+    """Phase 11 (b): two spawned processes on the one card, a gloo group
+    (NCCL refuses two ranks on one device), `_dp_stage1` at global batch
+    2 with ZeRO-2 and with --no-zero2, against one process (here, no
+    group) at batch 2 on the same two stories: the logged losses and the
+    step-2 masters and moments within 1e-5 relative (of the set's largest
+    magnitude); ZeRO-2 against --no-zero2 reported bit for bit."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.io.checkpoint import restore_checkpoint
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank,
+                         args=(r, os.path.join(DP_DIR, "store"), DP_DIR))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _dp_stage1(os.path.join(DP_DIR, "one"), 2)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = ops.launch_counts("story")
+        torch.cuda.empty_cache()
+        for p in procs:
+            p.join(DP_JOIN_S)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 11 (b) rank exit codes {codes} "
+                                 f"(None: still running after {DP_JOIN_S} "
+                                 f"s)")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(DP_DIR, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        want = restore_checkpoint(os.path.join(DP_DIR, "one"))[0]
+        want_losses = _losses(os.path.join(DP_DIR, "one"))
+        row = dict(one_s=one_s, one_launches=one_launches, ranks=ranks)
+        got = {}
+        for mode in ("zero2", "replicated"):
+            out = os.path.join(DP_DIR, mode)
+            got[mode] = restore_checkpoint(out)[0]
+            losses = _losses(out)
+            row[mode] = dict(
+                losses=losses,
+                loss_rel=max(abs(a - b) / abs(b)
+                             for a, b in zip(losses, want_losses)),
+                **{f"{k}_rel": _set_rel(got[mode][k], want[k])
+                   for k in ("params", "mu", "nu")})
+        row["zero2_bits_equal_replicated"] = all(
+            _bits_equal(got["zero2"][k][n], t)
+            for k in ("params", "mu", "nu")
+            for n, t in got["replicated"][k].items())
+        peaks = [{m: (x[m]["s"], x[m]["peak_bytes"] / 2**30) for m in x}
+                 for x in ranks]
+        print(f"dp two ranks: {card}: stage 1 (4 layers, fp32, global "
+              f"batch 2) on two gloo ranks against one process at batch 2 "
+              f"(losses {want_losses}): ZeRO-2 {row['zero2']}, --no-zero2 "
+              f"{row['replicated']}; ZeRO-2 equals --no-zero2 bit for bit "
+              f"{row['zero2_bits_equal_replicated']}; rank seconds and "
+              f"peak GiB {peaks}; launches a rank "
+              f"{[x['zero2']['launches'] for x in ranks]}, one process "
+              f"{one_launches}", flush=True)
+        bad = [(m, k, row[m][k]) for m in ("zero2", "replicated")
+               for k in ("loss_rel", "params_rel", "mu_rel", "nu_rel")
+               if not row[m][k] <= 1e-5]
+        if bad:
+            raise AssertionError(f"two ranks disagree with one process: "
+                                 f"{bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+    return row
+
+
+def run_dp(dev, card: str, phase10: dict) -> dict:
+    """Phase 11: data-parallel training (module docstring)."""
+    print(f"dp on {card}", flush=True)
+    result = dict(card=card, one_rank=dp_one_rank(dev, card, phase10),
+                  two_ranks=dp_two_ranks(card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_train_dp.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     return result
 
@@ -2126,7 +2419,8 @@ def main() -> int:
     step2 = trained["full"]["stage2"]
     step_launches = {k: v + step2["encode_launches"][k]
                      for k, v in step2["steps"][0]["launches"].items()}
-    train_cli = run_train_cli(dev, card, step_launches)
+    phase10 = {}
+    train_cli = run_train_cli(dev, card, step_launches, phase10)
     cli_launches = {"stage2": train_cli["stage2"]["run"]["launches"],
                     "stage2_resumed": train_cli["stage2"]["resumed"][
                         "launches"],
@@ -2134,6 +2428,15 @@ def main() -> int:
     for name in cli_launches["stage2"]:
         if sum(c[name] for c in cli_launches.values()) == 0:
             raise AssertionError(f"the training CLIs never launched {name}")
+    dp = run_dp(dev, card, phase10)
+    del phase10
+    dp_launches = {"stage2_one_rank": dp["one_rank"]["launches"],
+                   **{f"stage1_rank{r}": x["zero2"]["launches"]
+                      for r, x in enumerate(dp["two_ranks"]["ranks"])}}
+    for name in dp_launches["stage2_one_rank"]:
+        if sum(c[name] for c in dp_launches.values()) == 0:
+            raise AssertionError(f"data-parallel training never launched "
+                                 f"{name}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2151,6 +2454,8 @@ def main() -> int:
                 for stage, r in trained["full"].items()}
             kernels[-1]["train_cli_launches"] = {
                 run: counts[name] for run, counts in cli_launches.items()}
+            kernels[-1]["dp_launches"] = {
+                run: counts[name] for run, counts in dp_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

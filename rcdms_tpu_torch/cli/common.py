@@ -2,8 +2,8 @@
 tower builders (seeded random init, or a pretrained diffusers / HF
 directory converted by `io/convert.py`), the trained reference checkpoint
 loaders, the inputs and conditioning cache of a story, and the training
-CLIs' flags, one-process guard, per-step generators and loop
-(`train_loop`).
+CLIs' flags, per-step generators and loop (`train_loop`, one process or
+a data-parallel process group).
 
 Every builder draws its random init as `core/layers.py::init_like_flax_`
 does, from `torch.Generator(device).manual_seed(seed)`, then overlays the
@@ -336,22 +336,6 @@ def build_story_inputs(captions: Sequence[str],
 # the training CLIs' shared plumbing (train_stage1.py, train_stage2.py)
 # ---------------------------------------------------------------------------
 
-def require_one_process() -> None:
-    """Raises SystemExit under a launcher of several processes
-    (`WORLD_SIZE` > 1) or an initialised process group: the training CLIs
-    run one process on one card, and N independent trainings that look
-    like one run are worse than an error. Data parallelism is ROADMAP.md
-    Queue 1 item 16."""
-    import torch.distributed as dist
-
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1 or (dist.is_available() and dist.is_initialized()):
-        raise SystemExit(
-            f"the training CLIs run one process on one card (WORLD_SIZE "
-            f"{world}); data-parallel training over several processes is "
-            f"not ported yet (ROADMAP.md Queue 1 item 16)")
-
-
 def step_generators(seed: int, step: int, device
                     ) -> Tuple[torch.Generator, torch.Generator]:
     """(the encode's, the step's) generators of training step `step`,
@@ -383,7 +367,8 @@ def add_training_flags(p, defaults) -> None:
     p.add_argument("--warmup-steps", type=int, default=opt.warmup_steps)
     p.add_argument("--max-train-steps", type=int, default=1_000_000)
     p.add_argument("--batch-size", type=int, default=defaults.batch_size,
-                   help="global (one process: the card's batch)")
+                   help="global: each of N processes trains on batch-size "
+                        "/ N rows")
     p.add_argument("--noise-offset", type=float,
                    default=defaults.noise_offset)
     p.add_argument("--max-grad-norm", type=float,
@@ -391,8 +376,8 @@ def add_training_flags(p, defaults) -> None:
     p.add_argument("--checkpointing-steps", type=int,
                    default=defaults.checkpoint_every)
     p.add_argument("--no-zero2", action="store_true",
-                   help="accepted for the JAX CLI's command lines; one "
-                        "card has no optimizer state to shard")
+                   help="replicate the optimizer state on every process "
+                        "(by default each holds its ZeRO-2 cut)")
     p.add_argument("--accumulate-steps", type=int, default=1)
     p.add_argument("--seed", type=int, default=defaults.seed)
     p.add_argument("--dtype", default=defaults.compute_dtype,
@@ -422,6 +407,19 @@ def optimizer_config(args) -> OptimizerConfig:
         learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
         max_steps=args.max_train_steps, grad_clip_norm=args.max_grad_norm,
         accumulate_steps=args.accumulate_steps)
+
+
+def local_batch(args) -> int:
+    """This process's rows of the global --batch-size; exits unless the
+    process group's size divides it."""
+    from rcdms_tpu_torch.train import distributed, sharding
+
+    _, world = distributed.rank_and_size()
+    if args.batch_size % world:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"data-parallel device count {world}")
+    return sharding.local_batch_size(args.batch_size)
 
 
 def device_of(args) -> torch.device:
@@ -489,21 +487,26 @@ class TrainRun(NamedTuple):
     step: int
 
 
-def train_loop(args, state, towers, encode: Callable, dataset,
-               device) -> TrainRun:
-    """The JAX CLIs' loop on one card. Each step: the profile window's
-    tick, the next batch (prefetched unless --no-prefetch), the data
-    timer, `encode(raw, generator)` (the frozen towers, no grad), then
-    `train.loop.train_step` on the step's generator; a log line at
+def train_loop(args, state, towers, encode: Callable, dataset, device,
+               batch_size: int) -> TrainRun:
+    """The JAX CLIs' loop, on one process or on each rank of a process
+    group (`train/distributed.py`), `batch_size` rows a rank
+    (`local_batch`). Each step: the profile window's tick, the rank's next
+    batch (its shard of the dataset, prefetched unless --no-prefetch), the
+    data timer, `encode(raw, generator)` (the frozen towers, no grad),
+    then `train.loop.train_step` on the step's generator; a log line at
     --log-every and at the first step (the only points where the loss
-    comes to the host), a checkpoint every --checkpointing-steps, a
-    SIGTERM check. A final save after the loop; a SIGTERM saves at the
-    step boundary and returns."""
+    comes to the host, its mean over the ranks), a checkpoint every
+    --checkpointing-steps, a SIGTERM check (collective: every rank stops
+    at the same step). A final save after the loop; a SIGTERM saves at
+    the step boundary and returns. Rank 0 alone writes the metrics and
+    the checkpoints; each rank's profile goes to its own subdirectory."""
     from rcdms_tpu_torch.data.prefetch import PrefetchIterator
     from rcdms_tpu_torch.io.checkpoint import (
         restore_checkpoint,
-        save_checkpoint,
+        save_train_state,
     )
+    from rcdms_tpu_torch.train import distributed
     from rcdms_tpu_torch.train.loop import train_step
     from rcdms_tpu_torch.utils.logging import (
         MetricLogger,
@@ -512,30 +515,38 @@ def train_loop(args, state, towers, encode: Callable, dataset,
     )
     from rcdms_tpu_torch.utils.preemption import PreemptionGuard
 
+    rank, world = distributed.rank_and_size()
+    lead = rank == 0
     log = MetricLogger(args.output_dir,
                        report_to=tuple(args.report_to.split(",")),
-                       run_config=vars(args))
+                       run_config=vars(args)) if lead else None
     start_step = 0
     if args.resume_from_checkpoint:
+        # every rank reads the file and keeps its cut of the moments
         restored, _, start_step = restore_checkpoint(
             args.resume_from_checkpoint)
         state.load_state_dicts(restored)
         del restored
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
 
     def save(step: int, **meta) -> None:
-        save_checkpoint(args.output_dir, step, state.state_dicts(),
-                        {"last_global_step": step, **meta})
+        save_train_state(args.output_dir, step, state,
+                         {"last_global_step": step, **meta})
 
-    # one process: it reads every row of the batch (shard 0 of 1); the data
-    # iterator restarts on resume, as the JAX CLIs' does
-    batches = dataset.batches(args.batch_size, seed=args.seed)
+    # this rank's shard of the dataset (shard 0 of 1 for one process); the
+    # data iterator restarts on resume, as the JAX CLIs' does
+    batches = dataset.batches(batch_size, seed=args.seed, shard_id=rank,
+                              num_shards=world)
     if not args.no_prefetch:
         # overlap host decode and packing with the card's step; the native
         # feeder's ring is sized for this depth (train_dataset)
         batches = PrefetchIterator(batches, depth=1)
     guard = PreemptionGuard.install()
-    profiler = ProfileWindow(args.profile_dir, args.profile_start,
+    profile_dir = args.profile_dir
+    if profile_dir is not None and distributed.active():
+        profile_dir = os.path.join(profile_dir, f"rank{rank}")
+    profiler = ProfileWindow(profile_dir, args.profile_start,
                              args.profile_steps)
     timer = StepTimer()
     try:
@@ -549,12 +560,14 @@ def train_loop(args, state, towers, encode: Callable, dataset,
             loss = train_step(state, batch, generator=step_gen)
             del raw, batch
             if step_i % args.log_every == 0 or step_i == start_step:
-                loss = loss.item()  # waits for the card
+                # the global batch's loss; waits for the card
+                loss = distributed.mean_over_ranks(loss).item()
                 step_time, data_time = timer.step_done()
-                log.log(step_i, {"loss": loss, "step_time": step_time,
-                                 "data_time": data_time})
-                print(f"step {step_i} loss {loss:.5f} ({step_time:.2f}s "
-                      f"step, {data_time:.2f}s data)", flush=True)
+                if lead:
+                    log.log(step_i, {"loss": loss, "step_time": step_time,
+                                     "data_time": data_time})
+                    print(f"step {step_i} loss {loss:.5f} ({step_time:.2f}s "
+                          f"step, {data_time:.2f}s data)", flush=True)
             else:
                 timer.step_done()
             if (step_i + 1) % args.checkpointing_steps == 0:
@@ -563,8 +576,9 @@ def train_loop(args, state, towers, encode: Callable, dataset,
                 # SIGTERM (preemption): save at the step boundary, exit
                 # cleanly
                 save(step_i + 1, preempted=True)
-                print(f"preempted: checkpoint saved at step {step_i + 1}",
-                      flush=True)
+                if lead:
+                    print(f"preempted: checkpoint saved at step "
+                          f"{step_i + 1}", flush=True)
                 return TrainRun(state, towers, step_i + 1)
         save(args.max_train_steps)
         return TrainRun(state, towers, args.max_train_steps)
@@ -573,4 +587,5 @@ def train_loop(args, state, towers, encode: Callable, dataset,
         if isinstance(batches, PrefetchIterator):
             batches.close()
         guard.uninstall()
-        log.close()
+        if log is not None:
+            log.close()

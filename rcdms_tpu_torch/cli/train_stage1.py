@@ -1,6 +1,6 @@
 """Stage-1 training CLI, the counterpart of `rcdms_tpu/cli/train_stage1.py`:
 the frame prior trained over fp32 masters, the bigG text and vision
-towers frozen. One process on one card.
+towers frozen. One process on one card:
 
     python -m rcdms_tpu_torch.cli.train_stage1 --dataset flintstones \
         --h5-path .../flintstones.h5 \
@@ -14,11 +14,13 @@ Smoke run (tiny towers, synthetic stories, on the CPU):
     python -m rcdms_tpu_torch.cli.train_stage1 --synthetic --device cpu \
         --max-train-steps 2 --output-dir runs/smoke1
 
-Checkpoints, resume and SIGTERM as `train_stage2`'s. The encode draws no
-noise; the step's noise comes from the generator seeded from
-(seed, 2 step + 1) (`common.step_generators`). The flags are the JAX
-CLI's with its defaults, and --device (default cuda, no CPU fallback);
---no-zero2 does nothing on one card."""
+or N data-parallel processes, `torchrun --nproc-per-node N -m
+rcdms_tpu_torch.cli.train_stage1 ...`. Checkpoints, resume, SIGTERM, the
+global --batch-size and --no-zero2 as `train_stage2`'s. The encode draws
+no noise; the step's noise comes from the generator seeded from
+(seed, 2 step + 1) (`common.step_generators`), drawn for the global
+batch. The flags are the JAX CLI's with its defaults, and --device
+(default cuda, no CPU fallback)."""
 
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from rcdms_tpu_torch.configs import (
     TemporalConfig,
 )
 from rcdms_tpu_torch.sample.pipeline import PipelineConfigs
+from rcdms_tpu_torch.train import distributed
 from rcdms_tpu_torch.train.optim import make_optimizer
 from rcdms_tpu_torch.train.stage1 import (
     Stage1Batch,
@@ -133,7 +136,8 @@ def build_state(args, configs: PipelineConfigs, device):
     trainer = Stage1Trainer(common.trainable(prior),
                             noise_offset=args.noise_offset)
     state = TrainState.create(
-        trainer, make_optimizer(common.optimizer_config(args)), dtype)
+        trainer, make_optimizer(common.optimizer_config(args),
+                                zero2=not args.no_zero2), dtype)
     return state, towers
 
 
@@ -144,21 +148,27 @@ def encode(towers, raw: dict, generator=None) -> Stage1Batch:
 
 def run(args, dataset, configs: PipelineConfigs = None) -> common.TrainRun:
     """Train on `dataset` (its `cfg` and `batches`) as the flags say;
-    `configs` defaults to `default_configs`."""
+    `configs` defaults to `default_configs`. Under a process group (`main`
+    joins torchrun's) this process trains on its rows of the global
+    --batch-size."""
     device = common.device_of(args)
+    batch_size = common.local_batch(args)
     configs = _apply_flags(args, configs or default_configs(args,
                                                             dataset.cfg))
     state, towers = build_state(args, configs, device)
     return common.train_loop(
         args, state, towers,
-        lambda raw, g: encode(towers, raw, g), dataset, device)
+        lambda raw, g: encode(towers, raw, g), dataset, device, batch_size)
 
 
 def main(argv=None):
     args = parse_args(argv)
     setup_logging()
-    common.require_one_process()
-    run(args, common.train_dataset(args))
+    distributed.maybe_initialize(args.device)
+    try:
+        run(args, common.train_dataset(args))
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 """Stage-2 training CLI, the counterpart of `rcdms_tpu/cli/train_stage2.py`:
 the story UNet and the fusion stacks trained together over fp32 masters,
-the VAE and both CLIP towers frozen. One process on one card.
+the VAE and both CLIP towers frozen. One process on one card, or N
+data-parallel processes under torchrun:
 
-    python -m rcdms_tpu_torch.cli.train_stage2 --dataset flintstones \
-        --h5-path .../flintstones.h5 \
+    torchrun --nproc-per-node 8 -m rcdms_tpu_torch.cli.train_stage2 \
+        --dataset flintstones --h5-path .../flintstones.h5 \
         --sd-pretrained .../stable-diffusion-v1-5 \
         --vision-pretrained .../kandinsky-2-2-prior/image_encoder \
-        --output-dir runs/stage2
+        --batch-size 8 --output-dir runs/stage2
 
 Smoke run (tiny towers, synthetic stories, on the CPU):
 
@@ -17,8 +18,12 @@ Checkpoints (`io/checkpoint.py`) go to --output-dir/<step>/: every
 --checkpointing-steps, after the last step, and at a SIGTERM's step
 boundary ({"preempted": true}); --resume-from-checkpoint continues from
 the newest. The flags are the JAX CLI's with its defaults, and --device
-(default cuda, no CPU fallback); --no-zero2 does nothing on one card,
-where the JAX package's ZeRO-2 over a one-device mesh shards nothing."""
+(default cuda, no CPU fallback). --batch-size is global: each of N
+processes reads its shard of the dataset, batch-size / N stories a step,
+and takes cuda:{LOCAL_RANK}; the gradients are averaged over the
+processes (NCCL) and each holds its ZeRO-2 cut of the optimizer state,
+or all of it with --no-zero2 (`train/sharding.py`). Rank 0 writes the
+metrics and the checkpoints, which any number of processes resumes."""
 
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from rcdms_tpu_torch.configs import (
     VAEConfig,
 )
 from rcdms_tpu_torch.sample.pipeline import PipelineConfigs
+from rcdms_tpu_torch.train import distributed
 from rcdms_tpu_torch.train.optim import make_optimizer
 from rcdms_tpu_torch.train.stage2 import (
     Stage2Batch,
@@ -162,7 +168,8 @@ def build_state(args, configs: PipelineConfigs, device):
         common.load_masters(trainer, restored["params"])
         del restored
     state = TrainState.create(
-        trainer, make_optimizer(common.optimizer_config(args)), dtype)
+        trainer, make_optimizer(common.optimizer_config(args),
+                                zero2=not args.no_zero2), dtype)
     return state, towers
 
 
@@ -174,21 +181,27 @@ def encode(towers, raw: dict, generator) -> Stage2Batch:
 
 def run(args, dataset, configs: PipelineConfigs = None) -> common.TrainRun:
     """Train on `dataset` (its `cfg` and `batches`) as the flags say;
-    `configs` defaults to `default_configs`."""
+    `configs` defaults to `default_configs`. Under a process group (`main`
+    joins torchrun's) this process trains on its rows of the global
+    --batch-size."""
     device = common.device_of(args)
+    batch_size = common.local_batch(args)
     configs = _apply_flags(args, configs or default_configs(args,
                                                             dataset.cfg))
     state, towers = build_state(args, configs, device)
     return common.train_loop(
         args, state, towers,
-        lambda raw, g: encode(towers, raw, g), dataset, device)
+        lambda raw, g: encode(towers, raw, g), dataset, device, batch_size)
 
 
 def main(argv=None):
     args = parse_args(argv)
     setup_logging()
-    common.require_one_process()
-    run(args, common.train_dataset(args))
+    distributed.maybe_initialize(args.device)
+    try:
+        run(args, common.train_dataset(args))
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

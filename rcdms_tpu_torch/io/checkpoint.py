@@ -15,6 +15,12 @@ with a step's name is complete, and a save cut short leaves only the
 temporary one, which no reader takes. Orbax's two rules are kept: a save
 at or below the latest step on disk is skipped (the first save of a step
 stays), and only the `max_to_keep` newest steps stay.
+
+A training state saved from a process group (`save_train_state`) is
+written in the same format by rank 0, from the optimizer-state cuts
+gathered to its host memory, and every rank of any group size restores
+its own cut of it (`TrainState.load_state_dicts`): a checkpoint does not
+depend on the number of ranks that wrote or read it.
 """
 
 from __future__ import annotations
@@ -71,6 +77,26 @@ def save_checkpoint(directory: str, step: int, state: Any,
     for old in _steps(directory)[:-max_to_keep] if max_to_keep else []:
         shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
     return True
+
+
+def save_train_state(directory: str, step: int, state,
+                     metadata: Optional[Dict] = None,
+                     max_to_keep: int = 3) -> bool:
+    """`save_checkpoint` of a `TrainState`'s whole tree
+    (`TrainState.host_state_dicts`) from every rank of its process group:
+    rank 0 writes (and rotates `max_to_keep`), the others wait for it at a
+    barrier of the host group. Returns whether rank 0 wrote the step."""
+    import torch.distributed as dist
+
+    from rcdms_tpu_torch.train import distributed
+
+    tree = state.host_state_dicts()
+    wrote = tree is not None and save_checkpoint(
+        directory, step, tree, metadata, max_to_keep=max_to_keep)
+    del tree
+    if distributed.active():
+        dist.barrier(group=distributed.host_group())
+    return wrote
 
 
 def _into(target: Any, loaded: Any, where: str = "state") -> Any:

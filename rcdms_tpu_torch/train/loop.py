@@ -1,4 +1,4 @@
-"""The training step on one card: the port's counterpart of the step that
+"""The training step: the port's counterpart of the step that
 `rcdms_tpu/train/loop.py` compiles.
 
 `train_step` zeroes the gradients, computes the trainer's loss on the
@@ -8,11 +8,16 @@ values are then rounded into the compute module's copies
 (`TrainState.apply_gradients`). The loss comes back as a device tensor,
 so a step does not wait for the card, unless the caller asks for a float.
 
-No sharding here: data parallelism and the sharded optimizer state
-(`rcdms_tpu/train/sharding.py`, `make_sharded_train_step`) are the
-distributed slice's. A trainer is a module whose parameters are the
-trainable set, with `loss_fn(batch, noise)` and `draw_noise(batch,
-generator)` (`train/stage1.py`, `train/stage2.py`).
+Under a process group (`train/distributed.py`) each rank runs this step
+on its rows of the global batch: its noise is its rows of the global
+draw (`TrainNoise.draw`), its loss the mean over its rows, and the
+optimizer averages the gradients over the ranks before it steps
+(`train/optim.py`). With equal local batches, the mean of the ranks'
+means is the mean over the global batch, so N ranks compute the JAX
+package's sharded step (`make_sharded_train_step`, gradients
+replicated). A trainer is a module whose parameters are the trainable
+set, with `loss_fn(batch, noise)` and `draw_noise(batch, generator)`
+(`train/stage1.py`, `train/stage2.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from rcdms_tpu_torch.train.distributed import keep_rows
 from rcdms_tpu_torch.train.train_state import TrainState
 
 
@@ -40,15 +46,22 @@ class TrainNoise(NamedTuple):
     def draw(cls, generator: Optional[torch.Generator], shape: tuple,
              offset_shape: Optional[tuple], t_shape: tuple,
              num_timesteps: int, device) -> "TrainNoise":
-        """Drawn from `generator` in this order: noise, offset, t."""
+        """Drawn from `generator` in this order: noise, offset, t; each of
+        the shapes (whose first axis is the local batch) drawn for the
+        global batch, this rank keeping its rows
+        (`distributed.keep_rows`)."""
         if generator is None:
             raise ValueError("pass explicit noise or a torch.Generator")
-        noise = torch.randn(shape, generator=generator, device=device)
-        offset = (None if offset_shape is None else
-                  torch.randn(offset_shape, generator=generator,
-                              device=device))
-        t = torch.randint(0, num_timesteps, t_shape, generator=generator,
-                          device=device)
+
+        def randn(s):
+            return torch.randn(s, generator=generator, device=device)
+
+        noise = keep_rows(randn, shape)
+        offset = None if offset_shape is None else keep_rows(randn,
+                                                             offset_shape)
+        t = keep_rows(lambda s: torch.randint(
+            0, num_timesteps, s, generator=generator, device=device),
+            t_shape)
         return cls(noise, offset, t)
 
     def to(self, device) -> "TrainNoise":

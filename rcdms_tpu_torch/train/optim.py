@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from rcdms_tpu_torch.configs import OptimizerConfig
+from rcdms_tpu_torch.train import distributed
+from rcdms_tpu_torch.train.sharding import Shards, chunks
 
 Tensors = Dict[str, torch.Tensor]
-CHUNK = 1 << 27  # elements a chunk of the update (0.5 GB of fp32 a list)
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -108,36 +109,44 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(1.0 - pow_)
 
 
-def _chunks(names: list, params: Tensors):
-    """`names` in runs of at most CHUNK elements (one tensor may exceed
-    it)."""
-    run, size = [], 0
-    for n in names:
-        if run and size + params[n].numel() > CHUNK:
-            yield run
-            run, size = [], 0
-        run.append(n)
-        size += params[n].numel()
-    if run:
-        yield run
-
-
 class AdamW:
     """`make_optimizer`'s chain over fp32 parameters and gradients keyed
-    by name; `update` changes the parameters in place."""
+    by name; `update` changes the parameters in place.
 
-    def __init__(self, cfg: OptimizerConfig):
+    Under a process group (`train/distributed.py`), `init` cuts the
+    optimizer state as the JAX package's ZeRO-2 does (`zero2`; everything
+    replicated without it, as its `--no-zero2`), and `update` first
+    replaces the gradients by their mean over the ranks, then steps this
+    rank's cut of the moments and the masters and all-gathers the
+    masters (`train/sharding.py::Shards`). The clip norm is the global
+    norm of the full mean gradients, with or without ZeRO-2."""
+
+    def __init__(self, cfg: OptimizerConfig, zero2: bool = True):
         if cfg.accumulate_steps < 1:
             raise ValueError(f"accumulate_steps {cfg.accumulate_steps}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
+        self.zero2 = zero2
+        self.shards: Optional[Shards] = None
 
     def init(self, params: Tensors) -> OptState:
+        """Zero moments (and accumulator): this rank's cuts under a
+        process group, the full tensors without one."""
+        if distributed.active():
+            self.shards = Shards({n: p.shape for n, p in params.items()},
+                                 self.zero2)
+
         def zeros():
-            return {n: torch.zeros_like(p) for n, p in params.items()}
+            return {n: torch.zeros_like(self.cut(n, p))
+                    for n, p in params.items()}
         return OptState(mu=zeros(), nu=zeros(),
                         acc=zeros() if self.cfg.accumulate_steps > 1
                         else None)
+
+    def cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's cut of the full tensor `t` of parameter `name` (a
+        view; `t` itself with no group or where it is replicated)."""
+        return t if self.shards is None else self.shards.cut(name, t)
 
     @torch.no_grad()
     def update(self, params: Tensors, grads: Tensors,
@@ -150,9 +159,12 @@ class AdamW:
         be changed in place."""
         names = list(params)
         k = self.cfg.accumulate_steps
+        if self.shards is not None:
+            self.shards.all_reduce_mean_(grads)
+        mine = {n: self.cut(n, grads[n]) for n in names}
         if k > 1:
             acc = [state.acc[n] for n in names]
-            diff = torch._foreach_sub([grads[n] for n in names], acc)
+            diff = torch._foreach_sub([mine[n] for n in names], acc)
             torch._foreach_div_(diff, float(state.mini_step + 1))
             torch._foreach_add_(acc, diff)
             del diff
@@ -161,17 +173,24 @@ class AdamW:
                 return None
             state.mini_step = 0
             state.gradient_step += 1
-            grads = state.acc
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([grads[n] for n in names])))
+            mine = state.acc
+        if k > 1 and self.shards is not None:
+            norm = self.shards.global_norm(mine)
+        else:  # the full gradients, on every rank
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([(mine if k > 1 else grads)[n]
+                                     for n in names])))
         limit = self.cfg.grad_clip_norm
         if limit is not None:  # g / norm * limit where norm >= limit
             below = norm < limit
-            g = [grads[n] for n in names]
+            g = [mine[n] for n in names]
             torch._foreach_div_(g, torch.where(below, 1.0, norm))
             torch._foreach_mul_(g, torch.where(below, 1.0,
                                                torch.full_like(norm, limit)))
-        self._adamw(params, grads, state, names)
+        self._adamw({n: self.cut(n, params[n]) for n in names}, mine, state,
+                    names)
+        if self.shards is not None:
+            self.shards.all_gather_(params)
         if k > 1:
             torch._foreach_zero_([state.acc[n] for n in names])
         return norm
@@ -184,7 +203,7 @@ class AdamW:
         state.count += 1
         bc1 = _bias_correction(b1, state.count)
         bc2 = _bias_correction(b2, state.count)
-        for run in _chunks(names, params):
+        for run in chunks(names, params):
             p = [params[n] for n in run]
             g = [grads[n] for n in run]
             mu = [state.mu[n] for n in run]
@@ -205,5 +224,5 @@ class AdamW:
             torch._foreach_add_(p, u, alpha=-lr)
 
 
-def make_optimizer(cfg: OptimizerConfig) -> AdamW:
-    return AdamW(cfg)
+def make_optimizer(cfg: OptimizerConfig, zero2: bool = True) -> AdamW:
+    return AdamW(cfg, zero2)

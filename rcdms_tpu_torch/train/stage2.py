@@ -26,6 +26,7 @@ from rcdms_tpu_torch.models.unet3d import StoryUNet
 from rcdms_tpu_torch.models.vae import VAE
 from rcdms_tpu_torch.sample.pipeline import PipelineConfigs, for_inference
 from rcdms_tpu_torch.sample.prior_sampler import draw_noise
+from rcdms_tpu_torch.train.distributed import keep_rows
 from rcdms_tpu_torch.train.loop import TrainNoise
 from rcdms_tpu_torch.train.optim import make_optimizer
 from rcdms_tpu_torch.train.train_state import TrainState
@@ -91,8 +92,9 @@ def encode_batch(vae: VAE, text_encoder: CLIPTextEncoder,
     pixels (b, f, H, W, 3) in [-1, 1], frame_known (b, f). The target's and
     the source's posteriors are sampled on `noise` (two fp32 standard
     normals of the latents' (b f, h8, w8, 4)), else on noise drawn from
-    `generator`, target first. mask_label is rebuilt at latent resolution
-    from frame_known."""
+    `generator`, target first, each drawn for the global batch of a
+    process group, this rank keeping its rows (`distributed.keep_rows`).
+    mask_label is rebuilt at latent resolution from frame_known."""
     ids = raw["input_ids"]
     b, f, t = ids.shape
     hidden, _ = text_encoder(ids.reshape(b * f, t))
@@ -104,7 +106,8 @@ def encode_batch(vae: VAE, text_encoder: CLIPTextEncoder,
         mean, logvar = vae.encode(x.reshape((b * f,) + x.shape[2:]).to(
             vae.quant_conv.weight.dtype))
         if eps is None:
-            eps = draw_noise(mean.shape, generator, mean.device)
+            eps = keep_rows(lambda s: draw_noise(s, generator, mean.device),
+                            mean.shape)
         z = VAE.sample_latent(mean, logvar, eps) * vae_scale
         return z.reshape((b, f) + z.shape[1:])
 

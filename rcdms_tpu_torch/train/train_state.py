@@ -12,6 +12,12 @@ computes the same: its Dense casts the fp32 parameter to bf16, and the
 transpose of that cast widens the bf16 cotangent. (`torch.autocast` would
 round at the places of its op lists instead.) In fp32 the masters are the
 module's own parameters.
+
+Under a process group the masters are whole on every rank and the
+optimizer state is this rank's ZeRO-2 cut (`train/optim.py::AdamW`);
+`host_state_dicts` gathers the cuts for a checkpoint, and
+`load_state_dicts` keeps this rank's cut of a whole tree, so a
+checkpoint does not depend on the number of ranks that wrote it.
 """
 
 from __future__ import annotations
@@ -91,7 +97,8 @@ class TrainState:
         """The inverse of `load_state_dicts`, with the keys of
         `io/bridge.py::train_state_dicts`: "params", "mu", "nu" and "acc"
         (None without accumulation) by parameter name, the state's own
-        tensors (not copies), and the ints "count", "mini_step",
+        tensors (not copies; the moments are this rank's cuts under a
+        process group), and the ints "count", "mini_step",
         "gradient_step" and "step"."""
         st = self.opt_state
 
@@ -104,11 +111,29 @@ class TrainState:
                     mini_step=st.mini_step,
                     gradient_step=st.gradient_step, step=self.step)
 
+    @torch.no_grad()
+    def host_state_dicts(self) -> Optional[dict]:
+        """`state_dicts` with whole tensors, for a checkpoint: with no
+        process group, `state_dicts` itself; under one, a collective that
+        gathers each cut of the optimizer state to rank 0's host memory
+        one tensor at a time (so the device never holds a second whole
+        copy of the moments) and returns the tree there, None on the
+        other ranks."""
+        dicts = self.state_dicts()
+        shards = self.optimizer.shards
+        if shards is None:
+            return dicts
+        for key in ("mu", "nu", "acc"):
+            if dicts[key] is not None:
+                dicts[key] = {n: shards.gather_to_host(n, t)
+                              for n, t in dicts[key].items()}
+        return dicts if shards.rank == 0 else None
+
     def load_state_dicts(self, dicts: dict) -> None:
         """The masters, moments, counts and step from `dicts`
-        (`state_dicts`, or `io/bridge.py::train_state_dicts`: tensors or
-        numpy arrays by parameter name), then the copies rounded from the
-        masters."""
+        (`host_state_dicts`, or `io/bridge.py::train_state_dicts`: whole
+        tensors or numpy arrays by parameter name; a rank keeps its cut of
+        the moments), then the copies rounded from the masters."""
         st = self.opt_state
         with torch.no_grad():
             for key, target in (("params", self.params), ("mu", st.mu),
@@ -121,8 +146,9 @@ class TrainState:
                                    f"{sorted(set(src) ^ set(target))[:5]}")
                 for n, t in target.items():
                     v = src[n]
-                    t.copy_(v if isinstance(v, torch.Tensor)
-                            else torch.tensor(v))
+                    v = v if isinstance(v, torch.Tensor) else torch.tensor(v)
+                    t.copy_(v if key == "params"
+                            else self.optimizer.cut(n, v))
         self._round_copies()
         st.count, st.mini_step, st.gradient_step = (
             int(dicts["count"]), int(dicts["mini_step"]),

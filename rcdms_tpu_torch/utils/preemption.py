@@ -4,23 +4,16 @@ sets a flag; the training loop reads it at the step boundary, saves a
 checkpoint through its normal path and exits cleanly, so no step is torn
 and an eviction loses no more than the step in flight.
 
-One process only: `should_stop_global` is the local flag. With a process
-group of more than one rank it raises, because one rank's answer alone
-would send the ranks into the save at different steps; the collective
-version comes with data parallelism."""
+Under a process group `should_stop_global` is a collective, the MAX of
+the ranks' flags over the host-side gloo group
+(`train/distributed.py::host_group`), so it never waits for the card:
+a SIGTERM to any rank stops every rank at the same step boundary, and
+they enter the checkpoint's collectives together."""
 
 from __future__ import annotations
 
 import signal
 import threading
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 class PreemptionGuard:
@@ -46,14 +39,24 @@ class PreemptionGuard:
         self._event.set()
 
     def should_stop_global(self) -> bool:
-        """The stop flag every process agrees on: on one process, the
-        local flag. Raises under a process group of several ranks."""
-        if _world_size() > 1:
-            raise RuntimeError(
-                "PreemptionGuard.should_stop_global answers for one process "
-                "only; a process group of several ranks needs the "
-                "collective stop flag of the data-parallel trainer")
-        return self._event.is_set()
+        """The stop flag every process agrees on: the local flag with no
+        process group; under one, a collective that every rank calls at
+        the same point of each step, true when any rank's flag is set
+        (which then sets this rank's too)."""
+        from rcdms_tpu_torch.train import distributed
+
+        local = self._event.is_set()
+        if not distributed.active():
+            return local
+        import torch
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(local)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=distributed.host_group())
+        if flag.item():
+            self._event.set()
+        return bool(flag.item())
 
     @classmethod
     def install(cls, signals=(signal.SIGTERM,)) -> "PreemptionGuard":

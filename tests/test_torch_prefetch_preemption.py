@@ -105,15 +105,6 @@ def test_should_stop_global_single_process():
     assert guard.should_stop_global()
 
 
-def test_should_stop_global_refuses_a_group_of_several_ranks(monkeypatch):
-    import torch.distributed as dist
-
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(RuntimeError, match="one process only"):
-        PreemptionGuard().should_stop_global()
-
-
 # ---- logging -------------------------------------------------------------
 
 

@@ -9,8 +9,7 @@ against the JAX package's and against the library loop, on the CPU.
   over `train.loop.train_step` on the same batches (the synthetic
   dataset's, in order) and the same per-step generators
   (`cli/common.py::step_generators`); the CLIs run in subprocesses, on
-  one thread each, while the hand loops run here;
-* the one-process guard refuses a launcher of several processes.
+  one thread each, while the hand loops run here.
 """
 
 import json
@@ -137,26 +136,6 @@ def test_cli_equals_the_library_loop(stage, cli_runs, tmp_path):
         bad = [n for n, t in want[key].items()
                if not _bits_equal(got[key][n], t)]
         assert not bad, (key, bad[:5])
-
-
-@pytest.mark.parametrize("env", [{"WORLD_SIZE": "2"}, {}])
-def test_one_process_guard(env, monkeypatch):
-    import torch.distributed as dist
-
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    if not env:  # an initialised process group of any size
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    with pytest.raises(SystemExit, match="item 16"):
-        common.require_one_process()
-    with pytest.raises(SystemExit, match="item 16"):
-        ptrain2.main(["--synthetic", "--device", "cpu"])
-
-
-def test_one_process_guard_passes_one_process(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    common.require_one_process()
 
 
 def test_step_generators_are_seeded_by_seed_and_step():
