@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (rcdms_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --shard-faults  # phase 12 (b)'s fault readings
 
 Phases, in order; any failure raises and the exit code is nonzero:
 
@@ -160,18 +161,39 @@ Phases, in order; any failure raises and the exit code is nonzero:
    1e-5 relative (max |diff| over the set's largest magnitude); whether
    ZeRO-2 equals --no-zero2 bit for bit is printed. Rows go to
    chiprun_out/chip_smoke_train_dp.json.
+12. sharded single-story inference (`--shard-story`,
+   `rcdms_tpu_torch/train/sharding.py`'s inference mesh, the row helpers
+   of `rcdms_tpu_torch/core/spatial.py`): (a) phase 7a's
+   `generate.run` with `--shard-story` under a one-rank NCCL group joined
+   from torchrun's variables (set here for this process): its frames,
+   embeds and launches equal 7a's bit for bit; (b) four spawned processes
+   on the one card in a gloo group (NCCL refuses two ranks on one device;
+   cfg 2 x space 2), each building phase 5's pipeline (seed 0, bf16, the
+   ranks one after another) and running phase 5's request 1 split over
+   the four: its frames within a mean |diff| of 6.0e-3 and a max |diff|
+   of 0.29 of phase 5's, its embeds within TOL[bf16] (max |diff| over
+   max |embed|), every rank launching each of A-D and every B launch
+   tiled; max |diff|, each rank's launches, request and build seconds and
+   peak memory printed. Rows go to chiprun_out/chip_smoke_shard.json.
+   `--shard-faults` runs (b) alone (its reference built first), sound
+   and with each fault of SHARD_FAULTS planted (a seam's halo of
+   zeros), and prints each one's frames' mean and max |diff|: the
+   readings (b)'s limits sit between (PERF.md). Rows go to
+   chiprun_out/chip_smoke_shard_faults.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
 again, phase 8 the story's in the served requests, phase 9 the story's in
 each training step and encode, phase 10 the story's in each CLI run,
-phase 11 the story's in each rank's run: each path's counts are set to 0
-just before it and read just after.
+phase 11 the story's in each rank's run, phase 12 the story's in (a)'s
+run and in each rank's request: each path's counts are set to 0 just
+before it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
 CLI run, encodes included; `dp_launches`: phase 11's, each rank's 2-step
-run); the last line is {"ok": true, "device": {...}}.
+run; `shard_launches`: phase 12's, (a)'s run and each rank's request);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -866,6 +888,8 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
         print(f"story: request {i + 1} {'(repeat of 1) ' if i == 2 else ''}"
               f"{seconds[-1]:.3f} s", flush=True)
         results.append(frames)
+        if i == 0:
+            request1 = dict(frames=frames.cpu(), embeds=embeds.cpu())
     counts = ops.launch_counts("story")
     counts["frame_attention_tiled"] = frame_attention.tiled_launches
 
@@ -881,7 +905,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
           flush=True)
     profile = profile_request(pipe, requests[1], cache, dev, 12)
     return dict(seconds=seconds, counts=counts, repeat_err=repeat_err,
-                profile=profile)
+                profile=profile, request1=request1)
 
 
 # profiler groups of a story's kernels: (group, substrings of the kernel
@@ -1011,8 +1035,9 @@ def _png_size(path: str) -> tuple:
     return struct.unpack(">II", head[16:24])
 
 
-def entry_generate(dev, args, frame0) -> torch.Tensor:
-    """Phase 7a: `cli.generate.run` at full width; returns its frames."""
+def entry_generate(dev, args, frame0) -> tuple:
+    """Phase 7a: `cli.generate.run` at full width; returns its frames,
+    stage-1 embeds and launches."""
     from rcdms_tpu_torch import ops
     from rcdms_tpu_torch.cli import generate
     from rcdms_tpu_torch.ops.frame_attention import frame_attention
@@ -1041,7 +1066,7 @@ def entry_generate(dev, args, frame0) -> torch.Tensor:
           f"{frames.max().item():.3f}]; launches {counts}; grid {path} "
           f"{size[0]} x {size[1]}, {os.path.getsize(path)} bytes, written "
           f"in {png_s:.3f} s", flush=True)
-    return frames
+    return frames, embeds, counts
 
 
 def entry_checkpoints(dev, args, frame0, frames_a: torch.Tensor) -> dict:
@@ -1166,13 +1191,14 @@ def run_entry_points(dev, card: str) -> dict:
         "--seed", "42", "--device", "cuda"])
     frame0 = np.random.RandomState(0).randint(0, 256, (128, 128, 3),
                                               np.uint8)
-    frames = entry_generate(dev, args, frame0)
+    frames, embeds, launches = entry_generate(dev, args, frame0)
     ckpt = entry_checkpoints(dev, args, frame0, frames)
-    frames_a = frames.cpu()
-    del frames
+    frames_a, embeds_a = frames.cpu(), embeds.cpu()
+    del frames, embeds
     torch.cuda.empty_cache()
     return dict(checkpoints=ckpt, evaluate=entry_evaluate(dev),
-                frames_a=frames_a, frame0=frame0)
+                frames_a=frames_a, embeds_a=embeds_a, launches_a=launches,
+                frame0=frame0)
 
 
 def _serve_args(*extra):
@@ -2377,6 +2403,291 @@ def run_dp(dev, card: str, phase10: dict) -> dict:
     return result
 
 
+# ---- phase 12: sharded single-story inference ------------------------------
+
+SHARD_DIR = os.path.join(REPO, "build", "chip_smoke_shard")
+SHARD_WORLD = 4     # phase 12 (b)'s gloo ranks: cfg 2 x space 2
+SHARD_JOIN_S = 420  # seconds they may take, builds included
+# frames' mean and max |diff| against one process: the geometric means of
+# the sound reading and the least of `--shard-faults`' faulted ones
+# (mean 4.766e-3 against 7.668e-3, max 0.1035 against 0.7910; PERF.md)
+SHARD_MEAN_TOL = 6.0e-3
+SHARD_MAX_TOL = 0.29
+# faults planted by `--shard-faults` (none in the phase): name -> (what,
+# the local rows and channels of the feature maps whose 3x3 convs take
+# zeros for their neighbours' rows, as if the halo were never exchanged)
+SHARD_FAULTS = {
+    "unet_level0_halo": ("the UNet's level-0 convs (32 of 64 latent rows "
+                         "a rank, 320 channels)", 32, 320),
+    "vae_512px_halo": ("the VAE's 512-px convs (128 of 512 rows a rank, "
+                       "128 channels)", 128, 128),
+}
+
+
+def _torchrun_env() -> dict:
+    """The variables torchrun gives a one-rank world, on a free port."""
+    return dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+
+
+def shard_one_rank(card: str, entry: dict) -> dict:
+    """Phase 12 (a): phase 7a's `cli.generate.run` with `--shard-story`
+    under a one-rank NCCL group joined from torchrun's variables (set here
+    for this process): frames, embeds and launches equal 7a's bit for
+    bit."""
+    import torch.distributed as dist
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import evaluate, generate
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
+    from rcdms_tpu_torch.train import distributed
+
+    env = _torchrun_env()
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = evaluate.parse_args([
+            "--dataset", "flintstones", "--dtype", "bfloat16",
+            "--num-inference-steps", str(STEPS), "--guidance-scale", "2.0",
+            "--seed", "42", "--device", "cuda", "--shard-story"])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, embeds = generate.run(args, ENTRY_CAPTIONS, [entry["frame0"]])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts("story")
+        counts["frame_attention_tiled"] = frame_attention.tiled_launches
+        row = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                   s=seconds, launches=counts,
+                   frames_equal=_bits_equal(frames.cpu(), entry["frames_a"]),
+                   embeds_equal=_bits_equal(embeds.cpu(), entry["embeds_a"]),
+                   launches_equal=counts == entry["launches_a"])
+        del frames, embeds
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"shard one rank: {card}: generate.run --shard-story under a "
+          f"one-rank {row['backend']} group in {row['s']:.3f} s (build "
+          f"included); frames equal 7a's bit for bit {row['frames_equal']}, "
+          f"embeds {row['embeds_equal']}, launches {row['launches_equal']} "
+          f"({counts})", flush=True)
+    if not (row["frames_equal"] and row["embeds_equal"]
+            and row["launches_equal"]):
+        raise AssertionError(f"--shard-story on one rank differs from 7a: "
+                             f"7a launched {entry['launches_a']}")
+    return row
+
+
+def _plant_shard_fault(name: str) -> None:
+    """In this rank's process, the halo of SHARD_FAULTS[name]'s convs made
+    of zeros (every rank of a group sees the same shapes, so all of them
+    skip the exchange together)."""
+    from rcdms_tpu_torch.core import spatial
+
+    _, rows, channels = SHARD_FAULTS[name]
+    real = spatial.halo
+
+    def halo(x, axis, above, below, group):
+        if x.shape[axis] == rows and x.shape[-1] == channels:
+            group = None
+        return real(x, axis, above, below, group)
+
+    spatial.halo = halo
+
+
+def _shard_rank(rank: int, store: str, root: str,
+                fault: Optional[str] = None) -> None:
+    """Phase 12 (b)'s rank `rank` (a spawned process): joins the gloo
+    group of SHARD_WORLD ranks on the one card, builds phase 5's pipeline
+    (seed 0, bf16) with the inference mesh, the ranks one after another
+    (each build holds fp32 weights for a moment), and runs phase 5's
+    request 1 (seed 1, generator 11); writes its launches, seconds and
+    peak memory, and rank 0 the frames and embeds. `fault`: a planted
+    fault of SHARD_FAULTS."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops.frame_attention import frame_attention
+    from rcdms_tpu_torch.sample.pipeline import build_pipeline, full_configs
+    from rcdms_tpu_torch.train import distributed, sharding
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if fault is not None:
+        _plant_shard_fault(fault)
+    dev = torch.device("cuda")
+    distributed.maybe_initialize("cuda", init_method=f"file://{store}",
+                                 world_size=SHARD_WORLD, rank=rank,
+                                 local_rank=0, backend="gloo")
+    try:
+        mesh = sharding.inference_mesh()
+        configs = full_configs(temporal_zero_init=False)
+        t0 = time.perf_counter()
+        for r in range(SHARD_WORLD):
+            if r == rank:
+                pipe = build_pipeline(configs, dev, torch.bfloat16, seed=0,
+                                      num_steps=STEPS, mesh=mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        sharding.check_replicated(pipe, mesh.all)
+        req = story_request(configs, 1, PIXELS, dev)
+        csize = configs.vision.image_size
+        uncond = req.tokens_s1_u[0, 0]
+        cache = pipe.precompute_cond_cache(uncond, uncond,
+                                           clip_constant(1.0, csize, dev),
+                                           clip_constant(0.0, csize, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, embeds = pipe.generate(req, cache,
+                                       torch.Generator(dev).manual_seed(11))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts("story")
+        counts["frame_attention_tiled"] = frame_attention.tiled_launches
+        if rank == 0:
+            torch.save(dict(frames=frames.cpu(), embeds=embeds.cpu()),
+                       os.path.join(root, "story.pt"))
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(dict(mesh=list(mesh[:4]), launches=counts, s=seconds,
+                           build_s=build_s, build_peak_bytes=build_peak,
+                           peak_bytes=torch.cuda.max_memory_allocated()), fh)
+    finally:
+        distributed.shutdown()
+
+
+def shard_four_ranks(card: str, request1: dict,
+                     fault: Optional[str] = None) -> dict:
+    """Phase 12 (b): SHARD_WORLD spawned processes on the one card in a
+    gloo group (NCCL refuses two ranks on one device) split phase 5's
+    request 1 (cfg 2 x space 2); against phase 5's one-process frames
+    (mean and max |diff| within SHARD_MEAN_TOL and SHARD_MAX_TOL) and
+    embeds (max |diff| / max
+    |embed| within TOL[bf16]); every rank launches each of A-D, every B
+    launch tiled. With a planted `fault` (`--shard-faults`) the row is
+    returned unchecked."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, os.path.join(SHARD_DIR, "store"),
+                               SHARD_DIR, fault))
+             for r in range(SHARD_WORLD)]
+    try:
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(SHARD_JOIN_S)
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARD_WORLD:
+            raise AssertionError(f"phase 12 (b) rank exit codes {codes} "
+                                 f"(None: still running after "
+                                 f"{SHARD_JOIN_S} s)")
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(os.path.join(SHARD_DIR, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        got = torch.load(os.path.join(SHARD_DIR, "story.pt"))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    _check_frames(got["frames"], len(ENTRY_CAPTIONS), PIXELS)
+    diff = (got["frames"] - request1["frames"]).abs()
+    embeds_rel = ((got["embeds"] - request1["embeds"]).abs().max()
+                  / request1["embeds"].abs().max()).item()
+    row = dict(card=card, fault=fault, world=SHARD_WORLD,
+               mesh=ranks[0]["mesh"],
+               wall_s=wall, frames_mean_abs=diff.mean().item(),
+               frames_max_abs=diff.max().item(), embeds_rel=embeds_rel,
+               parent_bytes=parent_bytes, ranks=ranks)
+    print(f"shard four ranks: {card}: phase 5's request 1 on {SHARD_WORLD} "
+          f"gloo ranks{f' with the planted fault {fault}' if fault else ''}"
+          f" (cfg, space, c, s of rank 0: "
+          f"{ranks[0]['mesh']}) in {wall:.1f} s wall (spawn and builds "
+          f"included): frames mean |diff| {row['frames_mean_abs']:.3e}, max "
+          f"|diff| {row['frames_max_abs']:.3e}; embeds max |diff| / max "
+          f"{embeds_rel:.3e}; per rank: request s "
+          f"{[round(x['s'], 3) for x in ranks]}, build s "
+          f"{[round(x['build_s'], 1) for x in ranks]}, peak GiB request "
+          f"{[round(x['peak_bytes'] / 2**30, 2) for x in ranks]}, build "
+          f"{[round(x['build_peak_bytes'] / 2**30, 2) for x in ranks]} "
+          f"(this process holds {parent_bytes / 2**30:.2f} GiB); launches "
+          f"{[x['launches'] for x in ranks]}", flush=True)
+    if fault is not None:
+        return row
+    for r, x in enumerate(ranks):
+        _check_story_launches(x["launches"], f"on shard rank {r}")
+    if not (row["frames_mean_abs"] <= SHARD_MEAN_TOL
+            and row["frames_max_abs"] <= SHARD_MAX_TOL
+            and embeds_rel <= TOL[torch.bfloat16]):
+        raise AssertionError(f"the sharded story differs from phase 5's: "
+                             f"{row}")
+    return row
+
+
+def run_shard(card: str, entry: dict, request1: dict) -> dict:
+    """Phase 12: sharded single-story inference (module docstring)."""
+    print(f"shard on {card}", flush=True)
+    result = dict(card=card, one_rank=shard_one_rank(card, entry),
+                  four_ranks=shard_four_ranks(card, request1))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_shard.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
+def shard_faults(dev, card: str) -> list:
+    """`python3 chip_smoke.py --shard-faults`: phase 12 (b) sound and with
+    each fault of SHARD_FAULTS planted, against phase 5's request 1 (its
+    pipeline built here alone): the readings phase 12 (b)'s limits are set
+    between. Rows go to chiprun_out/chip_smoke_shard_faults.json."""
+    from rcdms_tpu_torch.sample.pipeline import build_pipeline, full_configs
+
+    configs = full_configs(temporal_zero_init=False)
+    pipe = build_pipeline(configs, dev, torch.bfloat16, seed=0,
+                          num_steps=STEPS)
+    req = story_request(configs, 1, PIXELS, dev)
+    csize = configs.vision.image_size
+    uncond = req.tokens_s1_u[0, 0]
+    cache = pipe.precompute_cond_cache(uncond, uncond,
+                                       clip_constant(1.0, csize, dev),
+                                       clip_constant(0.0, csize, dev))
+    frames, embeds = pipe.generate(req, cache,
+                                   torch.Generator(dev).manual_seed(11))
+    request1 = dict(frames=frames.cpu(), embeds=embeds.cpu())
+    del pipe, cache, frames, embeds
+    torch.cuda.empty_cache()
+    rows = [shard_four_ranks(card, request1, fault)
+            for fault in (None, *SHARD_FAULTS)]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_shard_faults.json"),
+              "w") as fh:
+        json.dump(rows, fh, indent=1)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2401,6 +2712,15 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.log"), "w") as fh:
         fh.write(built.log)
+    if sys.argv[1:] == ["--shard-faults"]:
+        rows = shard_faults(dev, card)
+        print(json.dumps({"shard_faults": [
+            {k: r[k] for k in ("fault", "frames_mean_abs", "frames_max_abs",
+                               "embeds_rel")} for r in rows]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     summary = check_kernels(dev, card)
     check_tiny_reference(dev)
@@ -2437,6 +2757,10 @@ def main() -> int:
         if sum(c[name] for c in dp_launches.values()) == 0:
             raise AssertionError(f"data-parallel training never launched "
                                  f"{name}")
+    shard = run_shard(card, entry, story["request1"])
+    shard_launches = {"one_rank": shard["one_rank"]["launches"],
+                      **{f"rank{r}": x["launches"] for r, x in
+                         enumerate(shard["four_ranks"]["ranks"])}}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2456,6 +2780,8 @@ def main() -> int:
                 run: counts[name] for run, counts in cli_launches.items()}
             kernels[-1]["dp_launches"] = {
                 run: counts[name] for run, counts in dp_launches.items()}
+            kernels[-1]["shard_launches"] = {
+                run: counts[name] for run, counts in shard_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

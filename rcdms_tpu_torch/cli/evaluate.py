@@ -24,6 +24,17 @@ Opt-ins as the JAX CLI's: `--autoreg` (stage 1 only, one prior pass per
 frame; cosine metrics only), `--encoder-propagation k` and
 `--quantize int8`, which both change the numbers.
 
+`--shard-story` splits each story over the ranks of the process group
+that `torchrun --nproc-per-node N` starts (NCCL on `cuda:LOCAL_RANK`,
+gloo with `--device cpu`; without torchrun, a one-rank mesh): the
+('cfg', 'frame', 'space') mesh of `train.sharding.inference_mesh`. Every
+rank runs every story; rank 0 alone writes the PNGs, metrics and
+summary. Before the first story every rank's parameter checksums must
+equal rank 0's.
+
+    torchrun --nproc-per-node 4 -m rcdms_tpu_torch.cli.evaluate \
+        --shard-story ...
+
     python -m rcdms_tpu_torch.cli.evaluate --dataset pororosv \
         --mode continue --h5-path .../pororo.h5 --sd-pretrained ... \
         --prior-pretrained ... --output-dir eval_out --num-stories 100
@@ -73,6 +84,7 @@ from rcdms_tpu_torch.sample.pipeline import (
     StoryPipeline,
     for_inference,
 )
+from rcdms_tpu_torch.train import distributed, sharding
 
 
 
@@ -129,6 +141,10 @@ def parse_args(argv=None):
                    help="OPT-IN approximate fast sampling: recompute the "
                         "UNet encoder every k-th step (k>=2 changes "
                         "numerics; keep 0 for reference parity)")
+    p.add_argument("--shard-story", action="store_true",
+                   help="shard each single story over ALL local devices "
+                        "(('cfg','frame','space') inference mesh) to cut "
+                        "latency instead of sharding the story index range")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--shard-id", type=int, default=0)
     p.add_argument("--num-shards", type=int, default=1)
@@ -214,8 +230,17 @@ def build_pipeline(args):
     --stage2-ckpt over the UNet and fusion stacks), the trained reference
     checkpoints, and last a converted pipeline (--converted-ckpt) over
     every tower. A tower that any checkpoint loads into is built in fp32
-    and cast to --dtype after the load."""
+    and cast to --dtype after the load. `--shard-story` joins the process
+    group of torchrun's environment (if any; `train/distributed.py`),
+    builds the inference mesh and checks that every rank holds rank 0's
+    weights."""
     device = common.device_of(args)
+    mesh = None
+    if args.shard_story:
+        distributed.maybe_initialize(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = sharding.inference_mesh()
     if args.quantize:
         set_quant_mode(args.quantize)
     dataset, ds_cfg, cfg = _configs(args)
@@ -289,7 +314,9 @@ def build_pipeline(args):
     pipeline = StoryPipeline(
         cfg, num_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, schedule=schedule, towers=towers,
-        encoder_propagation=args.encoder_propagation).eval()
+        encoder_propagation=args.encoder_propagation, mesh=mesh).eval()
+    if mesh is not None:
+        sharding.check_replicated(pipeline, mesh.all)
     return pipeline, dataset, ds_cfg
 
 
@@ -310,9 +337,23 @@ def _batch_inputs(exs, uncond_ids, device) -> StoryInputs:
 
 def main(argv=None):
     args = parse_args(argv)
-    os.makedirs(args.output_dir, exist_ok=True)
+    joined = not distributed.active()
+    try:
+        return run(args)
+    finally:
+        if joined:  # a group this call joined (`--shard-story`)
+            distributed.shutdown()
+
+
+def run(args):
+    """The evaluation of parsed flags; returns the summary. Under a
+    process group (`--shard-story`) rank 0 alone writes the outputs and
+    prints."""
     pipeline, dataset, ds_cfg = build_pipeline(args)
     device = pipeline.device
+    writer = distributed.rank_and_size()[0] == 0
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     known_length = 1 if args.mode == "continue" else 0
     if args.autoreg:
@@ -334,7 +375,8 @@ def main(argv=None):
     metrics_path = os.path.join(args.output_dir,
                                 f"metrics_{args.shard_id}.jsonl")
     uncond_ids = dataset.tokenizer([""] * ds_cfg.num_frames)["input_ids"]
-    with open(metrics_path, "w") as mf, torch.no_grad():
+    with open(metrics_path if writer else os.devnull, "w") as mf, \
+            torch.no_grad():
         for start in range(0, len(indices), eb):
             chunk = list(indices[start:start + eb])
             exs = [dataset.example(idx, rng, known_length=known_length)
@@ -375,19 +417,21 @@ def main(argv=None):
                     m = {"story": idx, "clip_cosine": sim}
                     all_metrics.append(m)
                     mf.write(json.dumps(m) + "\n")
-                    print(f"story {idx}: cosine {sim:.4f} (autoreg)",
-                          flush=True)
+                    if writer:
+                        print(f"story {idx}: cosine {sim:.4f} (autoreg)",
+                              flush=True)
                     continue
                 gt = (np.asarray(ex["target"]) + 1) / 2
                 m = story_metrics(frames_b[bi], gt)
                 m.update({"story": idx, "clip_cosine": sim})
                 all_metrics.append(m)
                 mf.write(json.dumps(m) + "\n")
-                save_story_grid(os.path.join(args.output_dir,
-                                             f"story_{idx}.png"),
-                                frames_b[bi], gt)
-                print(f"story {idx}: cosine {sim:.4f} ssim {m['ssim']:.4f}",
-                      flush=True)
+                if writer:
+                    save_story_grid(os.path.join(args.output_dir,
+                                                 f"story_{idx}.png"),
+                                    frames_b[bi], gt)
+                    print(f"story {idx}: cosine {sim:.4f} ssim "
+                          f"{m['ssim']:.4f}", flush=True)
 
     elapsed = time.perf_counter() - t_start
     summary = {
@@ -401,10 +445,11 @@ def main(argv=None):
                                               for m in all_metrics]))
         summary["mean_psnr"] = float(np.mean([m["psnr"]
                                               for m in all_metrics]))
-    print(json.dumps(summary))
-    with open(os.path.join(args.output_dir,
-                           f"summary_{args.shard_id}.json"), "w") as f:
-        json.dump(summary, f)
+    if writer:
+        print(json.dumps(summary))
+        with open(os.path.join(args.output_dir,
+                               f"summary_{args.shard_id}.json"), "w") as f:
+            json.dump(summary, f)
     return summary
 
 

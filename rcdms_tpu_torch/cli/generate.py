@@ -16,8 +16,10 @@ any colour type, bit depth or interlace by `sample/eval.py::decode_png`
 with no Pillow; other formats through Pillow where it is installed, and
 refused where it is not. Every model and
 sampling flag (--synthetic, --dtype, --device, --rcdms-stage{1,2}-ckpt,
---seed, ...) is the evaluate CLI's. The story's generator is seeded as
-the evaluate CLI seeds story 0.
+--seed, --shard-story, ...) is the evaluate CLI's. The story's generator
+is seeded as the evaluate CLI seeds story 0. Under `--shard-story`
+(`torchrun --nproc-per-node N`) every rank generates the story split
+over the ranks, and rank 0 alone writes the PNG.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from rcdms_tpu_torch.cli import common
 from rcdms_tpu_torch.cli.evaluate import build_pipeline
 from rcdms_tpu_torch.cli.evaluate import parse_args as eval_parse_args
 from rcdms_tpu_torch.sample.eval import decode_png, save_story_grid
+from rcdms_tpu_torch.train import distributed
 
 
 def parse_args(argv=None):
@@ -83,10 +86,18 @@ def main(argv=None):
     for path in args.reference:
         with open(path, "rb") as fh:
             frames.append(decode_png(fh.read()))
-    images, _ = run(ev, list(args.caption), frames, args.negative_prompt)
-    save_story_grid(args.out, images[0].cpu().numpy())
-    print(f"wrote {args.out} ({len(args.caption)} frames, {len(frames)} "
-          f"known, {ev.num_inference_steps} steps, cfg {ev.guidance_scale})")
+    joined = not distributed.active()
+    try:
+        images, _ = run(ev, list(args.caption), frames,
+                        args.negative_prompt)
+        if distributed.rank_and_size()[0] == 0:
+            save_story_grid(args.out, images[0].cpu().numpy())
+            print(f"wrote {args.out} ({len(args.caption)} frames, "
+                  f"{len(frames)} known, {ev.num_inference_steps} steps, "
+                  f"cfg {ev.guidance_scale})")
+    finally:
+        if joined:  # a group this call joined (`--shard-story`)
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

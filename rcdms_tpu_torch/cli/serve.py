@@ -91,6 +91,10 @@ def parse_args(argv=None):
                         "print their seconds, then exit WITHOUT serving")
     args, rest = p.parse_known_args(argv)
     args.eval = eval_parse_args(rest)
+    if args.eval.shard_story:
+        p.error("--shard-story splits a story over the ranks of a process "
+                "group; the server is one process (evaluate and generate "
+                "take the flag)")
     return args
 
 

@@ -13,9 +13,25 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.layers import FeedForward, GroupNorm, LayerNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
+
+
+def spatial_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               self_attention: bool):
+    """(k, v, the whole query count) of a token-major attention site: rows
+    split over a `spatial.spatial` group keep their queries and, in
+    self-attention, gather every rank's K and V in row order (one
+    all_gather); cross-attention keys stay local."""
+    group = spatial.spatial_group()
+    if group is None:
+        return k, v, q.shape[-2]
+    if self_attention:
+        k, v = spatial.gather_rows(torch.stack([k, v]), -2,
+                                    group).unbind(0)
+    return k, v, q.shape[-2] * group.size
 
 
 class Attention(nn.Module):
@@ -25,7 +41,9 @@ class Attention(nn.Module):
     with the same leading dims, optional additive mask; routed by
     `ops.attention.multihead_attention` (kernel A for long unmasked
     queries). frame_axis=True: x (b, f, n, dim), attention across f at every
-    token (kernel B)."""
+    token (kernel B). Within `spatial.spatial`, a token-major site
+    gathers K and V over the ranks (`spatial_kv`) and routes by its whole
+    query count; frame-axis attention stays local."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, qkv_bias: bool = False,
@@ -53,8 +71,9 @@ class Attention(nn.Module):
                                  "without a mask")
             o = frame_attention(q, k, v, self.heads)
         else:
+            k, v, queries = spatial_kv(q, k, v, context is None)
             o = multihead_attention(q, k, v, self.heads, mask,
-                                    row_sum="rounded")
+                                    row_sum="rounded", queries=queries)
         return self.to_out[0](o)
 
 

@@ -47,7 +47,8 @@ class ResnetBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv per frame."""
+    """Stride-2 3x3 conv per frame (rows split over a `spatial` group take
+    one row of the rank above)."""
 
     def __init__(self, channels: int):
         super().__init__()

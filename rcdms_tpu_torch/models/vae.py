@@ -5,6 +5,12 @@ over channels-last images (n, h, w, c). Module names are diffusers'
 
 The mid-block attention (one head of dim 512 at full width) stays plain
 PyTorch, as it stays XLA in the JAX package.
+
+Within `core.spatial.spatial(group)` each image holds this rank's block
+of rows: the convs and GroupNorms split as `core/layers.py` says, the
+mid-block attention gathers K and V, and the encoder's (0, 1) padded
+stride-2 conv takes one row of the rank below (zeros at the global
+bottom stand for the pad).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.configs import VAEConfig
+from rcdms_tpu_torch.core import spatial
+from rcdms_tpu_torch.core.attention import spatial_kv
 from rcdms_tpu_torch.core.layers import Conv, GroupNorm
 from rcdms_tpu_torch.ops.attention import multihead_attention
 
@@ -52,8 +60,9 @@ class VAEAttnBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
         y = self.group_norm(x).reshape(n, h * w, c)
-        o = multihead_attention(self.to_q(y), self.to_k(y), self.to_v(y), 1,
-                                row_sum="fp32")
+        q = self.to_q(y)
+        k, v, queries = spatial_kv(q, self.to_k(y), self.to_v(y), True)
+        o = multihead_attention(q, k, v, 1, row_sum="fp32", queries=queries)
         return x + self.to_out[0](o).reshape(x.shape)
 
 
@@ -66,6 +75,15 @@ class _MidBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+
+
+def encoder_downsample(conv: Conv, h: torch.Tensor) -> torch.Tensor:
+    """SD's Downsample2D: an asymmetric (0, 1) pad, then the VALID stride-2
+    `conv`. Rows split over a `spatial` group pad their columns alone: the
+    conv takes one row of the rank below, zeros at the global bottom."""
+    pad = ((0, 0, 0, 1) if spatial.spatial_group() is not None
+           else (0, 0, 0, 1, 0, 1))
+    return conv(F.pad(h, pad))
 
 
 class Encoder(nn.Module):
@@ -97,9 +115,7 @@ class Encoder(nn.Module):
             for res in blk.resnets:
                 h = res(h)
             if hasattr(blk, "downsamplers"):
-                # asymmetric (0, 1) pad + VALID stride-2 conv, SD's
-                # Downsample2D
-                h = blk.downsamplers[0].conv(F.pad(h, (0, 0, 0, 1, 0, 1)))
+                h = encoder_downsample(blk.downsamplers[0].conv, h)
         h = self.mid_block(h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 

@@ -10,6 +10,9 @@ head dim of at most 256 goes to kernel A (`ops/flash.py`), in bf16 only
 where the head dim is also a multiple of 8 (the `mma.sync` kernel's
 tiles; fp32 runs the CUDA-core kernel, which takes any head dim up to
 256); everything else goes to `dot_product_attention` (`uses_kernel`).
+A site whose rows are split over ranks (`core.spatial.spatial`) routes
+by its whole query count, so that it takes the path it takes alone (A
+takes any local count).
 """
 
 from __future__ import annotations
@@ -46,15 +49,17 @@ def uses_kernel(dtype: torch.dtype, dh: int, queries: int,
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         heads: int, mask: Optional[torch.Tensor] = None, *,
-                        row_sum: str) -> torch.Tensor:
+                        row_sum: str,
+                        queries: Optional[int] = None) -> torch.Tensor:
     """Attention over token-major projections (..., S, heads*dh) ->
     (..., Sq, heads*dh), routed as the module docstring says. `row_sum`
     names the TPU kernel family whose bf16 rounding a kernel site follows
     (`ops.flash.attention_plain`): "rounded" where the JAX package's layer
     calls `flash_attention_nt` (`core/attention.py`), "fp32" where it calls
-    `ops.attention.dot_product_attention` (CLIP, the VAE)."""
+    `ops.attention.dot_product_attention` (CLIP, the VAE). `queries`: the
+    site's whole query count where q holds a block of it (default q's)."""
     dh = q.shape[-1] // heads
-    if uses_kernel(q.dtype, dh, q.shape[-2], mask is not None):
+    if uses_kernel(q.dtype, dh, queries or q.shape[-2], mask is not None):
         return flash_attention(q, k, v, heads, row_sum=row_sum)
     o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), mask)

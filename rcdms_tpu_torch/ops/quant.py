@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from rcdms_tpu_torch.core import spatial
+
 _QUANT_MODE: Optional[str] = os.environ.get("RCDMS_QUANT") or None
 
 _VALID = (None, "int8")
@@ -53,9 +55,12 @@ def int8_enabled() -> bool:
 def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric dynamic quantization: (int8 values, fp32 scalar
     scale) with x ~= values * scale. An all-zero tensor gets scale 1/127
-    (of the 1e-30 floor), not a division by zero."""
+    (of the 1e-30 floor), not a division by zero. Rows split over a
+    `spatial.spatial` group take the maximum over the group, the whole
+    tensor's."""
     xf = x.float()
-    scale = xf.abs().amax().clamp_min(1e-30) / 127.0
+    amax = spatial.all_reduce_max(xf.abs().amax(), spatial.spatial_group())
+    scale = amax.clamp_min(1e-30) / 127.0
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -111,14 +116,18 @@ def conv_weight_int8(weight: torch.Tensor
 
 
 def int8_conv3x3(x: torch.Tensor, qw: torch.Tensor, w_scale: torch.Tensor,
-                 bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
+                 bias: Optional[torch.Tensor], dtype, *,
+                 haloed: bool = False) -> torch.Tensor:
     """3x3 stride-1 SAME conv of channels-last x (N, h, w, Cin) with the
     int8 weight of `conv_weight_int8`: the activation quantized once, the
     nine taps' int32 sums in one exact product, then acc * (s_x * s_w) +
-    bias in fp32, cast to `dtype`. Returns (N, h, w, Cout)."""
-    n, h, w, c = x.shape
+    bias in fp32, cast to `dtype`. Returns (N, h, w, Cout). `haloed`: x
+    carries a row above and below already (a row block of a split
+    feature map, `spatial.halo`), so only the columns are padded and
+    the output has h - 2 rows."""
     q, s_x = quantize_act(x)
-    qp = F.pad(q, (0, 0, 1, 1, 1, 1))
+    qp = F.pad(q, (0, 0, 1, 1) if haloed else (0, 0, 1, 1, 1, 1))
+    n, h, w, c = qp.shape[0], qp.shape[1] - 2, qp.shape[2] - 2, qp.shape[3]
     cols = torch.cat([qp[:, dy:dy + h, dx:dx + w]
                       for dy in range(3) for dx in range(3)], dim=-1)
     acc = int_matmul(cols.reshape(n * h * w, 9 * c), qw)

@@ -13,6 +13,15 @@ and `StoryNoise.cat` stacks requests into a batch, so a request gets the
 same noise alone and inside a batch. `generate_stage1_autoreg` is the
 stage-1-only autoregressive protocol. Public tensors keep the JAX
 package's layouts ((b, f, H, W, 3) images, (b, f, T) token ids).
+
+With a `mesh` (`train.sharding.inference_mesh`, `--shard-story`) one
+story is split over the ranks of a process group: the towers run whole on
+every rank, the samplers split their CFG branches and latent rows
+(`sample/*_sampler.py`), and the VAE encodes and decodes a block of image
+rows on each rank (`core.spatial.spatial` over every rank), whose results
+are all-gathered. The noise is drawn whole on every rank from the same
+generator, each rank keeping its rows, and `generate` returns whole
+frames and embeds on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from rcdms_tpu_torch.configs import (
     TemporalConfig,
     VAEConfig,
 )
+from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.layers import init_like_flax_
 from rcdms_tpu_torch.core.schedulers import DDIMSchedule
 from rcdms_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder
@@ -200,26 +210,29 @@ class StoryPipeline(nn.Module):
                  schedule: Optional[DDIMSchedule] = None,
                  towers: Optional[Mapping[str, nn.Module]] = None,
                  eta: float = 0.0, encoder_propagation: int = 0,
-                 sequential_cfg: bool = True):
+                 sequential_cfg: bool = True, mesh=None):
         """`towers`: prebuilt towers by name (the CLIs' builders, a loaded
         checkpoint); the others are built from `configs`. `schedule`
         replaces the stage-2 DDIM schedule (a `--config` YAML's). `eta`,
         `encoder_propagation` and `sequential_cfg` are the story
-        sampler's options (`sample/story_sampler.py`)."""
+        sampler's options (`sample/story_sampler.py`); `mesh` splits each
+        story over the ranks of a group (module docstring)."""
         super().__init__()
         self.configs = configs
+        self.mesh = mesh
         towers = towers or {}
         for name, cls in _TOWERS.items():
             setattr(self, name, towers[name] if name in towers
                     else cls(getattr(configs, name)))
         self.prior_sampler = PriorSampler(self.prior, num_steps=num_steps,
-                                          guidance_scale=guidance_scale)
+                                          guidance_scale=guidance_scale,
+                                          mesh=mesh)
         self.story_sampler = StorySampler(
             self.unet, self.fusion,
             schedule=schedule or DDIMSchedule.stage2_inference(),
             num_steps=num_steps, guidance_scale=guidance_scale, eta=eta,
             sequential_cfg=sequential_cfg,
-            encoder_propagation=encoder_propagation)
+            encoder_propagation=encoder_propagation, mesh=mesh)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -271,6 +284,7 @@ class StoryPipeline(nn.Module):
         uncond states still comes from `inputs.tokens_s1_u`, as the
         reference builds it."""
         b, f = inputs.frame_known.shape
+        self._check_rows(inputs.source_pixels.shape[2])
         if noise is None:
             noise = StoryNoise.draw(self, b, generator,
                                     tuple(inputs.source_pixels.shape[2:4]))
@@ -306,7 +320,7 @@ class StoryPipeline(nn.Module):
         if th2_u is None:
             th2_u = cond_cache.s2_hidden_u.expand(th2_c.shape)
         px = inputs.source_pixels
-        mean, logvar = self.vae.encode(
+        mean, logvar = self._encode_pixels(
             px.reshape((b * f,) + px.shape[2:]).to(self.dtype))
         masked = VAE.sample_latent(mean.float(), logvar.float(),
                                    noise.vae.float()) * self.vae_scale
@@ -323,10 +337,39 @@ class StoryPipeline(nn.Module):
 
         # ---- decode one frame at a time (bounds the decoder's memory) -------
         z = (latents / self.vae_scale).reshape((b * f,) + latents.shape[2:])
-        frames = torch.cat([self.vae.decode(zi[None].to(self.dtype)).float()
-                            for zi in z])
+        everyone = self.mesh.all if self.mesh is not None else None
+        z = spatial.local_rows(z, 1, everyone)
+        with spatial.spatial(everyone):
+            frames = torch.cat([self.vae.decode(zi[None].to(self.dtype))
+                                .float() for zi in z])
+        frames = spatial.gather_rows(frames, 1, everyone)
         frames = frames.reshape((b, f) + frames.shape[1:])
         return (frames / 2 + 0.5).clamp(0.0, 1.0), pred_embeds
+
+    def _check_rows(self, pixels: int) -> None:
+        """Raises where a mesh cannot split the story's rows: the VAE's
+        pixel rows and latent rows over every rank (the UNet's are the
+        story sampler's to check)."""
+        if self.mesh is None:
+            return
+        levels = len(self.configs.vae.block_channels)
+        spatial.check_rows(pixels, levels, self.mesh.all,
+                           "the VAE encoder's pixel rows")
+        spatial.check_rows(pixels >> (levels - 1), 1, self.mesh.all,
+                           "the VAE decoder's latent rows")
+
+    def _encode_pixels(self, px: torch.Tensor):
+        """VAE (mean, logvar) of (n, H, W, 3) pixels; with a mesh each
+        rank encodes a block of rows, and the latents are all-gathered
+        whole."""
+        if self.mesh is None:
+            return self.vae.encode(px)
+        everyone = self.mesh.all
+        with spatial.spatial(everyone):
+            mean, logvar = self.vae.encode(spatial.local_rows(px, 1,
+                                                              everyone))
+        both = spatial.gather_rows(torch.stack([mean, logvar]), 2, everyone)
+        return both[0], both[1]
 
     @torch.no_grad()
     def generate_stage1_autoreg(self, inputs: StoryInputs,

@@ -10,6 +10,11 @@ a step).
 
 `autoregressive` is the reference's `--autoreg` protocol: one full
 sampling pass per frame, each committing its frame's prediction.
+
+`mesh` (`train.sharding.inference_mesh`, `--shard-story`): with CFG and a
+cfg axis of 2, the ranks of cfg index c run branch c alone (uncond 0,
+cond 1) and exchange their (b, f, d) predictions over the cfg group for
+the guidance mix; the rows stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.schedulers import UnCLIPSchedule, cfg_combine
 from rcdms_tpu_torch.models.prior import FramePrior
 
@@ -51,6 +57,7 @@ class PriorSampler:
     schedule: UnCLIPSchedule = field(default_factory=UnCLIPSchedule)
     num_steps: int = 20
     guidance_scale: float = 2.0
+    mesh: object = None
 
     @torch.no_grad()
     def __call__(self, cond: PriorConditioning,
@@ -68,8 +75,11 @@ class PriorSampler:
                              "neither and a generator")
         latents = init_latents.float()  # the schedule's init sigma is 1
         do_cfg = self.guidance_scale > 1.0
+        split_cfg = self.mesh is not None and self.mesh.split_cfg(do_cfg)
 
         def pair(u, c):
+            if split_cfg:
+                return (u, c)[self.mesh.c]
             return torch.cat([u, c]) if do_cfg else c
 
         args = (pair(cond.text_embed_u, cond.text_embed),
@@ -84,7 +94,10 @@ class PriorSampler:
             tb = torch.full(x.shape[:2], t, dtype=torch.int64, device=dev)
             pred = self.model(x, tb, args[0], args[1], args[2], args[3],
                               text_mask).float()
-            if do_cfg:
+            if split_cfg:
+                pred = cfg_combine(*spatial.gather_list(
+                    pred, self.mesh.cfg_group), self.guidance_scale)
+            elif do_cfg:
                 pred = cfg_combine(*pred.chunk(2), self.guidance_scale)
             latents = self.schedule.step(pred, t, prev_t, latents,
                                          step_noise[i].float())

@@ -18,6 +18,14 @@ The initial latents and the step noise are explicit (`init_latents`, raw
 randn; `step_noise` (num_steps, b, f, h8, w8, 4)) or drawn from a
 `torch.Generator` by `draw`: the init first, then, with eta > 0, one draw
 a step.
+
+`mesh` (`train.sharding.inference_mesh`, `--shard-story`): the inputs
+and the output stay whole on every rank, and each rank keeps its block of
+latent rows over the mesh's space group, under `core.spatial.spatial`. With
+CFG and a cfg axis of 2, the ranks of cfg index c run branch c alone
+(uncond 0, cond 1) and exchange their predictions over the cfg group;
+without CFG both run the one branch. The side input, the noise and the
+encoder propagation's cache are local rows too.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.schedulers import DDIMSchedule, cfg_combine
 from rcdms_tpu_torch.models.fusion import FusionModule
 from rcdms_tpu_torch.models.unet3d import StoryUNet
@@ -54,6 +63,7 @@ class StorySampler:
     eta: float = 0.0
     sequential_cfg: bool = True
     encoder_propagation: int = 0
+    mesh: object = None
 
     def _unet(self, x, t: int, ctx, cache, is_key: bool):
         """One UNet call at timestep t -> (prediction fp32, cache). With
@@ -75,14 +85,18 @@ class StorySampler:
         """Returns (b, f, h8, w8, 4) fp32 latents (still VAE-scaled)."""
         b, f, h8, w8, _ = cond.masked_latents.shape
         dtype = cond.text_hidden.dtype
-        ctx_c = self.fusion(cond.image_tokens, cond.image_proj,
-                            cond.text_hidden, cond.frame_known)
         do_cfg = self.guidance_scale > 1.0
-        contexts = [ctx_c]
-        if do_cfg:
-            contexts.insert(0, self.fusion(cond.image_tokens, cond.image_proj,
-                                           cond.text_hidden_u,
-                                           cond.frame_known))
+        mesh = self.mesh
+        space = mesh.space_group if mesh is not None else None
+        spatial.check_rows(h8, len(self.unet.cfg.block_channels), space,
+                           "the UNet's latent rows")
+        split_cfg = mesh is not None and mesh.split_cfg(do_cfg)
+        hidden = ([cond.text_hidden_u, cond.text_hidden] if do_cfg
+                  else [cond.text_hidden])
+        if split_cfg:  # this rank's branch alone
+            hidden = [hidden[mesh.c]]
+        contexts = [self.fusion(cond.image_tokens, cond.image_proj, th,
+                                cond.frame_known) for th in hidden]
         if init_latents is None and step_noise is None:
             init_latents, step_noise = self.draw((b, f, h8, w8, 4),
                                                  generator)
@@ -91,10 +105,13 @@ class StorySampler:
                              "and a generator")
         if self.eta > 0.0 and step_noise is None:
             raise ValueError("eta > 0 needs step_noise with init_latents")
-        latents = init_latents.float()  # the schedule's init sigma is 1
-        side = torch.cat([cond.mask_label, cond.masked_latents],
-                         dim=-1).float()
-        batched = do_cfg and not self.sequential_cfg
+        # the schedule's init sigma is 1
+        latents = spatial.local_rows(init_latents.float(), 2, space)
+        side = spatial.local_rows(torch.cat(
+            [cond.mask_label, cond.masked_latents], dim=-1).float(), 2, space)
+        if step_noise is not None:
+            step_noise = spatial.local_rows(step_noise, 3, space)
+        batched = do_cfg and not self.sequential_cfg and not split_cfg
         if batched:
             contexts = [torch.cat(contexts)]
             side = torch.cat([side, side])
@@ -107,18 +124,21 @@ class StorySampler:
             lat = torch.cat([latents, latents]) if batched else latents
             x = torch.cat([lat, side], dim=-1).to(dtype)
             preds = []
-            for j, ctx in enumerate(contexts):
-                pred, caches[j] = self._unet(x, t, ctx, caches[j],
-                                             k < 2 or i % k == 0)
-                preds.append(pred)
+            with spatial.spatial(space):
+                for j, ctx in enumerate(contexts):
+                    pred, caches[j] = self._unet(x, t, ctx, caches[j],
+                                                 k < 2 or i % k == 0)
+                    preds.append(pred)
             if batched:
                 preds = list(preds[0].chunk(2))
+            elif split_cfg:
+                preds = spatial.gather_list(preds[0], mesh.cfg_group)
             pred = (cfg_combine(preds[0], preds[1], self.guidance_scale)
                     if do_cfg else preds[0])
             noise = step_noise[i].float() if self.eta > 0.0 else None
             latents = self.schedule.step(pred, t, prev_t, latents,
                                          eta=self.eta, noise=noise)
-        return latents
+        return spatial.gather_rows(latents, 2, space)
 
     def draw(self, shape, generator: Optional[torch.Generator]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

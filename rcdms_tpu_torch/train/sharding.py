@@ -12,18 +12,25 @@ in flat buckets, each rank updates its cut of the moments and the masters
 (`Shards.all_gather_`). Checkpoints gather the moments one tensor at a
 time (`Shards.gather_to_host`).
 
-The inference half (`inference_mesh`, `constrain`,
-`set_default_frame_axis`: sharded single-story sampling) waits for
-`--shard-story` (ROADMAP.md Queue 1 item 17).
+The inference half (`inference_mesh`) splits one story over the ranks
+of a group (`--shard-story`): the JAX package's ('cfg', 'frame', 'space')
+inference mesh at its default 'frame' axis of 1. Rank r of N is (cfg
+index c, space index s) with r = c * space + s, the JAX mesh's device
+order. The weights are whole on every rank. The samplers give CFG branch
+c to the ranks of cfg index c and exchange the two predictions over the
+cfg group; the UNet's and the VAE's rows split over the space group or
+every rank, through the row helpers and the `spatial` context of
+`core/spatial.py`, which take the place of `constrain`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from rcdms_tpu_torch.core.spatial import RowGroup, gather_list
 from rcdms_tpu_torch.train import distributed
 
 CHUNK = 1 << 27  # elements of a foreach list or a flat bucket (0.5 GB fp32)
@@ -161,3 +168,82 @@ class Shards:
         full = torch.where(cut, torch.linalg.vector_norm(table, dim=0),
                            norms)
         return torch.linalg.vector_norm(full)
+
+
+# ---------------------------------------------------------------------------
+# Inference: one story split over the ranks of a group (`--shard-story`)
+# ---------------------------------------------------------------------------
+
+def mesh_shape(world: int) -> Tuple[int, int, int]:
+    """(cfg, frame, space) of `world` ranks, the JAX `inference_mesh`'s
+    rule at its default 'frame' axis of 1: cfg 2 when the world is even
+    and above 1, else 1; space what remains."""
+    cfg = 2 if world % 2 == 0 and world > 1 else 1
+    return cfg, 1, world // cfg
+
+
+class StoryMesh(NamedTuple):
+    """The sizes of the ('cfg', 'space') mesh, this rank's cfg and space
+    indices, and the groups: `cfg_group` the ranks of this rank's space
+    index (one a CFG branch), `space_group` those of its cfg index (the
+    latent rows of one branch), `all` every rank."""
+
+    cfg: int
+    space: int
+    c: int
+    s: int
+    cfg_group: RowGroup
+    space_group: RowGroup
+    all: RowGroup
+
+    def split_cfg(self, do_cfg: bool) -> bool:
+        """Whether each cfg rank runs one CFG branch."""
+        return do_cfg and self.cfg > 1
+
+
+def inference_mesh() -> StoryMesh:
+    """The mesh of sharded single-story inference over the process group
+    (`distributed.maybe_initialize`), or over this process alone (a
+    one-rank mesh) with no group. Every rank makes the cfg and space
+    groups in the same order, as `dist.new_group` needs."""
+    rank, world = distributed.rank_and_size()
+    cfg, _, space = mesh_shape(world)
+    c, s = divmod(rank, space)
+    cfg_group = space_group = RowGroup(None, 1, 0)
+    if cfg > 1:
+        for j in range(space):
+            ranks = [i * space + j for i in range(cfg)]
+            handle = dist.new_group(ranks)
+            if j == s:
+                cfg_group = RowGroup(handle, cfg, c)
+    if space > 1:
+        for i in range(cfg):
+            ranks = [i * space + j for j in range(space)]
+            handle = dist.new_group(ranks)
+            if i == c:
+                space_group = RowGroup(handle, space, s)
+    return StoryMesh(cfg, space, c, s, cfg_group, space_group,
+                     RowGroup(None, world, rank))
+
+
+@torch.no_grad()
+def check_replicated(module: torch.nn.Module,
+                     group: Optional[RowGroup]) -> None:
+    """Raises RuntimeError unless every rank's parameters have rank 0's
+    checksums: each tensor's sum and sum of squares in fp64, compared
+    exactly (the weights are whole on every rank)."""
+    if group is None or group.size == 1:
+        return
+    names, sums = [], []
+    for name, p in module.named_parameters():
+        x = p.detach().double()
+        names.append(name)
+        sums.append(torch.stack([x.sum(), (x * x).sum()]))
+    parts = gather_list(torch.stack(sums), group)
+    for r, part in enumerate(parts[1:], start=1):
+        bad = (part != parts[0]).any(-1).nonzero().flatten().tolist()
+        if bad:
+            raise RuntimeError(
+                f"--shard-story: rank {r}'s parameters differ from rank "
+                f"0's ({len(bad)} tensors, the first {names[bad[0]]}): "
+                f"every rank must load the same weights")

@@ -79,10 +79,10 @@ def _jax_params(pipe: StoryPipeline) -> dict:
     return {k: {"params": v} for k, v in trees.items()}
 
 
-@pytest.fixture(scope="module")
-def story(tmp_path_factory):
+def build_story(npz_path: str):
     """(torch pipeline loaded through the bridge, its inputs, the JAX
-    params and modules, the self_test arrays)."""
+    params and modules, the self_test arrays); self_test writes
+    `npz_path`."""
     configs = tiny_configs(unet_channels=UNET_CHANNELS)
     src = StoryPipeline(configs, num_steps=STEPS)
     g = torch.Generator().manual_seed(0)
@@ -114,14 +114,47 @@ def story(tmp_path_factory):
     real = jpipeline.build_tiny_pipeline
     jpipeline.build_tiny_pipeline = fake_builder
     try:
-        arrays = capture_ref_noise.self_test(
-            str(tmp_path_factory.mktemp("selftest") / "ref.npz"), steps=STEPS)
+        arrays = capture_ref_noise.self_test(npz_path, steps=STEPS)
     finally:
         jpipeline.build_tiny_pipeline = real
 
     port = StoryPipeline(configs, num_steps=STEPS).eval()
     bridge.load_pipeline_params(port, params)
     return port, inputs, params, jpipe, arrays
+
+
+@pytest.fixture(scope="module")
+def story(tmp_path_factory):
+    """`build_story`'s tuple, once for the module."""
+    return build_story(str(tmp_path_factory.mktemp("selftest") / "ref.npz"))
+
+
+def self_test_noise(port: StoryPipeline, a) -> StoryNoise:
+    """self_test's noise (RandomState(42): prior init, prior steps, VAE,
+    story init) as the port's StoryNoise."""
+    b, f = a["story_frame_known"].shape
+    rng = np.random.RandomState(42)  # self_test's draw order
+    d = port.configs.prior.embedding_dim
+    prior_init = rng.randn(b, f, d).astype(np.float32)
+    prior_steps = rng.randn(STEPS, b, f, d).astype(np.float32)
+    h8 = a["reference_latents"].shape[2]
+    vae = rng.randn(b * f, h8, h8, 4).astype(np.float32)
+    story_init = rng.randn(*a["reference_latents"].shape).astype(np.float32)
+    np.testing.assert_array_equal(prior_init, a["prior_init_latents"])
+    np.testing.assert_array_equal(story_init, a["story_init_latents"])
+    return StoryNoise(_t(prior_init), _t(prior_steps), _t(vae),
+                      _t(story_init))
+
+
+def jax_frames(port: StoryPipeline, params, jpipe, a) -> np.ndarray:
+    """The JAX VAE's per-frame decode of the JAX story latents, in [0, 1]:
+    the frames of the JAX package's `generate` on self_test's noise."""
+    b, f, h8 = a["reference_latents"].shape[:3]
+    z = a["reference_latents"].reshape((b * f, h8, h8, 4)) / port.vae_scale
+    decode = jax.jit(lambda zi: jpipe.vae.apply(params["vae"], zi,
+                                                method=VAE.decode))
+    ref = np.concatenate([np.asarray(decode(zi[None])) for zi in z])
+    return np.clip(ref / 2 + 0.5, 0.0, 1.0).reshape((b, f) + ref.shape[1:])
 
 
 def _t(a):
@@ -159,27 +192,10 @@ def test_generate_matches_jax_story(story):
     the JAX stage-1 embeds and the JAX VAE's per-frame decode of the JAX
     story latents."""
     port, inputs, params, jpipe, a = story
-    b, f = inputs.frame_known.shape
-    rng = np.random.RandomState(42)  # self_test's draw order
-    d = port.configs.prior.embedding_dim
-    prior_init = rng.randn(b, f, d).astype(np.float32)
-    prior_steps = rng.randn(STEPS, b, f, d).astype(np.float32)
-    h8 = a["reference_latents"].shape[2]
-    vae = rng.randn(b * f, h8, h8, 4).astype(np.float32)
-    story_init = rng.randn(*a["reference_latents"].shape).astype(np.float32)
-    np.testing.assert_array_equal(prior_init, a["prior_init_latents"])
-    np.testing.assert_array_equal(story_init, a["story_init_latents"])
-
-    frames, embeds = port.generate(inputs, noise=StoryNoise(
-        _t(prior_init), _t(prior_steps), _t(vae), _t(story_init)))
+    frames, embeds = port.generate(inputs, noise=self_test_noise(port, a))
     np.testing.assert_allclose(embeds.numpy(), a["reference_prior_embeds"],
                                **SAMPLER_TOL)
-
-    z = a["reference_latents"].reshape((b * f, h8, h8, 4)) / port.vae_scale
-    decode = jax.jit(lambda zi: jpipe.vae.apply(params["vae"], zi,
-                                                method=VAE.decode))
-    ref = np.concatenate([np.asarray(decode(zi[None])) for zi in z])
-    ref = np.clip(ref / 2 + 0.5, 0.0, 1.0).reshape(frames.shape)
+    ref = jax_frames(port, params, jpipe, a)
     assert frames.shape == (1, 5, 32, 32, 3)
     np.testing.assert_allclose(frames.numpy(), ref, **FRAME_TOL)
 
