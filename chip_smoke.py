@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --shard-faults  # phase 12 (b)'s fault readings
+    python3 chip_smoke.py --int8-faults   # phase 13 (a)'s fault readings
 
 Phases, in order; any failure raises and the exit code is nonzero:
 
@@ -180,19 +181,45 @@ Phases, in order; any failure raises and the exit code is nonzero:
    zeros), and prints each one's frames' mean and max |diff|: the
    readings (b)'s limits sit between (PERF.md). Rows go to
    chiprun_out/chip_smoke_shard_faults.json.
+13. the quality tools (`rcdms_tpu_torch/tools/int8_quality.py`,
+   `parity_check.py`, `rcdms_tpu_torch/utils/video.py`): (a)
+   `int8_quality`'s full-width report with --encprop (the SD-1.5-scale
+   UNet and fusion stacks with the JAX tool's seeded random weights in
+   bf16, 512 px, 5 frames, 20 steps, CFG 2.0; bf16 at seeds 42 and 43,
+   int8 and k = 2 at 42; one seeded bf16 SD VAE decoder): every number
+   finite, int8 and k = 2 engaged (the int8 convs ran in the int8 run
+   alone), int8's frame SSIM mean to bf16 above the unrelated story's,
+   its SSIM min at least 0.988 and its latent relative RMS at most 0.099,
+   each of the bf16, unrelated and int8 runs launching A 1200, B 1600
+   (all tiled), C 1440, D 0 (20 steps x 2 CFG calls x the UNet's 30 /
+   40 / 36); (b) `ddim_inversion`: the tiny UNet in fp32 on the card
+   against the CPU's plain versions within 5e-4 of the max (phase 4's),
+   then (a)'s full-width UNet in bf16 over 20 steps, one UNet call a step:
+   finite, A 600, B 800, C 720, its seconds printed; (c)
+   `parity_check --synthetic --device cuda`: gate PASS, the two fp32 runs
+   equal bit for bit, int8 engaged, every measured row finite (report in
+   chiprun_out/chip_smoke_parity.json). Rows go to
+   chiprun_out/chip_smoke_quality.json. `--int8-faults` runs (a)'s bf16
+   and int8 runs alone, sound and with each fault of INT8_FAULTS planted
+   in the int8 convs' activation quantization, and prints each one's SSIM
+   min and latent relative RMS to bf16: the readings (a)'s limits sit
+   between (PERF.md). Rows go to chiprun_out/chip_smoke_int8_faults.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
 again, phase 8 the story's in the served requests, phase 9 the story's in
 each training step and encode, phase 10 the story's in each CLI run,
 phase 11 the story's in each rank's run, phase 12 the story's in (a)'s
-run and in each rank's request: each path's counts are set to 0 just
-before it and read just after.
+run and in each rank's request, phase 13 the story's in each sampler run
+and in the inversion: each path's counts are set to 0 just before it and
+read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
 CLI run, encodes included; `dp_launches`: phase 11's, each rank's 2-step
-run; `shard_launches`: phase 12's, (a)'s run and each rank's request);
+run; `shard_launches`: phase 12's, (a)'s run and each rank's request;
+`quality_launches`: phase 13's, each sampler run of (a) and (b)'s
+inversion);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -611,17 +638,6 @@ def check_kernels(dev, card: str) -> dict:
     return summary
 
 
-def _with_sampler(pipe, **options):
-    """A pipeline over `pipe`'s towers, steps, guidance and schedule, with
-    the story sampler's `options` (`StoryPipeline`'s constructor)."""
-    from rcdms_tpu_torch.sample.pipeline import StoryPipeline
-
-    s = pipe.story_sampler
-    return StoryPipeline(pipe.configs, num_steps=s.num_steps,
-                         guidance_scale=s.guidance_scale, schedule=s.schedule,
-                         towers=dict(pipe.named_children()), **options)
-
-
 def check_int8_products(dev, unet_cpu) -> dict:
     """Phase 4's int8 route: `torch._int_mm` on the card against the CPU's
     integer matmul on the same int8 operands (exact: its int32 sums are
@@ -749,7 +765,7 @@ def check_tiny_reference(dev) -> dict:
     if missing:
         raise AssertionError(f"tiny story launched no {missing}")
     def variant(**options):
-        return lambda: story(*(_with_sampler(p, **options)
+        return lambda: story(*(p.with_sampler(**options)
                                for p in (pipe, card)))
 
     check("eta 0.5", variant(eta=0.5))
@@ -847,6 +863,11 @@ def _check_story_launches(counts: dict, where: str) -> None:
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched {where}: {missing}")
+    _check_tiled_b(counts, where)
+
+
+def _check_tiled_b(counts: dict, where: str) -> None:
+    """Every B launch took the tiled kernel."""
     if counts["frame_attention_tiled"] != counts["frame_attention"]:
         raise AssertionError(f"B took the general kernel {where}: "
                              f"{counts['frame_attention_tiled']} of "
@@ -1358,7 +1379,7 @@ def run_serve(dev, card: str, entry: dict) -> dict:
                              f"batch")
 
     exact_pipe = srv.pipeline
-    srv.pipeline = _with_sampler(exact_pipe, encoder_propagation=2)
+    srv.pipeline = exact_pipe.with_sampler(encoder_propagation=2)
     encodes = srv.pipeline.unet.encode_calls
     ops.reset_launch_counts()
     try:
@@ -2688,6 +2709,293 @@ def shard_faults(dev, card: str) -> list:
     return rows
 
 
+# launches of each story kernel in one call of the full-width UNet: A, the
+# 16 spatial transformers' two attention layers but the mid block's (64
+# queries a frame, under the router's 256); B, the 20 temporal modules'
+# two layers; C, the GEGLU FF of the 16 transformers and the 20 temporal
+# modules; no D (the prior's GELU FF)
+QUALITY_UNET_CALL = {"attention": 30, "frame_attention": 40, "geglu_ff": 36,
+                     "gelu_ff": 0}
+QUALITY_TOL = 5e-4  # phase 4's, the tiny inversion card vs CPU
+INVERSION_STEPS = STEPS
+# int8's distance from bf16 in (a): the geometric means of the sound
+# reading and the least faulted of `--int8-faults` (1 - SSIM min 0.0024
+# against 0.0619, latent rel RMS 0.0417 against 0.234; PERF.md)
+INT8_SSIM_MIN_TOL = 0.988  # int8_vs_bf16.ssim_min at least
+INT8_REL_RMS_TOL = 0.099   # int8_vs_bf16.latent_rel_rms at most
+# faults planted by `--int8-faults` (none in the phase): name -> (what,
+# the factor on each int8 conv's activation scale, the activation's
+# levels each side of 0)
+INT8_FAULTS = {
+    "act_scale_x2": ("the activation scale doubled (each int8 conv's "
+                     "output 2x)", 2.0, 127),
+    "act_scale_x1.1": ("the activation scale 1.1x", 1.1, 127),
+    "act_4bit": ("the activations on 4 bits (7 levels each side)", 1.0, 7),
+}
+
+
+def _finite_numbers(tree, where: str) -> None:
+    """Every number in a JSON-like tree finite."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_numbers(v, f"{where}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _finite_numbers(v, f"{where}[{i}]")
+    elif isinstance(tree, float) and not math.isfinite(tree):
+        raise AssertionError(f"{where} is {tree}")
+
+
+def _unet_launches(calls: int) -> dict:
+    return {k: calls * n for k, n in QUALITY_UNET_CALL.items()}
+
+
+def _counted(runs: dict, sync):
+    """A context manager factory: `around(name)` zeroes the story kernels'
+    counts (and the int8 convs'), and records the run's launches, int8
+    convs and seconds in `runs[name]`."""
+    import contextlib
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.ops import quant
+
+    @contextlib.contextmanager
+    def around(name):
+        sync()
+        ops.reset_launch_counts()
+        int8_calls = quant.int8_conv3x3.calls
+        t0 = time.perf_counter()
+        yield
+        sync()
+        counts = _story_counts()
+        runs[name] = dict(launches=counts,
+                          int8_convs=quant.int8_conv3x3.calls - int8_calls,
+                          seconds=time.perf_counter() - t0)
+        print(f"quality: {name}: {runs[name]['seconds']:.3f} s, launches "
+              f"{counts}, int8 convs {runs[name]['int8_convs']}",
+              flush=True)
+
+    return around
+
+
+def _check_unet_launches(counts: dict, calls: int, where: str) -> None:
+    """Exactly `calls` full-width UNet calls' launches of A-D."""
+    want = _unet_launches(calls)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{where}: launches {got}, not {calls} UNet "
+                             f"calls' {want}")
+
+
+def quality_int8(card: str, rig, sync) -> dict:
+    """Phase 13 (a): `int8_quality`'s full-width report with --encprop."""
+    from rcdms_tpu_torch.tools import int8_quality
+
+    runs = {}
+    report = int8_quality.report(rig, encprop=True, card=card,
+                                 around=_counted(runs, sync))
+    _finite_numbers(report, "int8_quality")
+    calls = 2 * rig.sampler.num_steps
+    for name in ("bf16", "bf16_unrelated", "int8"):
+        where = f"in int8_quality's {name} run"
+        _check_unet_launches(runs[name]["launches"], calls, where)
+        _check_tiled_b(runs[name]["launches"], where)
+    if runs["int8"]["launches"] != runs["bf16"]["launches"]:
+        raise AssertionError("the int8 run's launches differ from bf16's")
+    if runs["int8"]["int8_convs"] == 0 or runs["bf16"]["int8_convs"]:
+        raise AssertionError("the int8 convs ran outside the int8 run, or "
+                             "not in it")
+    q, floor = report["int8_vs_bf16"], report["unrelated_bf16_noise_floor"]
+    if not q["ssim_mean"] > floor["ssim_mean"]:
+        raise AssertionError(f"int8's SSIM to bf16 {q['ssim_mean']} is not "
+                             f"above the unrelated story's "
+                             f"{floor['ssim_mean']}")
+    if not (q["ssim_min"] >= INT8_SSIM_MIN_TOL
+            and q["latent_rel_rms"] <= INT8_REL_RMS_TOL):
+        raise AssertionError(f"int8 is too far from bf16: SSIM min "
+                             f"{q['ssim_min']} (at least "
+                             f"{INT8_SSIM_MIN_TOL}), latent rel RMS "
+                             f"{q['latent_rel_rms']} (at most "
+                             f"{INT8_REL_RMS_TOL})")
+    print(f"quality: {card}: int8 vs bf16 SSIM mean {q['ssim_mean']} (min "
+          f"{q['ssim_min']}), latent rel RMS {q['latent_rel_rms']}; "
+          f"unrelated floor SSIM {floor['ssim_mean']}; k = 2 vs bf16 SSIM "
+          f"{report['encprop2_vs_bf16']['ssim_mean']}", flush=True)
+    return dict(report=report, runs=runs)
+
+
+def _plant_int8_fault(name: str):
+    """The int8 convs' activations quantized as INT8_FAULTS[name] says;
+    returns the sound `quantize_act` to put back."""
+    from rcdms_tpu_torch.ops import quant
+
+    _, factor, levels = INT8_FAULTS[name]
+    real = quant.quantize_act
+
+    def quantize_act(x):
+        xf = x.float()
+        scale = xf.abs().amax().clamp_min(1e-30) / levels
+        q = torch.round(xf / scale).clamp(-levels, levels).to(torch.int8)
+        return q, scale * factor
+
+    quant.quantize_act = quantize_act
+    return real
+
+
+def int8_faults(dev, card: str) -> list:
+    """`python3 chip_smoke.py --int8-faults`: phase 13 (a)'s int8 run sound
+    and with each fault of INT8_FAULTS planted, each against (a)'s bf16
+    run on the same noise: the readings (a)'s limits are set between. Rows
+    go to chiprun_out/chip_smoke_int8_faults.json."""
+    from rcdms_tpu_torch.ops import quant
+    from rcdms_tpu_torch.tools import int8_quality as iq
+
+    rig = iq.build(tiny=False, device=dev)
+    lat_bf16 = iq.sample(rig, iq.SEEDS[0])
+    frames_bf16 = iq.to_frames(rig, lat_bf16)
+    rows = []
+    for fault in (None, *INT8_FAULTS):
+        real = _plant_int8_fault(fault) if fault else quant.quantize_act
+        quant.set_quant_mode("int8")
+        try:
+            lat = iq.sample(rig, iq.SEEDS[0])
+        finally:
+            quant.set_quant_mode(None)
+            quant.quantize_act = real
+        row = dict(fault=fault, **iq.delta(lat_bf16, frames_bf16, lat,
+                                           iq.to_frames(rig, lat)))
+        print(f"int8 faults: {card}: {fault or 'sound'}: SSIM min "
+              f"{row['ssim_min']}, mean {row['ssim_mean']}, latent rel "
+              f"RMS {row['latent_rel_rms']}", flush=True)
+        rows.append(row)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_int8_faults.json"),
+              "w") as fh:
+        json.dump(dict(card=card, rows=rows), fh, indent=1)
+    return rows
+
+
+def quality_inversion(dev, card: str, rig, sync) -> dict:
+    """Phase 13 (b): `ddim_inversion` on the card, the tiny UNet in fp32
+    against the CPU's plain versions, then the full-width UNet of (a) in
+    bf16, one UNet call a step (the cond branch's context)."""
+    import copy
+
+    from rcdms_tpu_torch.core.layers import init_like_flax_
+    from rcdms_tpu_torch.core.schedulers import DDIMSchedule
+    from rcdms_tpu_torch.models.unet3d import StoryUNet
+    from rcdms_tpu_torch.sample.pipeline import for_inference, tiny_configs
+    from rcdms_tpu_torch.utils.video import ddim_inversion
+
+    schedule = DDIMSchedule.stage2_inference()
+    g = torch.Generator().manual_seed(13)
+    cfg = tiny_configs(unet_channels=(64, 128)).unet
+    unet = StoryUNet(cfg)
+    init_like_flax_(unet, torch.Generator().manual_seed(3))
+    unet = for_inference(unet)
+    unet_c = copy.deepcopy(unet).to(dev)
+    lat = torch.randn((1, 5, 8, 8, 4), generator=g)
+    side = torch.randn((1, 5, 8, 8, cfg.in_channels - 4), generator=g)
+    ctx = torch.randn((1, 5, 7, cfg.cross_attention_dim), generator=g)
+
+    def denoiser(net, side, ctx):
+        def eps(x, t):
+            tb = torch.full((1,), t, dtype=torch.int64, device=x.device)
+            return net(torch.cat([x, side], -1), tb, ctx)
+        return eps
+
+    want = ddim_inversion(denoiser(unet, side, ctx), schedule, lat, 10)
+    got = ddim_inversion(denoiser(unet_c, side.to(dev), ctx.to(dev)),
+                         schedule, lat.to(dev), 10)
+    tiny_err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    print(f"quality: tiny inversion (10 steps, fp32) on the card vs the "
+          f"CPU: {tiny_err:.2e} of max", flush=True)
+    if not tiny_err <= QUALITY_TOL:
+        raise AssertionError(f"the tiny inversion on the card differs from "
+                             f"the CPU's by {tiny_err:.2e}")
+
+    s, cond = rig.sampler, rig.cond
+    with torch.no_grad():
+        context = s.fusion(cond.image_tokens, cond.image_proj,
+                           cond.text_hidden, cond.frame_known)
+    side = torch.cat([cond.mask_label, cond.masked_latents], -1)
+    full_lat = torch.randn(cond.masked_latents.shape[:-1] + (4,),
+                           generator=g).to(dev)
+
+    def full_eps(x, t):
+        tb = torch.full((1,), t, dtype=torch.int64, device=dev)
+        return s.unet(torch.cat([x.to(side.dtype), side], -1), tb, context)
+
+    runs = {}
+    with _counted(runs, sync)("inversion"):
+        inverted = ddim_inversion(full_eps, schedule, full_lat,
+                                  INVERSION_STEPS)
+    if inverted.shape != full_lat.shape or not torch.isfinite(
+            inverted).all():
+        raise AssertionError("the full-width inversion is not finite")
+    where = "in the full-width inversion"
+    _check_unet_launches(runs["inversion"]["launches"], INVERSION_STEPS,
+                         where)
+    _check_tiled_b(runs["inversion"]["launches"], where)
+    return dict(tiny_rel_err=tiny_err, steps=INVERSION_STEPS,
+                **runs["inversion"])
+
+
+def quality_parity(dev, card: str) -> dict:
+    """Phase 13 (c): `parity_check --synthetic --device cuda`."""
+    from rcdms_tpu_torch.tools import parity_check
+
+    out = os.path.join(OUT_DIR, "chip_smoke_parity.json")
+    t0 = time.perf_counter()
+    rc = parity_check.main(["--synthetic", "--device", "cuda", "--out",
+                            out])
+    seconds = time.perf_counter() - t0
+    with open(out) as fh:
+        report = json.load(fh)
+    checks = report["checks"]
+    if rc != 0 or report["gate"] != "PASS":
+        raise AssertionError(f"the synthetic parity gate on the card: "
+                             f"{report['gate']}")
+    if checks["determinism_fp32"]["identical"] is not True:
+        raise AssertionError("two fp32 runs on the card differ")
+    if checks["int8_vs_bf16"]["engaged"] is not True:
+        raise AssertionError("the int8 route did not engage")
+    for name, row in checks.items():
+        if row["status"] == "measured":
+            _finite_numbers(row, name)
+    print(f"quality: {card}: parity gate {report['gate']} in "
+          f"{seconds:.1f} s: bf16 vs fp32 SSIM min "
+          f"{checks['bf16_vs_fp32']['ssim_min']}, int8 vs bf16 "
+          f"{checks['int8_vs_bf16']['ssim_min']}, k = 2 vs bf16 "
+          f"{checks['encoder_prop2_vs_bf16']['ssim_min']}", flush=True)
+    return dict(report=report, seconds=seconds)
+
+
+def run_quality(dev, card: str) -> dict:
+    """Phase 13: the quality tools on the card (module docstring)."""
+    from rcdms_tpu_torch.tools import int8_quality
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize
+    rig = int8_quality.build(tiny=False, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    print(f"quality: built the full-width UNet, fusion and VAE in "
+          f"{build_s:.1f} s", flush=True)
+    result = dict(card=card, build_s=build_s,
+                  int8=quality_int8(card, rig, sync),
+                  inversion=quality_inversion(dev, card, rig, sync))
+    del rig
+    torch.cuda.empty_cache()
+    result["parity"] = quality_parity(dev, card)
+    result["seconds"] = time.perf_counter() - t0
+    print(f"quality: phase 13 took {result['seconds']:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_quality.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2717,6 +3025,15 @@ def main() -> int:
         print(json.dumps({"shard_faults": [
             {k: r[k] for k in ("fault", "frames_mean_abs", "frames_max_abs",
                                "embeds_rel")} for r in rows]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--int8-faults"]:
+        rows = int8_faults(dev, card)
+        print(json.dumps({"int8_faults": [
+            {k: r[k] for k in ("fault", "ssim_min", "latent_rel_rms")}
+            for r in rows]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -2761,6 +3078,10 @@ def main() -> int:
     shard_launches = {"one_rank": shard["one_rank"]["launches"],
                       **{f"rank{r}": x["launches"] for r, x in
                          enumerate(shard["four_ranks"]["ranks"])}}
+    quality = run_quality(dev, card)
+    quality_launches = {**{name: run["launches"] for name, run in
+                           quality["int8"]["runs"].items()},
+                        "inversion": quality["inversion"]["launches"]}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2782,6 +3103,9 @@ def main() -> int:
                 run: counts[name] for run, counts in dp_launches.items()}
             kernels[-1]["shard_launches"] = {
                 run: counts[name] for run, counts in shard_launches.items()}
+            kernels[-1]["quality_launches"] = {
+                run: counts[name] for run, counts in
+                quality_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

@@ -212,14 +212,16 @@ TOWERS = ("text_s1", "text_s2", "vision", "vae", "prior", "unet", "fusion")
 def restore_port_checkpoint(path: str):
     """(state, metadata, step) of the newest step of a checkpoint directory
     written by this package (`io/checkpoint.py`). An orbax directory of
-    the JAX package raises: reading one needs jax and orbax, and its
-    converter to this format is ROADMAP.md Queue 1 item 12."""
+    the JAX package raises: reading one needs jax and orbax, so it is
+    converted first by `scripts/orbax_to_torch.py`, where jax is
+    installed."""
     if os.path.isdir(path) and not is_checkpoint_dir(path) and any(
             name.isdigit() for name in os.listdir(path)):
         raise ValueError(
             f"{path} holds no checkpoint of rcdms_tpu_torch (no "
-            f"<step>/{STATE_FILE}); an orbax checkpoint of the JAX package "
-            f"needs its converter first (ROADMAP.md Queue 1 item 12)")
+            f"<step>/{STATE_FILE}); convert an orbax checkpoint of the JAX "
+            f"package first: python scripts/orbax_to_torch.py --ckpt {path} "
+            f"--output-dir <dir>")
     return restore_checkpoint(path)
 
 

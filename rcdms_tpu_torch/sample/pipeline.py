@@ -234,6 +234,17 @@ class StoryPipeline(nn.Module):
             sequential_cfg=sequential_cfg,
             encoder_propagation=encoder_propagation, mesh=mesh)
 
+    def with_sampler(self, **options) -> "StoryPipeline":
+        """A pipeline over these towers, with this one's steps, guidance,
+        schedule and mesh, and the story sampler's `options` (`eta`,
+        `encoder_propagation`, `sequential_cfg`)."""
+        s = self.story_sampler
+        return StoryPipeline(self.configs, num_steps=s.num_steps,
+                             guidance_scale=s.guidance_scale,
+                             schedule=s.schedule,
+                             towers=dict(self.named_children()),
+                             mesh=self.mesh, **options).eval()
+
     @property
     def dtype(self) -> torch.dtype:
         return self.unet.conv_in.weight.dtype

@@ -153,7 +153,10 @@ _BLOCKED = textwrap.dedent("""
             "rcdms_tpu_torch.utils.logging",
             "rcdms_tpu_torch.utils.preemption",
             "rcdms_tpu_torch.data.prefetch",
-            "rcdms_tpu_torch.data.native_feeder"} <= set(names)
+            "rcdms_tpu_torch.data.native_feeder",
+            "rcdms_tpu_torch.utils.video",
+            "rcdms_tpu_torch.tools.parity_check",
+            "rcdms_tpu_torch.tools.int8_quality"} <= set(names)
     for name in names:
         importlib.import_module(name)
     for name in blocked:

@@ -45,8 +45,7 @@ from rcdms_tpu_torch.sample.pipeline import (
     tiny_configs,
     tiny_inputs,
 )
-from rcdms_tpu_torch.sample.prior_sampler import PriorConditioning
-from rcdms_tpu_torch.sample.story_sampler import StoryConditioning
+from rcdms_tpu_torch.tools.parity_check import conditioning_from_npz
 from tests.test_torch_configs import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -163,8 +162,7 @@ def _t(a):
 
 def test_prior_sampler_matches_self_test(story):
     port, _, _, _, a = story
-    cond = PriorConditioning(*(_t(a[f"prior_{k}"])
-                               for k in PriorConditioning._fields))
+    cond, _ = conditioning_from_npz(a)
     out = port.prior_sampler(cond, _t(a["prior_init_latents"]),
                              _t(a["prior_step_noise"]))
     np.testing.assert_allclose(out.numpy(), a["reference_prior_embeds"],
@@ -173,15 +171,7 @@ def test_prior_sampler_matches_self_test(story):
 
 def test_story_sampler_matches_self_test(story):
     port, _, _, _, a = story
-    known = _t(a["story_frame_known"])
-    image_proj = torch.where(known[..., None], _t(a["prior_image_embed"]),
-                             _t(a["reference_prior_embeds"]))
-    cond = StoryConditioning(
-        text_hidden=_t(a["story_text_hidden"]),
-        text_hidden_u=_t(a["story_text_hidden_u"]),
-        image_tokens=_t(a["story_image_tokens"]), image_proj=image_proj,
-        frame_known=known, masked_latents=_t(a["story_masked_latents"]),
-        mask_label=_t(a["story_mask_label"]))
+    _, cond = conditioning_from_npz(a, a["reference_prior_embeds"])
     out = port.story_sampler(cond, _t(a["story_init_latents"]))
     np.testing.assert_allclose(out.numpy(), a["reference_latents"],
                                **SAMPLER_TOL)

@@ -193,7 +193,7 @@ def test_an_orbax_checkpoint_raises_naming_its_converter(tmp_path):
     d = str(tmp_path / "orbax")
     jsave(d, 0, {"params": {"w": jnp.zeros(2)}}, {"kind": "x"})
     for flag in ("--converted-ckpt", "--stage1-ckpt", "--stage2-ckpt"):
-        with pytest.raises(ValueError, match="item 12"):
+        with pytest.raises(ValueError, match="scripts/orbax_to_torch.py"):
             pevaluate.build_pipeline(pevaluate.parse_args(CPU + [flag, d]))
 
 
