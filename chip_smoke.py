@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (rcdms_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --shard-faults  # phase 12 (b)'s fault readings
+    python3 chip_smoke.py --shard-faults  # phase 12's fault readings
     python3 chip_smoke.py --int8-faults   # phase 13 (a)'s fault readings
 
 Phases, in order; any failure raises and the exit code is nonzero:
@@ -19,8 +19,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    2e-2 (bf16; H, whose outputs are fp32, 1e-4), with the median time of
    each side, of one PyTorch library call that computes the same function
    where there is one (SDPA beside A,
-   B and E, cuDNN beside the conv, F.group_norm + F.silu beside the fused
-   GN with SiLU, F.group_norm beside it without; the first port's fused
+   B and E, cuDNN beside the conv, torch.var_mean beside the moments,
+   F.group_norm + F.silu beside the fused GN with SiLU, F.group_norm
+   beside it without; the first port's fused
    GN kernel timed beside the cluster kernel where it takes the shape),
    and the case's bound (its work at the card's published peaks); each
    bf16 B case must take B's tiled kernel (its launch count is printed),
@@ -163,23 +164,37 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ZeRO-2 equals --no-zero2 bit for bit is printed. Rows go to
    chiprun_out/chip_smoke_train_dp.json.
 12. sharded single-story inference (`--shard-story`,
-   `rcdms_tpu_torch/train/sharding.py`'s inference mesh, the row helpers
-   of `rcdms_tpu_torch/core/spatial.py`): (a) phase 7a's
+   `rcdms_tpu_torch/train/sharding.py`'s inference mesh, the block
+   helpers of `rcdms_tpu_torch/core/spatial.py`): (a) phase 7a's
    `generate.run` with `--shard-story` under a one-rank NCCL group joined
    from torchrun's variables (set here for this process): its frames,
-   embeds and launches equal 7a's bit for bit; (b) four spawned processes
-   on the one card in a gloo group (NCCL refuses two ranks on one device;
-   cfg 2 x space 2), each building phase 5's pipeline (seed 0, bf16, the
-   ranks one after another) and running phase 5's request 1 split over
-   the four: its frames within a mean |diff| of 6.0e-3 and a max |diff|
-   of 0.29 of phase 5's, its embeds within TOL[bf16] (max |diff| over
-   max |embed|), every rank launching each of A-D and every B launch
-   tiled; max |diff|, each rank's launches, request and build seconds and
-   peak memory printed. Rows go to chiprun_out/chip_smoke_shard.json.
-   `--shard-faults` runs (b) alone (its reference built first), sound
-   and with each fault of SHARD_FAULTS planted (a seam's halo of
-   zeros), and prints each one's frames' mean and max |diff|: the
-   readings (b)'s limits sit between (PERF.md). Rows go to
+   embeds and launches equal 7a's bit for bit; (b), (c), (d) spawned
+   processes on the one card in a gloo group (NCCL refuses two ranks on
+   one device; SHARD_RUNS): (b) four ranks, cfg 2 x space 2; (c) three,
+   space 3 (64 latent rows 24 / 24 / 16, 512 px rows 176 / 176 / 160, 5
+   frames and the towers' images 2 / 2 / 1); (d) four at a 'frame' axis
+   of 2, cfg 2 x frame 2 (frames 3 / 2, traded for tokens in the
+   temporal modules). Each rank builds phase 5's pipeline (seed 0, bf16,
+   the ranks one after another) and runs phase 5's request 1 split over
+   the run's ranks, the towers' batch over every rank and the prior's
+   frames over its CFG branch's: its frames within a mean |diff| of
+   6.0e-3 and a max |diff| of 0.29 of phase 5's, its embeds within
+   SHARD_EMBEDS_TOL, 2e-2 (max |diff| over max |embed|), every rank
+   launching each of A-D and every B launch tiled; the mesh, max |diff|,
+   each rank's launches, request and build seconds and peak memory
+   printed. Rows go to chiprun_out/chip_smoke_shard.json. Before each
+   run the card's free memory is held against what its ranks need, and
+   after every phase before 12 the garbage collector's yield is printed
+   (`cycles: ...`).
+   `--shard-faults` runs (b) and (d) alone (their reference built
+   first), sound and with each fault of SHARD_FAULTS planted in its run
+   (a seam's halo of zeros in (b); frames reversed across the frame
+   exchange, the prior's frames or the towers' batch gathered out of
+   order in (d)), and prints each one's frames' mean and max |diff| and
+   embeds' max |diff| / max: the readings the limits sit between
+   (PERF.md); then the prior alone in fp32 and bf16 on 2 and 4 gloo
+   ranks against one process (`shard_prior_layouts`), which tells
+   rounding from a fault. Rows go to
    chiprun_out/chip_smoke_shard_faults.json.
 13. the quality tools (`rcdms_tpu_torch/tools/int8_quality.py`,
    `parity_check.py`, `rcdms_tpu_torch/utils/video.py`): (a)
@@ -217,7 +232,8 @@ The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
 CLI run, encodes included; `dp_launches`: phase 11's, each rank's 2-step
-run; `shard_launches`: phase 12's, (a)'s run and each rank's request;
+run; `shard_launches`: phase 12's, (a)'s run and each rank's request in (b)
+(`rank<r>`), (c) (`c_rank<r>`) and (d) (`d_rank<r>`);
 `quality_launches`: phase 13's, each sampler run of (a) and (b)'s
 inversion);
 the last line is {"ok": true, "device": {...}}.
@@ -292,6 +308,24 @@ class Case(NamedTuple):
     work: tuple
     library: Optional[Callable] = None
     baselines: tuple = ()
+
+
+def _collect_cycles() -> int:
+    """Bytes of the card's allocated memory that a garbage collection
+    frees: tensors that only reference cycles still held."""
+    import gc
+
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return before - torch.cuda.memory_allocated()
+
+
+def _after_phase(name: str) -> None:
+    """Prints what the collector frees after phase `name`: 0 unless the
+    phase left tensors in reference cycles."""
+    print(f"cycles: {_collect_cycles() / 2**30:.3f} GiB of the card freed "
+          f"by the collector after {name}", flush=True)
 
 
 def _nbytes(*tensors) -> int:
@@ -424,9 +458,12 @@ def study_kernel_cases(r, dev, dtype):
             lambda s=shifts: cm_conv3x3_plain(x, w9, bias, mask, cs.WP, s),
             conv_work, lambda: F.conv2d(x_frame, w_oihw, bias)))
     xm = r(50, 4096, 320)
+    # the library call: one var_mean gives the same moments (E[x^2] = var
+    # + mean^2)
     cases.append(Case("gn_moments", "50x4096x320", lambda: gn_moments(xm),
                       lambda: gn_moments_plain(xm),
-                      (0, 0, _nbytes(xm) + 2 * 50 * 320 * 4)))
+                      (0, 0, _nbytes(xm) + 2 * 50 * 320 * 4),
+                      lambda: torch.var_mean(xm, dim=1, correction=0)))
     # the fused GroupNorm at the study's shapes and up level 0's first
     # ResNet block, with SiLU (beside F.group_norm + F.silu) and without
     # (beside F.group_norm), and the first port's kernel timed beside it
@@ -2427,22 +2464,45 @@ def run_dp(dev, card: str, phase10: dict) -> dict:
 # ---- phase 12: sharded single-story inference ------------------------------
 
 SHARD_DIR = os.path.join(REPO, "build", "chip_smoke_shard")
-SHARD_WORLD = 4     # phase 12 (b)'s gloo ranks: cfg 2 x space 2
-SHARD_JOIN_S = 420  # seconds they may take, builds included
+# phase 12's gloo runs on the one card: name -> (ranks, 'frame' axis);
+# (b) cfg 2 x space 2, (c) space 3, (d) cfg 2 x frame 2
+SHARD_RUNS = {"b": (4, 1), "c": (3, 1), "d": (4, 2)}
+SHARD_JOIN_S = 420  # seconds a run may take, builds included
+# card memory of a phase-12 rank once built (13.27-13.45 GiB were read at
+# the request's peak) and while building (25.05 GiB: fp32 weights cast)
+SHARD_BUILT_BYTES = int(13.5 * 2**30)
+SHARD_BUILDING_BYTES = int(25.5 * 2**30)
 # frames' mean and max |diff| against one process: the geometric means of
 # the sound reading and the least of `--shard-faults`' faulted ones
 # (mean 4.766e-3 against 7.668e-3, max 0.1035 against 0.7910; PERF.md)
 SHARD_MEAN_TOL = 6.0e-3
 SHARD_MAX_TOL = 0.29
-# faults planted by `--shard-faults` (none in the phase): name -> (what,
-# the local rows and channels of the feature maps whose 3x3 convs take
-# zeros for their neighbours' rows, as if the halo were never exchanged)
+# embeds' max |diff| / max |embed| against one process: the geometric
+# mean of the sound reading and the least faulted one (1.585e-2 in (b)
+# and (d) against 0.1553, `frames_reversed_in_exchange`), capped at
+# TOL[bf16]; the prior alone reads 4.5e-6 in fp32 on (b)'s layout
+SHARD_EMBEDS_TOL = min(TOL[torch.bfloat16], math.sqrt(1.585e-2 * 0.1553))
+# faults planted by `--shard-faults` (none in the phase): name -> (the
+# run of SHARD_RUNS it is planted in, what it breaks)
 SHARD_FAULTS = {
-    "unet_level0_halo": ("the UNet's level-0 convs (32 of 64 latent rows "
-                         "a rank, 320 channels)", 32, 320),
-    "vae_512px_halo": ("the VAE's 512-px convs (128 of 512 rows a rank, "
-                       "128 channels)", 128, 128),
+    "unet_level0_halo": ("b", "the UNet's level-0 convs (32 of 64 latent "
+                         "rows a rank, 320 channels) take zeros for their "
+                         "neighbours' rows"),
+    "vae_512px_halo": ("b", "the VAE's 512-px convs (128 of 512 rows a "
+                       "rank, 128 channels) take zeros for their "
+                       "neighbours' rows"),
+    "frames_reversed_in_exchange": ("d", "every temporal module's blocks "
+                                    "see the frames in reverse order after "
+                                    "the frame-for-token all_to_all"),
+    "prior_frames_out_of_order": ("d", "the prior's frames gathered with "
+                                  "its ranks' blocks in reverse order"),
+    "tower_batch_out_of_order": ("d", "the towers' outputs gathered with "
+                                 "the ranks' blocks of the b*f batch in "
+                                 "reverse order"),
 }
+# the halo faults' feature maps: name -> (local rows, channels)
+SHARD_HALO_FAULTS = {"unet_level0_halo": (32, 320),
+                     "vae_512px_halo": (128, 128)}
 
 
 def _torchrun_env() -> dict:
@@ -2505,32 +2565,71 @@ def shard_one_rank(card: str, entry: dict) -> dict:
     return row
 
 
-def _plant_shard_fault(name: str) -> None:
-    """In this rank's process, the halo of SHARD_FAULTS[name]'s convs made
-    of zeros (every rank of a group sees the same shapes, so all of them
-    skip the exchange together)."""
+def _reversed_gather(module, axis: int) -> None:
+    """`module.spatial` with a `gather` that joins the ranks' blocks along
+    `axis` in reverse rank order (a planted fault)."""
+    import types
+
     from rcdms_tpu_torch.core import spatial
 
-    _, rows, channels = SHARD_FAULTS[name]
-    real = spatial.halo
+    def gather(x, at, group, table):
+        whole = spatial.gather(x, at, group, table)
+        if at % x.dim() != axis or group.size == 1:
+            return whole
+        return torch.cat([whole.narrow(axis, o, n) for o, n in table[::-1]],
+                         dim=axis)
 
-    def halo(x, axis, above, below, group):
-        if x.shape[axis] == rows and x.shape[-1] == channels:
-            group = None
-        return real(x, axis, above, below, group)
-
-    spatial.halo = halo
+    faulty = types.SimpleNamespace(**vars(spatial))
+    faulty.gather = gather
+    module.spatial = faulty
 
 
-def _shard_rank(rank: int, store: str, root: str,
+def _plant_shard_fault(name: str) -> None:
+    """In this rank's process, SHARD_FAULTS[name] (every rank plants it,
+    so the ranks still join the same collectives)."""
+    from rcdms_tpu_torch.core import spatial
+    from rcdms_tpu_torch.sample import pipeline, prior_sampler
+
+    if name in SHARD_HALO_FAULTS:
+        rows, channels = SHARD_HALO_FAULTS[name]
+        real = spatial.halo
+
+        def halo(x, axis, above, below, plan):
+            if x.shape[axis] != rows or x.shape[-1] != channels:
+                return real(x, axis, above, below, plan)
+
+            def zeros(n):
+                shape = list(x.shape)
+                shape[axis] = n
+                return x.new_zeros(shape)
+
+            return torch.cat([zeros(above), x, zeros(below)], dim=axis)
+
+        spatial.halo = halo
+    elif name == "frames_reversed_in_exchange":
+        to_tokens = spatial.frames_to_tokens
+        to_frames = spatial.tokens_to_frames
+        spatial.frames_to_tokens = lambda h, split: to_tokens(
+            h, split).flip(1)
+        spatial.tokens_to_frames = lambda h, split, n: to_frames(
+            h.flip(1), split, n)
+    elif name == "prior_frames_out_of_order":
+        _reversed_gather(prior_sampler, 1)
+    elif name == "tower_batch_out_of_order":
+        _reversed_gather(pipeline, 0)
+    else:
+        raise ValueError(f"no shard fault {name!r}")
+
+
+def _shard_rank(rank: int, world: int, frame: int, store: str, root: str,
                 fault: Optional[str] = None) -> None:
-    """Phase 12 (b)'s rank `rank` (a spawned process): joins the gloo
-    group of SHARD_WORLD ranks on the one card, builds phase 5's pipeline
-    (seed 0, bf16) with the inference mesh, the ranks one after another
-    (each build holds fp32 weights for a moment), and runs phase 5's
-    request 1 (seed 1, generator 11); writes its launches, seconds and
-    peak memory, and rank 0 the frames and embeds. `fault`: a planted
-    fault of SHARD_FAULTS."""
+    """Rank `rank` of a phase-12 gloo run (a spawned process): joins the
+    gloo group of `world` ranks on the one card, builds phase 5's pipeline
+    (seed 0, bf16) with the inference mesh at 'frame' axis `frame`, the
+    ranks one after another (each build holds fp32 weights for a moment),
+    and runs phase 5's request 1 (seed 1, generator 11); writes its mesh,
+    launches, seconds and peak memory, and rank 0 the frames and embeds.
+    `fault`: a planted fault of SHARD_FAULTS."""
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2546,13 +2645,13 @@ def _shard_rank(rank: int, store: str, root: str,
         _plant_shard_fault(fault)
     dev = torch.device("cuda")
     distributed.maybe_initialize("cuda", init_method=f"file://{store}",
-                                 world_size=SHARD_WORLD, rank=rank,
+                                 world_size=world, rank=rank,
                                  local_rank=0, backend="gloo")
     try:
-        mesh = sharding.inference_mesh()
+        mesh = sharding.inference_mesh(frame)
         configs = full_configs(temporal_zero_init=False)
         t0 = time.perf_counter()
-        for r in range(SHARD_WORLD):
+        for r in range(world):
             if r == rank:
                 pipe = build_pipeline(configs, dev, torch.bfloat16, seed=0,
                                       num_steps=STEPS, mesh=mesh)
@@ -2582,36 +2681,51 @@ def _shard_rank(rank: int, store: str, root: str,
             torch.save(dict(frames=frames.cpu(), embeds=embeds.cpu()),
                        os.path.join(root, "story.pt"))
         with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
-            json.dump(dict(mesh=list(mesh[:4]), launches=counts, s=seconds,
+            json.dump(dict(mesh=list(mesh[:6]), launches=counts, s=seconds,
                            build_s=build_s, build_peak_bytes=build_peak,
                            peak_bytes=torch.cuda.max_memory_allocated()), fh)
     finally:
         distributed.shutdown()
 
 
-def shard_four_ranks(card: str, request1: dict,
-                     fault: Optional[str] = None) -> dict:
-    """Phase 12 (b): SHARD_WORLD spawned processes on the one card in a
-    gloo group (NCCL refuses two ranks on one device) split phase 5's
-    request 1 (cfg 2 x space 2); against phase 5's one-process frames
-    (mean and max |diff| within SHARD_MEAN_TOL and SHARD_MAX_TOL) and
-    embeds (max |diff| / max
-    |embed| within TOL[bf16]); every rank launches each of A-D, every B
-    launch tiled. With a planted `fault` (`--shard-faults`) the row is
-    returned unchecked."""
+def shard_ranks(card: str, request1: dict, run: str = "b",
+                fault: Optional[str] = None) -> dict:
+    """Phase 12 (b), (c) or (d) (`run`, SHARD_RUNS): its spawned processes
+    on the one card in a gloo group (NCCL refuses two ranks on one
+    device) split phase 5's request 1; against phase 5's one-process
+    frames (mean and max |diff| within SHARD_MEAN_TOL and SHARD_MAX_TOL)
+    and embeds (max |diff| / max |embed| within SHARD_EMBEDS_TOL); every
+    rank launches each of A-D, every B launch tiled. With a planted
+    `fault` (`--shard-faults`) the row is returned unchecked."""
     import shutil
 
     import torch.multiprocessing as mp
 
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
     os.makedirs(SHARD_DIR)
-    torch.cuda.empty_cache()
+    world, frame = SHARD_RUNS[run]
+    # the ranks are built one after another: each built rank holds
+    # SHARD_BUILT_BYTES, the one building SHARD_BUILDING_BYTES
+    need = (world - 1) * SHARD_BUILT_BYTES + SHARD_BUILDING_BYTES
+    cycles = _collect_cycles()
     parent_bytes = torch.cuda.memory_allocated()
+    free_bytes = torch.cuda.mem_get_info()[0]
+    print(f"shard ({run}): the card has {free_bytes / 2**30:.2f} GiB free "
+          f"for {world} ranks needing about {need / 2**30:.2f} (this "
+          f"process holds {parent_bytes / 2**30:.2f} GiB; the collector "
+          f"freed {cycles / 2**30:.2f} GiB left in reference cycles)",
+          flush=True)
+    if free_bytes < need:
+        raise AssertionError(
+            f"phase 12 ({run}): {free_bytes / 2**30:.2f} GiB of the card "
+            f"free, under the {need / 2**30:.2f} GiB its {world} ranks need: "
+            f"an earlier phase still holds {parent_bytes / 2**30:.2f} GiB")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_shard_rank,
-                         args=(r, os.path.join(SHARD_DIR, "store"),
-                               SHARD_DIR, fault))
-             for r in range(SHARD_WORLD)]
+                         args=(r, world, frame,
+                               os.path.join(SHARD_DIR, "store"), SHARD_DIR,
+                               fault))
+             for r in range(world)]
     try:
         t0 = time.perf_counter()
         for p in procs:
@@ -2620,12 +2734,14 @@ def shard_four_ranks(card: str, request1: dict,
             p.join(SHARD_JOIN_S)
         wall = time.perf_counter() - t0
         codes = [p.exitcode for p in procs]
-        if codes != [0] * SHARD_WORLD:
-            raise AssertionError(f"phase 12 (b) rank exit codes {codes} "
+        if codes != [0] * world:
+            raise AssertionError(f"phase 12 ({run}) rank exit codes {codes} "
                                  f"(None: still running after "
-                                 f"{SHARD_JOIN_S} s)")
+                                 f"{SHARD_JOIN_S} s; the card had "
+                                 f"{free_bytes / 2**30:.2f} GiB free at "
+                                 f"their spawn)")
         ranks = []
-        for r in range(SHARD_WORLD):
+        for r in range(world):
             with open(os.path.join(SHARD_DIR, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
         got = torch.load(os.path.join(SHARD_DIR, "story.pt"))
@@ -2638,15 +2754,17 @@ def shard_four_ranks(card: str, request1: dict,
     diff = (got["frames"] - request1["frames"]).abs()
     embeds_rel = ((got["embeds"] - request1["embeds"]).abs().max()
                   / request1["embeds"].abs().max()).item()
-    row = dict(card=card, fault=fault, world=SHARD_WORLD,
-               mesh=ranks[0]["mesh"],
+    row = dict(card=card, run=run, fault=fault, world=world,
+               mesh=ranks[0]["mesh"][:3],
                wall_s=wall, frames_mean_abs=diff.mean().item(),
                frames_max_abs=diff.max().item(), embeds_rel=embeds_rel,
-               parent_bytes=parent_bytes, ranks=ranks)
-    print(f"shard four ranks: {card}: phase 5's request 1 on {SHARD_WORLD} "
-          f"gloo ranks{f' with the planted fault {fault}' if fault else ''}"
-          f" (cfg, space, c, s of rank 0: "
-          f"{ranks[0]['mesh']}) in {wall:.1f} s wall (spawn and builds "
+               parent_bytes=parent_bytes, free_bytes=free_bytes,
+               ranks=ranks)
+    print(f"shard ({run}): {card}: phase 5's request 1 on {world} gloo "
+          f"ranks{f' with the planted fault {fault}' if fault else ''}"
+          f" (mesh cfg, frame, space {row['mesh']}; each rank's c, fr, s "
+          f"{[x['mesh'][3:] for x in ranks]}) in {wall:.1f} s wall (spawn "
+          f"and builds "
           f"included): frames mean |diff| {row['frames_mean_abs']:.3e}, max "
           f"|diff| {row['frames_max_abs']:.3e}; embeds max |diff| / max "
           f"{embeds_rel:.3e}; per rank: request s "
@@ -2654,7 +2772,8 @@ def shard_four_ranks(card: str, request1: dict,
           f"{[round(x['build_s'], 1) for x in ranks]}, peak GiB request "
           f"{[round(x['peak_bytes'] / 2**30, 2) for x in ranks]}, build "
           f"{[round(x['build_peak_bytes'] / 2**30, 2) for x in ranks]} "
-          f"(this process holds {parent_bytes / 2**30:.2f} GiB); launches "
+          f"(this process holds {parent_bytes / 2**30:.2f} GiB, the card "
+          f"had {free_bytes / 2**30:.2f} GiB free); launches "
           f"{[x['launches'] for x in ranks]}", flush=True)
     if fault is not None:
         return row
@@ -2662,7 +2781,7 @@ def shard_four_ranks(card: str, request1: dict,
         _check_story_launches(x["launches"], f"on shard rank {r}")
     if not (row["frames_mean_abs"] <= SHARD_MEAN_TOL
             and row["frames_max_abs"] <= SHARD_MAX_TOL
-            and embeds_rel <= TOL[torch.bfloat16]):
+            and embeds_rel <= SHARD_EMBEDS_TOL):
         raise AssertionError(f"the sharded story differs from phase 5's: "
                              f"{row}")
     return row
@@ -2672,18 +2791,130 @@ def run_shard(card: str, entry: dict, request1: dict) -> dict:
     """Phase 12: sharded single-story inference (module docstring)."""
     print(f"shard on {card}", flush=True)
     result = dict(card=card, one_rank=shard_one_rank(card, entry),
-                  four_ranks=shard_four_ranks(card, request1))
+                  **{run: shard_ranks(card, request1, run)
+                     for run in SHARD_RUNS})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_shard.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     return result
 
 
-def shard_faults(dev, card: str) -> list:
-    """`python3 chip_smoke.py --shard-faults`: phase 12 (b) sound and with
-    each fault of SHARD_FAULTS planted, against phase 5's request 1 (its
-    pipeline built here alone): the readings phase 12 (b)'s limits are set
-    between. Rows go to chiprun_out/chip_smoke_shard_faults.json."""
+# the prior alone on the ranks of these (ranks, 'frame' axis) layouts in
+# `--shard-faults`: world 2 splits the CFG branches alone, (b)'s also the
+# frames of a branch 3 / 2
+SHARD_PRIOR_LAYOUTS = ((2, 1), (4, 1))
+
+
+def _prior_embeds(dtype, mesh=None) -> torch.Tensor:
+    """The full-width frame prior alone (seeded random weights, seed 0) in
+    `dtype`, sampling 20 steps of seeded random conditioning (one story, 5
+    frames, 24 real caption tokens) with the generator seed 11, on `mesh`
+    or one process: (1, 5, 1280) fp32 embeds."""
+    from rcdms_tpu_torch.core.layers import init_like_flax_
+    from rcdms_tpu_torch.models.prior import FramePrior
+    from rcdms_tpu_torch.sample.pipeline import for_inference, full_configs
+    from rcdms_tpu_torch.sample.prior_sampler import (PriorConditioning,
+                                                      PriorSampler)
+
+    dev = torch.device("cuda")
+    cfg = full_configs(temporal_zero_init=False).prior
+    with dev:
+        prior = FramePrior(cfg)
+    init_like_flax_(prior, torch.Generator(dev).manual_seed(0))
+    prior = for_inference(prior, dtype)
+    g = torch.Generator().manual_seed(3)
+    f, d, t = cfg.num_frames, cfg.embedding_dim, cfg.num_text_tokens
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    mask = (torch.arange(t) < 24).expand(1, f, t).to(dev)
+    cond = PriorConditioning(randn(1, f, d), randn(1, f, t, d), mask,
+                             randn(1, f, d), randn(1, f, t, d), mask,
+                             randn(1, f, d), randn(1, f, d))
+    sampler = PriorSampler(prior, num_steps=STEPS, mesh=mesh)
+    embeds = sampler(cond, generator=torch.Generator(dev).manual_seed(11))
+    torch.cuda.synchronize()
+    return embeds.cpu()
+
+
+def _prior_rank(rank: int, world: int, frame: int, store: str, root: str,
+                dtype: str) -> None:
+    """Rank `rank` of a `shard_prior_layouts` run (a spawned process): the
+    prior alone (`_prior_embeds`) on the inference mesh of `world` gloo
+    ranks at 'frame' axis `frame`; rank 0 writes the embeds."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rcdms_tpu_torch.train import distributed, sharding
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    distributed.maybe_initialize("cuda", init_method=f"file://{store}",
+                                 world_size=world, rank=rank,
+                                 local_rank=0, backend="gloo")
+    try:
+        embeds = _prior_embeds(getattr(torch, dtype),
+                               sharding.inference_mesh(frame))
+        if rank == 0:
+            torch.save(embeds, os.path.join(root, "prior.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def shard_prior_layouts(card: str) -> list:
+    """The prior alone (`_prior_embeds`) in fp32 and in bf16 on each of
+    SHARD_PRIOR_LAYOUTS against one process (this one) in the same dtype:
+    max |diff| / max |embed|. A fault of the split shows in fp32 as much
+    as in bf16; rounding (products of other shapes) shrinks with the
+    dtype's epsilon."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    rows = []
+    ctx = mp.get_context("spawn")
+    for dtype in ("float32", "bfloat16"):
+        want = _prior_embeds(getattr(torch, dtype))
+        torch.cuda.empty_cache()
+        for world, frame in SHARD_PRIOR_LAYOUTS:
+            shutil.rmtree(SHARD_DIR, ignore_errors=True)
+            os.makedirs(SHARD_DIR)
+            procs = [ctx.Process(target=_prior_rank,
+                                 args=(r, world, frame,
+                                       os.path.join(SHARD_DIR, "store"),
+                                       SHARD_DIR, dtype))
+                     for r in range(world)]
+            try:
+                for p in procs:
+                    p.start()
+                for p in procs:
+                    p.join(SHARD_JOIN_S)
+                codes = [p.exitcode for p in procs]
+                if codes != [0] * world:
+                    raise AssertionError(f"prior layout {world}, {frame} "
+                                         f"in {dtype}: exit codes {codes}")
+                got = torch.load(os.path.join(SHARD_DIR, "prior.pt"))
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                shutil.rmtree(SHARD_DIR, ignore_errors=True)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            rows.append(dict(card=card, dtype=dtype, world=world,
+                             frame=frame, embeds_rel=rel,
+                             finite=bool(got.isfinite().all())))
+            print(f"shard prior: {card}: the prior alone on {world} gloo "
+                  f"ranks at 'frame' {frame} in {dtype}: max |diff| / max "
+                  f"{rel:.3e} against one process", flush=True)
+    return rows
+
+
+def shard_faults(dev, card: str) -> dict:
+    """`python3 chip_smoke.py --shard-faults`: phase 12 (b) and (d) sound
+    and with each fault of SHARD_FAULTS planted in its run, against phase
+    5's request 1 (its pipeline built here alone): the readings phase
+    12's limits are set between; then `shard_prior_layouts`. Rows go to
+    chiprun_out/chip_smoke_shard_faults.json."""
     from rcdms_tpu_torch.sample.pipeline import build_pipeline, full_configs
 
     configs = full_configs(temporal_zero_init=False)
@@ -2700,13 +2931,16 @@ def shard_faults(dev, card: str) -> list:
     request1 = dict(frames=frames.cpu(), embeds=embeds.cpu())
     del pipe, cache, frames, embeds
     torch.cuda.empty_cache()
-    rows = [shard_four_ranks(card, request1, fault)
-            for fault in (None, *SHARD_FAULTS)]
+    rows = [shard_ranks(card, request1, run, fault)
+            for run in ("b", "d")
+            for fault in (None, *(name for name, (at, _) in
+                                  SHARD_FAULTS.items() if at == run))]
+    result = dict(runs=rows, prior=shard_prior_layouts(card))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_shard_faults.json"),
               "w") as fh:
-        json.dump(rows, fh, indent=1)
-    return rows
+        json.dump(result, fh, indent=1)
+    return result
 
 
 # launches of each story kernel in one call of the full-width UNet: A, the
@@ -3021,10 +3255,13 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_ptxas.log"), "w") as fh:
         fh.write(built.log)
     if sys.argv[1:] == ["--shard-faults"]:
-        rows = shard_faults(dev, card)
+        result = shard_faults(dev, card)
         print(json.dumps({"shard_faults": [
-            {k: r[k] for k in ("fault", "frames_mean_abs", "frames_max_abs",
-                               "embeds_rel")} for r in rows]}))
+            {k: r[k] for k in ("run", "fault", "frames_mean_abs",
+                               "frames_max_abs", "embeds_rel")}
+            for r in result["runs"]], "shard_prior": [
+            {k: r[k] for k in ("dtype", "world", "frame", "embeds_rel")}
+            for r in result["prior"]]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -3041,23 +3278,30 @@ def main() -> int:
 
     summary = check_kernels(dev, card)
     check_tiny_reference(dev)
+    _after_phase("phases 3-4")
     story = run_story(full_configs(temporal_zero_init=False), dev,
                       torch.bfloat16, STEPS, PIXELS)
     print(f"story: {card}: per-request seconds "
           f"{[round(s, 3) for s in story['seconds']]} at {STEPS} steps",
           flush=True)
+    _after_phase("phase 5")
     launches = {**story["counts"], **run_studies(dev, card)}
+    _after_phase("phase 6")
     entry = run_entry_points(dev, card)
+    _after_phase("phase 7")
     served = run_serve(dev, card, entry)
     print(f"serve: {card}: seconds a story at batch 1 "
           f"{served['batch1_s']:.3f}, at batch 2 {served['batch2_s']:.3f}",
           flush=True)
+    _after_phase("phase 8")
     trained = run_train(dev, card)
+    _after_phase("phase 9")
     step2 = trained["full"]["stage2"]
     step_launches = {k: v + step2["encode_launches"][k]
                      for k, v in step2["steps"][0]["launches"].items()}
     phase10 = {}
     train_cli = run_train_cli(dev, card, step_launches, phase10)
+    _after_phase("phase 10")
     cli_launches = {"stage2": train_cli["stage2"]["run"]["launches"],
                     "stage2_resumed": train_cli["stage2"]["resumed"][
                         "launches"],
@@ -3067,6 +3311,7 @@ def main() -> int:
             raise AssertionError(f"the training CLIs never launched {name}")
     dp = run_dp(dev, card, phase10)
     del phase10
+    _after_phase("phase 11")
     dp_launches = {"stage2_one_rank": dp["one_rank"]["launches"],
                    **{f"stage1_rank{r}": x["zero2"]["launches"]
                       for r, x in enumerate(dp["two_ranks"]["ranks"])}}
@@ -3076,8 +3321,9 @@ def main() -> int:
                                  f"{name}")
     shard = run_shard(card, entry, story["request1"])
     shard_launches = {"one_rank": shard["one_rank"]["launches"],
-                      **{f"rank{r}": x["launches"] for r, x in
-                         enumerate(shard["four_ranks"]["ranks"])}}
+                      **{f"{'' if run == 'b' else run + '_'}rank{r}":
+                         x["launches"] for run in SHARD_RUNS
+                         for r, x in enumerate(shard[run]["ranks"])}}
     quality = run_quality(dev, card)
     quality_launches = {**{name: run["launches"] for name, run in
                            quality["int8"]["runs"].items()},

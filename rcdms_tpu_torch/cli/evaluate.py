@@ -27,10 +27,13 @@ frame; cosine metrics only), `--encoder-propagation k` and
 `--shard-story` splits each story over the ranks of the process group
 that `torchrun --nproc-per-node N` starts (NCCL on `cuda:LOCAL_RANK`,
 gloo with `--device cpu`; without torchrun, a one-rank mesh): the
-('cfg', 'frame', 'space') mesh of `train.sharding.inference_mesh`. Every
-rank runs every story; rank 0 alone writes the PNGs, metrics and
-summary. Before the first story every rank's parameter checksums must
-equal rank 0's.
+('cfg', 'frame', 'space') mesh of `train.sharding.inference_mesh`, at
+the JAX CLI's default 'frame' axis of 1, for any N (splits that do not
+divide are padded as GSPMD pads them). Every rank runs its share of
+every story (the towers' batch, the prior's frames, the UNet's CFG
+branch and latent rows, the VAE's image rows); rank 0 alone writes the
+PNGs, metrics and summary. Before the first story every rank's parameter
+checksums must equal rank 0's.
 
     torchrun --nproc-per-node 4 -m rcdms_tpu_torch.cli.evaluate \
         --shard-story ...

@@ -245,66 +245,70 @@ class StoryServer:
         return frames
 
 
-def make_handler(server: StoryServer):
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *a):  # quiet
-            pass
+class Handler(BaseHTTPRequestHandler):
+    """The HTTP routes; the `StoryServer` is the HTTP server's `story`.
+    A module-level class: one made per server, closing over it, would sit
+    in a reference cycle (a class refers to itself) and hold the
+    pipeline until the garbage collector ran."""
 
-        def _reply(self, code: int, obj: dict):
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+    def log_message(self, *a):  # quiet
+        pass
 
-        def do_GET(self):
-            if self.path != "/healthz":
-                return self._reply(404, {"error": "not found"})
-            self._reply(200, {
-                "status": "ok",
-                "num_frames": server.ds_cfg.num_frames,
-                "image_size": server.ds_cfg.image_size,
-                "compiled": sorted(server.compiled_batches),
-                "served": server.served,
-                "pending": server.queue.qsize(),
-                "avg_latency_s": round(
-                    server.total_latency_s / max(1, server.served), 4),
-            })
+    def _reply(self, code: int, obj: dict):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
-        def do_POST(self):
-            if self.path != "/generate":
-                return self._reply(404, {"error": "not found"})
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-                body = json.loads(self.rfile.read(n) or b"{}")
-                refs = [_decode_b64_image(d)
-                        for d in body.get("reference_frames", [])]
-                inputs = server.story_inputs(
-                    body["captions"], refs, body.get("negative_prompt", ""))
-                seed = int(body.get("seed", 0))
-                if not 0 <= seed < 2 ** 64:  # a generator's seed range
-                    raise ValueError(f"seed {seed} is not in [0, 2**64)")
-            except (KeyError, ValueError, TypeError, AttributeError) as e:
-                # ValueError covers bad base64 (binascii.Error) and images
-                # the PNG decoder refuses
-                return self._reply(400, {"error": str(e)})
-            t0 = time.monotonic()
-            req = server.submit(inputs, seed)
-            if req is None:
-                return self._reply(503, {"error": "server saturated; "
-                                         "retry later"})
-            req.done.wait()
-            if req.error is not None:
-                return self._reply(500, {"error": req.error})
-            latency = time.monotonic() - t0
-            self._reply(200, {
-                "frames": [_png_b64(f) for f in req.frames],
-                "latency_s": round(latency, 4),
-                "batch_size": req.batch_size,
-            })
+    def do_GET(self):
+        server = self.server.story
+        if self.path != "/healthz":
+            return self._reply(404, {"error": "not found"})
+        self._reply(200, {
+            "status": "ok",
+            "num_frames": server.ds_cfg.num_frames,
+            "image_size": server.ds_cfg.image_size,
+            "compiled": sorted(server.compiled_batches),
+            "served": server.served,
+            "pending": server.queue.qsize(),
+            "avg_latency_s": round(
+                server.total_latency_s / max(1, server.served), 4),
+        })
 
-    return Handler
+    def do_POST(self):
+        server = self.server.story
+        if self.path != "/generate":
+            return self._reply(404, {"error": "not found"})
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(n) or b"{}")
+            refs = [_decode_b64_image(d)
+                    for d in body.get("reference_frames", [])]
+            inputs = server.story_inputs(
+                body["captions"], refs, body.get("negative_prompt", ""))
+            seed = int(body.get("seed", 0))
+            if not 0 <= seed < 2 ** 64:  # a generator's seed range
+                raise ValueError(f"seed {seed} is not in [0, 2**64)")
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            # ValueError covers bad base64 (binascii.Error) and images
+            # the PNG decoder refuses
+            return self._reply(400, {"error": str(e)})
+        t0 = time.monotonic()
+        req = server.submit(inputs, seed)
+        if req is None:
+            return self._reply(503, {"error": "server saturated; "
+                                     "retry later"})
+        req.done.wait()
+        if req.error is not None:
+            return self._reply(500, {"error": req.error})
+        latency = time.monotonic() - t0
+        self._reply(200, {
+            "frames": [_png_b64(f) for f in req.frames],
+            "latency_s": round(latency, 4),
+            "batch_size": req.batch_size,
+        })
 
 
 def serve(args, *, ready_event=None, httpd_box=None):
@@ -325,8 +329,8 @@ def serve(args, *, ready_event=None, httpd_box=None):
         print("precompile done", flush=True)
         return
     server.start()
-    httpd = ThreadingHTTPServer((args.host, args.port),
-                                make_handler(server))
+    httpd = ThreadingHTTPServer((args.host, args.port), Handler)
+    httpd.story = server
     if httpd_box is not None:
         httpd_box.append((httpd, server))
     print(f"serving on http://{args.host}:{httpd.server_address[1]}",

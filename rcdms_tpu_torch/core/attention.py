@@ -20,18 +20,23 @@ from rcdms_tpu_torch.ops.frame_attention import frame_attention
 
 
 def spatial_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               self_attention: bool):
+               self_attention: bool, cols: Optional[int] = None):
     """(k, v, the whole query count) of a token-major attention site: rows
-    split over a `spatial.spatial` group keep their queries and, in
-    self-attention, gather every rank's K and V in row order (one
-    all_gather); cross-attention keys stay local."""
-    group = spatial.spatial_group()
-    if group is None:
+    of a `cols`-column map split by a `spatial.spatial` row plan keep
+    their queries and, in self-attention, gather every rank's K and V in
+    row order (one all_gather of blocks that may differ in size or be
+    empty); cross-attention keys stay local."""
+    plan = spatial.row_plan()
+    if plan is None:
         return k, v, q.shape[-2]
+    if cols is None:
+        raise ValueError("a token-major site under a row plan needs its "
+                         "map's columns")
     if self_attention:
-        k, v = spatial.gather_rows(torch.stack([k, v]), -2,
-                                    group).unbind(0)
-    return k, v, q.shape[-2] * group.size
+        tokens = [(o * cols, n * cols) for o, n in plan.blocks(cols)]
+        k, v = spatial.gather(torch.stack([k, v]), -2, plan.group,
+                              tokens).unbind(0)
+    return k, v, plan.total(cols) * cols
 
 
 class Attention(nn.Module):
@@ -41,9 +46,10 @@ class Attention(nn.Module):
     with the same leading dims, optional additive mask; routed by
     `ops.attention.multihead_attention` (kernel A for long unmasked
     queries). frame_axis=True: x (b, f, n, dim), attention across f at every
-    token (kernel B). Within `spatial.spatial`, a token-major site
-    gathers K and V over the ranks (`spatial_kv`) and routes by its whole
-    query count; frame-axis attention stays local."""
+    token (kernel B). Within `spatial.spatial` (a row plan), a token-major
+    site over a `cols`-column map gathers K and V over the ranks
+    (`spatial_kv`) and routes by its whole query count; frame-axis
+    attention stays local."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, qkv_bias: bool = False,
@@ -59,7 +65,8 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                cols: Optional[int] = None) -> torch.Tensor:
         # a bf16 projection of an fp32 stream (the prior's) takes its input
         # rounded, as flax's Dense casts it
         x = x.to(self.to_q.weight.dtype)
@@ -71,7 +78,7 @@ class Attention(nn.Module):
                                  "without a mask")
             o = frame_attention(q, k, v, self.heads)
         else:
-            k, v, queries = spatial_kv(q, k, v, context is None)
+            k, v, queries = spatial_kv(q, k, v, context is None, cols)
             o = multihead_attention(q, k, v, self.heads, mask,
                                     row_sum="rounded", queries=queries)
         return self.to_out[0](o)
@@ -98,10 +105,13 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, activation)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), mask=mask)
+                mask: Optional[torch.Tensor] = None,
+                cols: Optional[int] = None) -> torch.Tensor:
+        """`cols`: the columns of the map x's tokens flatten, where its
+        rows are split (`spatial_kv`)."""
+        x = x + self.attn1(self.norm1(x), mask=mask, cols=cols)
         if self.use_cross:
-            x = x + self.attn2(self.norm2(x), context=context)
+            x = x + self.attn2(self.norm2(x), context=context, cols=cols)
         return x + self.ff(self.norm3(x))
 
 
@@ -139,5 +149,5 @@ class SpatialTransformer(nn.Module):
         b, f, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(b, f, hh * ww, c))
         for block in self.transformer_blocks:
-            h = block(h, context=context)
+            h = block(h, context=context, cols=ww)
         return self.proj_out(h).reshape(x.shape) + x

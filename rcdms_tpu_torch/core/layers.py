@@ -10,10 +10,11 @@ formulations and their gates. They exist only for Mosaic's lane tiling and
 GSPMD and have no job on a GPU. The int8 conv (`_taps9_conv_int8`) is
 ported as `FrameConv`'s opt-in route (`ops/quant.py`).
 
-Inside `core.spatial.spatial(group)` (sharded single-story inference) a
-feature map holds this rank's block of rows: `GroupNorm` sums its moments
-over the group and a conv that reads beyond its rows takes its
-neighbours' edge rows (`spatial.halo`); outside it they run as alone.
+Inside `core.spatial.spatial(rows=plan)` (sharded single-story inference)
+a feature map holds this rank's block of rows, which may be empty:
+`GroupNorm` sums its moments over the group and a conv that reads beyond
+its rows takes its neighbours' edge rows (`spatial.halo`); outside it
+they run as alone.
 """
 
 from __future__ import annotations
@@ -105,9 +106,9 @@ class GroupNorm(_Fp32Params, nn.Module):
     """GroupNorm over channels-last (..., h, w, c) with statistics per
     leading index, so (b, f, h, w, c) gets per-frame statistics. Moments in
     fp32 as E[x^2] - E[x]^2; the affine is folded into one pass. Scale and
-    bias stay fp32 in any model dtype. Rows split over a `spatial` group
+    bias stay fp32 in any model dtype. Rows split by a `spatial` row plan
     sum x and x^2 over their (h, w), all-reduce the sums and divide by
-    the whole count."""
+    the whole map's count (the blocks may differ in size, or be empty)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -122,14 +123,15 @@ class GroupNorm(_Fp32Params, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c, g = x.shape[-1], self.num_groups
         xf = x.float()
-        group = spatial.spatial_group()
-        if group is None:
+        plan = spatial.row_plan()
+        if plan is None:
             s1 = xf.mean(dim=(-3, -2))
             s2 = (xf * xf).mean(dim=(-3, -2))
         else:
             sums = spatial.all_reduce_sum(torch.stack(
-                [xf.sum(dim=(-3, -2)), (xf * xf).sum(dim=(-3, -2))]), group)
-            s1, s2 = sums / (x.shape[-3] * x.shape[-2] * group.size)
+                [xf.sum(dim=(-3, -2)), (xf * xf).sum(dim=(-3, -2))]),
+                plan.group)
+            s1, s2 = sums / (plan.total(x.shape[-2]) * x.shape[-2])
         lead = s1.shape[:-1]
         mean_g = s1.reshape(lead + (g, c // g)).mean(-1)
         ex2_g = s2.reshape(lead + (g, c // g)).mean(-1)
@@ -189,11 +191,11 @@ class Conv(nn.Conv2d):
     """Conv2d over channels-last images (..., h, w, c): the leading dims
     fold into the batch (the JAX package's `nn.Conv` over NHWC).
 
-    Rows split over a `spatial` group: a conv that reads beyond its block
+    Rows split by a `spatial` row plan: a conv that reads beyond its block
     of rows (k > 1 or a stride) attaches `row_halo()` rows of its
-    neighbours (zeros at the global edges stand for the padding), then
-    runs with no row padding. The local rows must be a multiple of the
-    stride."""
+    neighbours (zeros outside the map stand for the padding), then runs
+    with no row padding; a block too short for one output row (an empty
+    one, or a last odd row under a stride of 2) gives none."""
 
     def row_halo(self) -> tuple:
         """(rows above, rows below) of a row block that the conv reads:
@@ -202,29 +204,27 @@ class Conv(nn.Conv2d):
         k, st, pad = self.kernel_size[0], self.stride[0], self.padding[0]
         return pad, max(0, k - st - pad)
 
-    def _haloed(self, x4: torch.Tensor) -> Optional[torch.Tensor]:
-        """(n, h, w, c) `x4` with its neighbours' rows attached where its
-        rows are split and the conv reads across them; None otherwise."""
-        group = spatial.spatial_group()
-        if group is None or self.row_halo() == (0, 0):
-            return None
-        if x4.shape[1] % self.stride[0]:
-            raise ValueError(
-                f"a stride-{self.stride[0]} conv over {x4.shape[1]} local "
-                f"rows, a block of {group.size}")
-        return spatial.halo(x4, 1, *self.row_halo(), group)
+    def run_haloed(self, haloed: torch.Tensor) -> torch.Tensor:
+        """The conv over (n, h, w, c) rows that carry their halo: no row
+        padding; no output rows where h is under the kernel's."""
+        if haloed.shape[1] < self.kernel_size[0]:
+            k, st, pad = self.kernel_size[1], self.stride[1], self.padding[1]
+            cols = (haloed.shape[2] + 2 * pad - k) // st + 1
+            return haloed.new_empty(
+                (haloed.shape[0], 0, cols, self.out_channels))
+        y = F.conv2d(haloed.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, (0, self.padding[1]), self.dilation,
+                     self.groups)
+        return y.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
-        x4 = x.reshape((-1,) + x.shape[-3:])
-        haloed = self._haloed(x4)
-        if haloed is None:
-            y = super().forward(x4.permute(0, 3, 1, 2))
+        x4 = x.flatten(0, -4)
+        plan = spatial.row_plan()
+        if plan is None:
+            y = super().forward(x4.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         else:
-            y = F.conv2d(haloed.permute(0, 3, 1, 2), self.weight, self.bias,
-                         self.stride, (0, self.padding[1]), self.dilation,
-                         self.groups)
-        y = y.permute(0, 2, 3, 1)
+            y = self.run_haloed(spatial.halo(x4, 1, *self.row_halo(), plan))
         return y.reshape(lead + y.shape[1:])
 
 
@@ -294,13 +294,13 @@ class FrameConv(Conv):
         if not self._takes_int8():
             return super().forward(x)
         lead = x.shape[:-3]
-        x4 = x.reshape((-1,) + x.shape[-3:])
-        haloed = self._haloed(x4)
-        if haloed is None:
+        x4 = x.flatten(0, -4)
+        plan = spatial.row_plan()
+        if plan is None:
             y = int8_conv3x3(x4, *self._int8_weight(), x.dtype)
         else:
-            y = int8_conv3x3(haloed, *self._int8_weight(), x.dtype,
-                             haloed=True)
+            y = int8_conv3x3(spatial.halo(x4, 1, *self.row_halo(), plan),
+                             *self._int8_weight(), x.dtype, haloed=True)
         return y.reshape(lead + y.shape[1:])
 
 

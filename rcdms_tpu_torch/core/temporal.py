@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from rcdms_tpu_torch.configs import TemporalConfig
+from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.attention import Attention
 from rcdms_tpu_torch.core.layers import (
     FeedForward,
@@ -74,7 +75,13 @@ class TemporalModule(nn.Module):
     (b, f, h, w, c) with a GroupNorm(32) in. The blocks run in the model
     dtype; the output keeps the residual's (fp32 in the prior of a bf16
     model). With zero_init_output the output projection starts at zero, so
-    the module starts as identity."""
+    the module starts as identity.
+
+    Frames split by a `spatial.spatial` frame split: the norm (per frame,
+    or per token in the prior) and the projections run on this rank's
+    frames; between them the frame group trades frames for tokens
+    (`spatial.frames_to_tokens`, one all_to_all each way), so the blocks
+    (kernels B and C) run on every frame of this rank's block of tokens."""
 
     def __init__(self, channels: int, cfg: TemporalConfig,
                  prior_mode: bool = False):
@@ -96,6 +103,12 @@ class TemporalModule(nn.Module):
             b, f, hh, ww, c = x.shape
             h = tt.norm(x).reshape(b, f, hh * ww, c)
         h = tt.proj_in(h.to(tt.proj_in.weight.dtype))
+        split = spatial.frame_split()
+        if split is not None:  # every frame of a block of tokens
+            tokens = h.shape[2]
+            h = spatial.frames_to_tokens(h, split)
         for block in tt.transformer_blocks:
             h = block(h)
+        if split is not None:
+            h = spatial.tokens_to_frames(h, split, tokens)
         return tt.proj_out(h).reshape(x.shape) + x

@@ -6,11 +6,12 @@ over channels-last images (n, h, w, c). Module names are diffusers'
 The mid-block attention (one head of dim 512 at full width) stays plain
 PyTorch, as it stays XLA in the JAX package.
 
-Within `core.spatial.spatial(group)` each image holds this rank's block
-of rows: the convs and GroupNorms split as `core/layers.py` says, the
-mid-block attention gathers K and V, and the encoder's (0, 1) padded
-stride-2 conv takes one row of the rank below (zeros at the global
-bottom stand for the pad).
+Within `core.spatial.spatial(rows=plan)` each image holds this rank's
+block of rows (`RowPlan`: uneven, maybe empty): the convs and GroupNorms
+split as `core/layers.py` says, the mid-block attention gathers K and V,
+and the encoder's (0, 1) padded stride-2 conv takes the row after its
+block from the rank that holds it (zeros after the last real row stand
+for the pad).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ class VAEAttnBlock(nn.Module):
         n, h, w, c = x.shape
         y = self.group_norm(x).reshape(n, h * w, c)
         q = self.to_q(y)
-        k, v, queries = spatial_kv(q, self.to_k(y), self.to_v(y), True)
+        k, v, queries = spatial_kv(q, self.to_k(y), self.to_v(y), True, w)
         o = multihead_attention(q, k, v, 1, row_sum="fp32", queries=queries)
         return x + self.to_out[0](o).reshape(x.shape)
 
@@ -79,11 +80,14 @@ class _MidBlock(nn.Module):
 
 def encoder_downsample(conv: Conv, h: torch.Tensor) -> torch.Tensor:
     """SD's Downsample2D: an asymmetric (0, 1) pad, then the VALID stride-2
-    `conv`. Rows split over a `spatial` group pad their columns alone: the
-    conv takes one row of the rank below, zeros at the global bottom."""
-    pad = ((0, 0, 0, 1) if spatial.spatial_group() is not None
-           else (0, 0, 0, 1, 0, 1))
-    return conv(F.pad(h, pad))
+    `conv`. Rows split by a `spatial` row plan take the row after their
+    block from the rank that holds it; the rank that holds the last real
+    row gets zeros, the bottom pad, and pads its columns alone."""
+    plan = spatial.row_plan()
+    if plan is None:
+        return conv(F.pad(h, (0, 0, 0, 1, 0, 1)))
+    return conv.run_haloed(F.pad(spatial.halo(h, 1, 0, 1, plan),
+                                 (0, 0, 0, 1)))
 
 
 class Encoder(nn.Module):

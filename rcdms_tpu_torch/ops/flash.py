@@ -85,7 +85,8 @@ def _plan(dh: int, row_sum: str) -> dict:
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     """(..., S, H*dh) -> (..., H, S, dh)."""
-    return t.reshape(t.shape[:-1] + (heads, -1)).transpose(-3, -2)
+    return t.reshape(t.shape[:-1] + (heads, t.shape[-1] // heads)
+                     ).transpose(-3, -2)
 
 
 
@@ -161,6 +162,8 @@ def _attention(q, k, v, heads: int, scale: float,
         return attention_plain(q, k, v, heads, scale, row_sum=row_sum)
     dh = q.shape[-1] // heads
     dtype = _build.cuda_operands("flash_attention", q, k, v)
+    if q.numel() == 0:  # an empty block of a split map: nothing to launch
+        return torch.empty_like(q)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
     plan = dict(dp=0, n_tiles=0, bq=0, row_sum=0, smem=0)

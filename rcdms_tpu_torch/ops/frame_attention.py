@@ -185,6 +185,8 @@ def _frame_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
         return frame_attention_plain(q, k, v, heads, scale)
     b, f, n, c = q.shape
     dtype = _build.cuda_operands("frame_attention", q, k, v)
+    if q.numel() == 0:  # an empty block of a split story: nothing to launch
+        return torch.empty_like(q)
     if not 1 <= f <= MAX_FRAMES:
         raise ValueError(f"frame_attention: {f} frames, kernel takes 1..8")
     out = torch.empty_like(q)

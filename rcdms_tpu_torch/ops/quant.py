@@ -55,11 +55,14 @@ def int8_enabled() -> bool:
 def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric dynamic quantization: (int8 values, fp32 scalar
     scale) with x ~= values * scale. An all-zero tensor gets scale 1/127
-    (of the 1e-30 floor), not a division by zero. Rows split over a
-    `spatial.spatial` group take the maximum over the group, the whole
-    tensor's."""
+    (of the 1e-30 floor), not a division by zero. A tensor split by a
+    `spatial.spatial` block (rows, frames or CFG branches) takes the
+    maximum over the ranks that hold it whole (`spatial.whole_group`), the
+    whole tensor's."""
     xf = x.float()
-    amax = spatial.all_reduce_max(xf.abs().amax(), spatial.spatial_group())
+    # 0, MAX's identity, where this rank's block is empty
+    amax = xf.abs().amax() if xf.numel() else xf.new_zeros(())
+    amax = spatial.all_reduce_max(amax, spatial.whole_group())
     scale = amax.clamp_min(1e-30) / 127.0
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
@@ -128,6 +131,8 @@ def int8_conv3x3(x: torch.Tensor, qw: torch.Tensor, w_scale: torch.Tensor,
     q, s_x = quantize_act(x)
     qp = F.pad(q, (0, 0, 1, 1) if haloed else (0, 0, 1, 1, 1, 1))
     n, h, w, c = qp.shape[0], qp.shape[1] - 2, qp.shape[2] - 2, qp.shape[3]
+    if n * max(h, 0) * w == 0:  # an empty block of a split map
+        return x.new_empty((n, max(h, 0), w, w_scale.numel()), dtype=dtype)
     cols = torch.cat([qp[:, dy:dy + h, dx:dx + w]
                       for dy in range(3) for dx in range(3)], dim=-1)
     acc = int_matmul(cols.reshape(n * h * w, 9 * c), qw)

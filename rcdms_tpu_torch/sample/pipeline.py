@@ -15,13 +15,17 @@ stage-1-only autoregressive protocol. Public tensors keep the JAX
 package's layouts ((b, f, H, W, 3) images, (b, f, T) token ids).
 
 With a `mesh` (`train.sharding.inference_mesh`, `--shard-story`) one
-story is split over the ranks of a process group: the towers run whole on
-every rank, the samplers split their CFG branches and latent rows
-(`sample/*_sampler.py`), and the VAE encodes and decodes a block of image
-rows on each rank (`core.spatial.spatial` over every rank), whose results
-are all-gathered. The noise is drawn whole on every rank from the same
-generator, each rank keeping its rows, and `generate` returns whole
-frames and embeds on every rank.
+story is split over the ranks of a process group: the towers split their
+b*f batch of captions and images over every rank and all-gather their
+outputs (a rank may hold none, as GSPMD pads 5 frames over 4 or 8 ranks;
+it still joins the gather), the samplers split their CFG branches, frames
+and latent rows (`sample/*_sampler.py`), and the VAE encodes and decodes
+a block of image rows on each rank (`core.spatial.RowPlan` over every
+rank: uneven blocks, whole granules of its stride-2 levels), whose
+results are all-gathered. `precompute_cond_cache` stays whole. The noise
+is drawn whole on every rank from the same generator, each rank keeping
+its frames and rows, and `generate` returns whole frames and embeds on
+every rank.
 """
 
 from __future__ import annotations
@@ -253,14 +257,24 @@ class StoryPipeline(nn.Module):
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
+    def _split_batch(self, tower, batch: torch.Tensor):
+        """`tower`'s outputs of the (n, ...) `batch`; with a mesh each rank
+        runs its block of the n (maybe none) and the outputs are
+        all-gathered whole."""
+        everyone = self._everyone()
+        table = spatial.blocks(batch.shape[0], everyone.size)
+        outs = tower(spatial.narrow(batch, 0, everyone, table))
+        return tuple(spatial.gather(o, 0, everyone, table) for o in outs)
+
     def _encode_text(self, encoder, tokens: torch.Tensor):
         b, f, t = tokens.shape
-        hidden, embeds = encoder(tokens.reshape(b * f, t))
+        hidden, embeds = self._split_batch(encoder, tokens.reshape(b * f, t))
         return hidden.reshape(b, f, t, -1), embeds.reshape(b, f, -1)
 
     def _encode_images(self, images: torch.Tensor):
         b, f = images.shape[:2]
-        tokens, embeds = self.vision(
+        tokens, embeds = self._split_batch(
+            self.vision,
             images.reshape((b * f,) + images.shape[2:]).to(self.dtype))
         return (tokens.reshape((b, f) + tokens.shape[1:]),
                 embeds.reshape(b, f, -1))
@@ -295,7 +309,6 @@ class StoryPipeline(nn.Module):
         uncond states still comes from `inputs.tokens_s1_u`, as the
         reference builds it."""
         b, f = inputs.frame_known.shape
-        self._check_rows(inputs.source_pixels.shape[2])
         if noise is None:
             noise = StoryNoise.draw(self, b, generator,
                                     tuple(inputs.source_pixels.shape[2:4]))
@@ -348,26 +361,27 @@ class StoryPipeline(nn.Module):
 
         # ---- decode one frame at a time (bounds the decoder's memory) -------
         z = (latents / self.vae_scale).reshape((b * f,) + latents.shape[2:])
-        everyone = self.mesh.all if self.mesh is not None else None
-        z = spatial.local_rows(z, 1, everyone)
-        with spatial.spatial(everyone):
+        plan = self._vae_plan(z.shape[1], z.shape[2], 1,
+                              len(self.configs.vae.block_channels) - 1)
+        z = spatial.narrow(z, 1, plan.group, plan.blocks(z.shape[2]))
+        with spatial.spatial(plan):
             frames = torch.cat([self.vae.decode(zi[None].to(self.dtype))
                                 .float() for zi in z])
-        frames = spatial.gather_rows(frames, 1, everyone)
+        frames = spatial.gather(frames, 1, plan.group,
+                                plan.blocks(frames.shape[2]))
         frames = frames.reshape((b, f) + frames.shape[1:])
         return (frames / 2 + 0.5).clamp(0.0, 1.0), pred_embeds
 
-    def _check_rows(self, pixels: int) -> None:
-        """Raises where a mesh cannot split the story's rows: the VAE's
-        pixel rows and latent rows over every rank (the UNet's are the
-        story sampler's to check)."""
-        if self.mesh is None:
-            return
-        levels = len(self.configs.vae.block_channels)
-        spatial.check_rows(pixels, levels, self.mesh.all,
-                           "the VAE encoder's pixel rows")
-        spatial.check_rows(pixels >> (levels - 1), 1, self.mesh.all,
-                           "the VAE decoder's latent rows")
+    def _everyone(self) -> spatial.RowGroup:
+        """Every rank of the mesh (one rank without a mesh)."""
+        return self.mesh.all if self.mesh is not None else spatial.ONE_RANK
+
+    def _vae_plan(self, rows: int, cols: int, levels: int, up: int = 0
+                  ) -> spatial.RowPlan:
+        """The VAE's rows of a `rows` x `cols` map split over every rank:
+        `levels` resolutions down from it (the encoder) or `up` above it
+        (the decoder)."""
+        return spatial.RowPlan(self._everyone(), rows, cols, levels, up)
 
     def _encode_pixels(self, px: torch.Tensor):
         """VAE (mean, logvar) of (n, H, W, 3) pixels; with a mesh each
@@ -375,11 +389,13 @@ class StoryPipeline(nn.Module):
         whole."""
         if self.mesh is None:
             return self.vae.encode(px)
-        everyone = self.mesh.all
-        with spatial.spatial(everyone):
-            mean, logvar = self.vae.encode(spatial.local_rows(px, 1,
-                                                              everyone))
-        both = spatial.gather_rows(torch.stack([mean, logvar]), 2, everyone)
+        plan = self._vae_plan(px.shape[1], px.shape[2],
+                              len(self.configs.vae.block_channels))
+        with spatial.spatial(plan):
+            mean, logvar = self.vae.encode(
+                spatial.narrow(px, 1, plan.group, plan.blocks(px.shape[2])))
+        both = spatial.gather(torch.stack([mean, logvar]), 2, plan.group,
+                              plan.blocks(mean.shape[2]))
         return both[0], both[1]
 
     @torch.no_grad()

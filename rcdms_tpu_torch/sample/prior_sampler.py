@@ -11,10 +11,15 @@ a step).
 `autoregressive` is the reference's `--autoreg` protocol: one full
 sampling pass per frame, each committing its frame's prediction.
 
-`mesh` (`train.sharding.inference_mesh`, `--shard-story`): with CFG and a
-cfg axis of 2, the ranks of cfg index c run branch c alone (uncond 0,
-cond 1) and exchange their (b, f, d) predictions over the cfg group for
-the guidance mix; the rows stay whole on every rank.
+`mesh` (`train.sharding.inference_mesh`, `--shard-story`): the frames
+split over the ranks of one CFG branch (`branch_group`, the JAX
+sampler's ('frame', 'space'), padded as GSPMD pads them: a rank may hold
+none), whose per-frame attention is local and whose temporal modules
+trade frames for tokens over that group (`core.spatial.spatial`). With
+CFG and a cfg axis of 2, the ranks of cfg index c run branch c alone
+(uncond 0, cond 1) and exchange their predictions of the same frames
+over the cfg group for the guidance mix. The embeddings are gathered
+whole at the end.
 """
 
 from __future__ import annotations
@@ -73,27 +78,38 @@ class PriorSampler:
         elif init_latents is None or step_noise is None:
             raise ValueError("pass both init_latents and step_noise, or "
                              "neither and a generator")
-        latents = init_latents.float()  # the schedule's init sigma is 1
         do_cfg = self.guidance_scale > 1.0
         split_cfg = self.mesh is not None and self.mesh.split_cfg(do_cfg)
+        branch = (self.mesh.branch_group if self.mesh is not None
+                  else spatial.ONE_RANK)
+        frames = spatial.FrameSplit(branch, f)
+        table = spatial.blocks(f, branch.size)
 
         def pair(u, c):
             if split_cfg:
                 return (u, c)[self.mesh.c]
             return torch.cat([u, c]) if do_cfg else c
 
-        args = (pair(cond.text_embed_u, cond.text_embed),
-                pair(cond.text_hidden_u, cond.text_hidden),
-                pair(cond.image_embed, cond.image_embed),
-                pair(cond.mask_embed, cond.mask_embed))
-        text_mask = pair(cond.text_mask_u, cond.text_mask)
+        def local_pair(u, c):  # of this rank's frames
+            return pair(spatial.narrow(u, 1, branch, table),
+                        spatial.narrow(c, 1, branch, table))
+
+        # the schedule's init sigma is 1
+        latents = spatial.narrow(init_latents.float(), 1, branch, table)
+        step_noise = spatial.narrow(step_noise, 2, branch, table)
+        args = (local_pair(cond.text_embed_u, cond.text_embed),
+                local_pair(cond.text_hidden_u, cond.text_hidden),
+                local_pair(cond.image_embed, cond.image_embed),
+                local_pair(cond.mask_embed, cond.mask_embed))
+        text_mask = local_pair(cond.text_mask_u, cond.text_mask)
         ts = self.schedule.timesteps(self.num_steps)
         prev_ts = self.schedule.prev_timesteps(self.num_steps)
         for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
             x = pair(latents, latents).to(dtype)
             tb = torch.full(x.shape[:2], t, dtype=torch.int64, device=dev)
-            pred = self.model(x, tb, args[0], args[1], args[2], args[3],
-                              text_mask).float()
+            with spatial.spatial(frames=frames):
+                pred = self.model(x, tb, args[0], args[1], args[2],
+                                  args[3], text_mask).float()
             if split_cfg:
                 pred = cfg_combine(*spatial.gather_list(
                     pred, self.mesh.cfg_group), self.guidance_scale)
@@ -101,7 +117,8 @@ class PriorSampler:
                 pred = cfg_combine(*pred.chunk(2), self.guidance_scale)
             latents = self.schedule.step(pred, t, prev_t, latents,
                                          step_noise[i].float())
-        return self.model.denormalize(latents)
+        return self.model.denormalize(spatial.gather(latents, 1, branch,
+                                                     table))
 
     def draw(self, b: int, f: int, generator: Optional[torch.Generator]
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,12 +20,19 @@ randn; `step_noise` (num_steps, b, f, h8, w8, 4)) or drawn from a
 a step.
 
 `mesh` (`train.sharding.inference_mesh`, `--shard-story`): the inputs
-and the output stay whole on every rank, and each rank keeps its block of
-latent rows over the mesh's space group, under `core.spatial.spatial`. With
-CFG and a cfg axis of 2, the ranks of cfg index c run branch c alone
-(uncond 0, cond 1) and exchange their predictions over the cfg group;
-without CFG both run the one branch. The side input, the noise and the
-encoder propagation's cache are local rows too.
+and the output stay whole on every rank. Each rank keeps its block of
+frames over the mesh's frame group and its block of latent rows over its
+space group (`core.spatial`: uneven blocks, as GSPMD pads them), under
+`core.spatial.spatial`: the UNet's temporal modules trade frames for
+tokens over the frame group, its other layers split rows. With CFG and a
+cfg axis of 2, the ranks of cfg index c run branch c alone (uncond 0,
+cond 1) and exchange their predictions over the cfg group; without CFG
+both run the one branch. The fusion contexts (per frame), the side
+input, the noise and the encoder propagation's cache are local frames
+and rows too; the latents are gathered whole at the end. An int8 conv's
+activation scale is the maximum over the ranks of its CFG branch, or
+over every rank where one process would batch both branches
+(`sequential_cfg=False`), the tensor one process quantizes.
 """
 
 from __future__ import annotations
@@ -87,16 +94,35 @@ class StorySampler:
         dtype = cond.text_hidden.dtype
         do_cfg = self.guidance_scale > 1.0
         mesh = self.mesh
-        space = mesh.space_group if mesh is not None else None
-        spatial.check_rows(h8, len(self.unet.cfg.block_channels), space,
-                           "the UNet's latent rows")
+        levels = len(self.unet.cfg.block_channels)
+        space = frames = whole = spatial.ONE_RANK
         split_cfg = mesh is not None and mesh.split_cfg(do_cfg)
+        if mesh is not None:
+            space, frames = mesh.space_group, mesh.frame_group
+            spatial.check_rows(h8, levels, space, "the UNet's latent rows")
+            # the ranks that hold a UNet call's whole input in one process:
+            # one CFG branch, or both where one process batches them
+            whole = (mesh.all if split_cfg and not self.sequential_cfg
+                     else mesh.branch_group)
+        rows = spatial.RowPlan(space, h8, w8, levels)
+        split = spatial.FrameSplit(frames, f)
+        frame_table = spatial.blocks(f, frames.size)
+        row_table = rows.blocks(w8)
+
+        def local(x, frame_axis, maps=False):
+            """This rank's frames of x, and its rows where x holds maps."""
+            x = spatial.narrow(x, frame_axis, frames, frame_table)
+            return (spatial.narrow(x, frame_axis + 1, space, row_table)
+                    if maps else x)
+
         hidden = ([cond.text_hidden_u, cond.text_hidden] if do_cfg
                   else [cond.text_hidden])
         if split_cfg:  # this rank's branch alone
             hidden = [hidden[mesh.c]]
-        contexts = [self.fusion(cond.image_tokens, cond.image_proj, th,
-                                cond.frame_known) for th in hidden]
+        contexts = [self.fusion(local(cond.image_tokens, 1),
+                                local(cond.image_proj, 1), local(th, 1),
+                                local(cond.frame_known, 1))
+                    for th in hidden]
         if init_latents is None and step_noise is None:
             init_latents, step_noise = self.draw((b, f, h8, w8, 4),
                                                  generator)
@@ -106,11 +132,11 @@ class StorySampler:
         if self.eta > 0.0 and step_noise is None:
             raise ValueError("eta > 0 needs step_noise with init_latents")
         # the schedule's init sigma is 1
-        latents = spatial.local_rows(init_latents.float(), 2, space)
-        side = spatial.local_rows(torch.cat(
-            [cond.mask_label, cond.masked_latents], dim=-1).float(), 2, space)
+        latents = local(init_latents.float(), 1, maps=True)
+        side = local(torch.cat([cond.mask_label, cond.masked_latents],
+                               dim=-1).float(), 1, maps=True)
         if step_noise is not None:
-            step_noise = spatial.local_rows(step_noise, 3, space)
+            step_noise = local(step_noise, 2, maps=True)
         batched = do_cfg and not self.sequential_cfg and not split_cfg
         if batched:
             contexts = [torch.cat(contexts)]
@@ -124,7 +150,7 @@ class StorySampler:
             lat = torch.cat([latents, latents]) if batched else latents
             x = torch.cat([lat, side], dim=-1).to(dtype)
             preds = []
-            with spatial.spatial(space):
+            with spatial.spatial(rows, split, whole):
                 for j, ctx in enumerate(contexts):
                     pred, caches[j] = self._unet(x, t, ctx, caches[j],
                                                  k < 2 or i % k == 0)
@@ -138,7 +164,8 @@ class StorySampler:
             noise = step_noise[i].float() if self.eta > 0.0 else None
             latents = self.schedule.step(pred, t, prev_t, latents,
                                          eta=self.eta, noise=noise)
-        return spatial.gather_rows(latents, 2, space)
+        latents = spatial.gather(latents, 2, space, row_table)
+        return spatial.gather(latents, 1, frames, frame_table)
 
     def draw(self, shape, generator: Optional[torch.Generator]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

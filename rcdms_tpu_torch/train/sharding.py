@@ -14,13 +14,17 @@ time (`Shards.gather_to_host`).
 
 The inference half (`inference_mesh`) splits one story over the ranks
 of a group (`--shard-story`): the JAX package's ('cfg', 'frame', 'space')
-inference mesh at its default 'frame' axis of 1. Rank r of N is (cfg
-index c, space index s) with r = c * space + s, the JAX mesh's device
-order. The weights are whole on every rank. The samplers give CFG branch
-c to the ranks of cfg index c and exchange the two predictions over the
-cfg group; the UNet's and the VAE's rows split over the space group or
-every rank, through the row helpers and the `spatial` context of
-`core/spatial.py`, which take the place of `constrain`.
+inference mesh, with its 'frame' axis (`inference_mesh(frame)`, default
+1, as the JAX CLIs take it) and its fallback to 1 where the axis does
+not divide. Rank r of N is (cfg index c, frame index fr, space index s)
+with r = (c * frame + fr) * space + s, the JAX mesh's device order.
+The weights are whole on every rank.
+The towers split their batch over every rank; the prior gives CFG branch
+c to the ranks of cfg index c and splits its frames over them; the story
+sampler gives branch c to them too, and splits frames over the frame
+group and the UNet's latent rows over the space group; the VAE splits its
+rows over every rank. The row and frame helpers and the `spatial` context
+of `core/spatial.py` take the place of `constrain`.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from rcdms_tpu_torch.core.spatial import RowGroup, gather_list
+from rcdms_tpu_torch.core.spatial import ONE_RANK, RowGroup, gather_list
 from rcdms_tpu_torch.train import distributed
 
 CHUNK = 1 << 27  # elements of a foreach list or a flat bucket (0.5 GB fp32)
@@ -174,26 +178,37 @@ class Shards:
 # Inference: one story split over the ranks of a group (`--shard-story`)
 # ---------------------------------------------------------------------------
 
-def mesh_shape(world: int) -> Tuple[int, int, int]:
+def mesh_shape(world: int, frame: int = 1) -> Tuple[int, int, int]:
     """(cfg, frame, space) of `world` ranks, the JAX `inference_mesh`'s
-    rule at its default 'frame' axis of 1: cfg 2 when the world is even
-    and above 1, else 1; space what remains."""
+    rule: cfg 2 when the world is even and above 1, else 1; `frame` where
+    it divides world // cfg, else 1; space what remains."""
     cfg = 2 if world % 2 == 0 and world > 1 else 1
-    return cfg, 1, world // cfg
+    frame = max(1, frame)
+    if (world // cfg) % frame:
+        frame = 1  # as the JAX mesh falls back
+    return cfg, frame, world // cfg // frame
 
 
 class StoryMesh(NamedTuple):
-    """The sizes of the ('cfg', 'space') mesh, this rank's cfg and space
-    indices, and the groups: `cfg_group` the ranks of this rank's space
-    index (one a CFG branch), `space_group` those of its cfg index (the
-    latent rows of one branch), `all` every rank."""
+    """The sizes of the ('cfg', 'frame', 'space') mesh, this rank's
+    indices in it (rank r = (c * frame + fr) * space + s, the order of
+    `np.reshape(devices, (cfg, frame, space))`) and the groups:
+    `cfg_group` the ranks of this rank's (fr, s) (one a CFG branch),
+    `frame_group` those of its (c, s) (the frames of one block of rows),
+    `space_group` those of its (c, fr) (the latent rows of one block of
+    frames), `branch_group` those of its c (one CFG branch: the prior's
+    frames), `all` every rank."""
 
     cfg: int
+    frame: int
     space: int
     c: int
+    fr: int
     s: int
     cfg_group: RowGroup
+    frame_group: RowGroup
     space_group: RowGroup
+    branch_group: RowGroup
     all: RowGroup
 
     def split_cfg(self, do_cfg: bool) -> bool:
@@ -201,29 +216,45 @@ class StoryMesh(NamedTuple):
         return do_cfg and self.cfg > 1
 
 
-def inference_mesh() -> StoryMesh:
+def inference_mesh(frame: int = 1) -> StoryMesh:
     """The mesh of sharded single-story inference over the process group
     (`distributed.maybe_initialize`), or over this process alone (a
-    one-rank mesh) with no group. Every rank makes the cfg and space
-    groups in the same order, as `dist.new_group` needs."""
+    one-rank mesh) with no group; `frame` as `mesh_shape`'s. Every rank
+    makes every group in the same order, as `dist.new_group` needs."""
     rank, world = distributed.rank_and_size()
-    cfg, _, space = mesh_shape(world)
-    c, s = divmod(rank, space)
-    cfg_group = space_group = RowGroup(None, 1, 0)
-    if cfg > 1:
-        for j in range(space):
-            ranks = [i * space + j for i in range(cfg)]
+    cfg, frame, space = mesh_shape(world, frame)
+    c, rest = divmod(rank, frame * space)
+    fr, s = divmod(rest, space)
+
+    def rank_of(ci, fi, si):
+        return (ci * frame + fi) * space + si
+
+    def groups(keys, members, mine):
+        """One group of `members(key)` ranks for each key, in order; this
+        rank's group (its index in it) where `mine` is its key."""
+        found = ONE_RANK
+        for key in keys:
+            ranks = members(key)
+            if len(ranks) == 1:
+                continue
             handle = dist.new_group(ranks)
-            if j == s:
-                cfg_group = RowGroup(handle, cfg, c)
-    if space > 1:
-        for i in range(cfg):
-            ranks = [i * space + j for j in range(space)]
-            handle = dist.new_group(ranks)
-            if i == c:
-                space_group = RowGroup(handle, space, s)
-    return StoryMesh(cfg, space, c, s, cfg_group, space_group,
-                     RowGroup(None, world, rank))
+            if key == mine:
+                found = RowGroup(handle, len(ranks), ranks.index(rank))
+        return found
+
+    cells = [(i, j) for i in range(frame) for j in range(space)]
+    cfg_group = groups(cells, lambda k: [rank_of(i, *k) for i in range(cfg)],
+                       (fr, s))
+    frame_group = groups(
+        [(i, j) for i in range(cfg) for j in range(space)],
+        lambda k: [rank_of(k[0], i, k[1]) for i in range(frame)], (c, s))
+    space_group = groups(
+        [(i, j) for i in range(cfg) for j in range(frame)],
+        lambda k: [rank_of(*k, i) for i in range(space)], (c, fr))
+    branch_group = groups(
+        range(cfg), lambda k: [rank_of(k, *cell) for cell in cells], c)
+    return StoryMesh(cfg, frame, space, c, fr, s, cfg_group, frame_group,
+                     space_group, branch_group, RowGroup(None, world, rank))
 
 
 @torch.no_grad()

@@ -5,14 +5,18 @@ JAX serve tests' cases (health and one request, a reference frame and the
 port), then what the port adds: a request's frames do not depend on its
 batch companions (1e-5 in fp32), a batch that mixes negative prompts runs
 uncached and gives each request its cached result, and the per-negative-
-prompt cond caches stay within their LRU bound."""
+prompt cond caches stay within their LRU bound, and a stopped server is
+freed without the garbage collector."""
 
 import base64
+import gc
 import json
 import struct
 import threading
+import time
 import urllib.error
 import urllib.request
+import weakref
 import zlib
 
 import numpy as np
@@ -207,6 +211,38 @@ def test_cond_cache_lru_keeps_eight_prompts(idle_server):
     key = {i: r.numpy().tobytes() for i, r in rows.items()}
     assert key[0] in kept and key[9] in kept
     assert key[1] not in kept and key[2] not in kept
+
+
+def test_a_stopped_server_is_freed_without_the_collector():
+    """Nothing holds a served StoryServer in a reference cycle: once the
+    HTTP server has stopped and its threads have ended, dropping the last
+    reference frees the server and its pipeline with the garbage
+    collector off (a per-server handler class closing over it kept a
+    full-width pipeline's weights on the card until a collection)."""
+    args = pserve.parse_args(["--port", "0"] + CPU)
+    ready = threading.Event()
+    box = []
+    t = threading.Thread(target=pserve.serve, args=(args,),
+                         kwargs=dict(ready_event=ready, httpd_box=box),
+                         daemon=True)
+    gc.disable()
+    try:
+        t.start()
+        assert ready.wait(timeout=TIMEOUT), "server failed to start"
+        httpd, story = box.pop()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/healthz"
+        with urllib.request.urlopen(url, timeout=TIMEOUT) as r:
+            assert json.loads(r.read())["status"] == "ok"
+        freed = weakref.ref(story.pipeline)
+        httpd.shutdown()
+        t.join(timeout=TIMEOUT)
+        del httpd, story
+        deadline = time.monotonic() + TIMEOUT
+        while freed() is not None and time.monotonic() < deadline:
+            time.sleep(0.05)  # the dispatch and handler threads ending
+        assert freed() is None
+    finally:
+        gc.enable()
 
 
 def test_default_device_is_cuda_without_fallback():
