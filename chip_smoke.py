@@ -28,11 +28,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
    each fp32 one the general kernel; A's share of bf16 outputs off the
    plain version's bits is printed, and must be below 0.38 at UNet level
    0 (A rounds P against the row's final maximum, as the TPU kernels);
-   H's four rows (softmax over generated P, softmax, softmax2,
-   reduce_only) also print their device time (`torch.profiler`), which
-   must not be under their bound (every cell's exponentials on MUFU.EX2,
-   or P read once and the output written once): a share of the bound
-   above 1.0 means work was left out;
+   A's bf16 rows (beside SDPA's device time) and H's four rows (softmax
+   over generated P, softmax, softmax2, reduce_only) also print their
+   device time (`torch.profiler`), which must not be under their bound
+   (every exponential on MUFU.EX2, or P read once and the output written
+   once): a share of the bound above 1.0 means work was left out;
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3; the same for
@@ -620,15 +620,21 @@ def check_kernels(dev, card: str) -> dict:
                 case.library)
             others = {other: median_ms(fn) for other, fn in case.baselines}
             bound, bound_by = bound_ms(*case.work, dtype=dtype)
-            # H: device time, which must not be under the bound
+            # A (bf16) and H: device time, which must not be under the
+            # bound; A's beside SDPA's
+            a_bf16 = name == "attention" and dtype == torch.bfloat16
             device_ms = (sum(device_us(case.kernel).values()) / 1e3
-                         if name == "attn_softmax" else None)
+                         if a_bf16 or name == "attn_softmax" else None)
+            lib_device_ms = (sum(device_us(case.library).values()) / 1e3
+                             if a_bf16 else None)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                        lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                        **({} if bits_off is None else dict(bits_off=bits_off)),
                        **({} if device_ms is None else dict(
                            device_ms=device_ms, share=bound / device_ms)),
+                       **({} if lib_device_ms is None else dict(
+                           lib_device_ms=lib_device_ms)),
                        **({} if not others else dict(others_ms=others)))
             if name == "frame_attention":
                 row["tiled_launches"] = tiled
@@ -644,6 +650,8 @@ def check_kernels(dev, card: str) -> dict:
                   + ("" if device_ms is None else
                      f" device {device_ms:.4f} ms "
                      f"({bound / device_ms:.1%} of bound)")
+                  + ("" if lib_device_ms is None else
+                     f" library device {lib_device_ms:.4f} ms")
                   + "".join(f" {other} {t:.4f} ms"
                             for other, t in others.items()),
                   flush=True)
@@ -972,7 +980,7 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
 KERNEL_GROUPS = (
     ("C/D", ("ff_gemm_kernel", "rcdms::(anonymous namespace)::ff_kernel")),
     ("B", ("frame_attention_kernel", "frame_attention_tiled_kernel")),
-    ("A", ("attention_mma_kernel",
+    ("A", ("attention_wgmma_kernel",
            "rcdms::(anonymous namespace)::attention_kernel")),
     ("cuDNN", ("cudnn", "fprop", "implicit_gemm", "winograd")),
 )

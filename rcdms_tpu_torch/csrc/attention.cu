@@ -7,14 +7,17 @@
 // the q/k/v projections produce, (B, S, H*dh): a head is a stride, so no
 // transpose and no pad is ever written to device memory.
 //
-// What bounds it on the H100: at the UNet's level 0 (S = 4096, dh = 40) a
-// query row meets 4096 keys, and one fp32 score row is 16 KB, so the TPU
-// kernels' whole-row softmax cannot live in 227 KB of shared memory. The
-// kernels below stream K/V in tiles. Scores, softmax and sums are fp32. At
-// dh 40 there are more exponentials than product flops per score: 40
-// heads of 4096 x 4096 need 0.17 ms of MUFU.EX2 against about 0.11 ms of
-// bf16 products at peak, so the exponentials, not the tensor cores, set
-// the floor.
+// What bounds it on the H100: at the UNet's level 0 (40 heads of 4096 x
+// 4096, dh 40) a query row meets 4096 keys, and one fp32 score row is 16
+// KB, so the TPU kernels' whole-row softmax cannot live in 227 KB of shared
+// memory: the kernels below stream K/V in tiles. Scores, softmax and sums
+// are fp32. At dh 40 there are more exponentials than product flops per
+// score: 671 M exponentials take 0.1605 ms at 4.18 T MUFU.EX2 a second
+// (16 an SM a clock, 132 SMs, 1980 MHz; NVIDIA H100 80GB HBM3 at its
+// 700.00 W limit), and the bf16 kernel's three products (the scores twice,
+// P.V once, dh padded to 48) about as long at 989 TFLOP/s. So the kernel
+// can near either floor only where one tile's exponentials run while
+// another tile's products run.
 //
 // Two kernels compute it:
 //   * CUDA cores (fp32, any dh up to 256): an online softmax (running max
@@ -25,39 +28,53 @@
 //     warp shuffles. dh is a template bound (32 ... 256); a smaller
 //     runtime dh is masked. Bound by the FMA rate and shared-memory reads.
 //   * tensor cores (bf16, dh a multiple of 8 up to 256; every site of the
-//     main path): FlashAttention-2's layout on mma.sync m16n8k16, in two
-//     passes over K so that P rounds as the TPU kernels round it. Both
-//     TPU kernels hold the whole key row: they round P = exp(s - m) to
-//     bf16 against the row's final maximum m (flash.py:71-73, :152-153),
-//     and take the row sum l from the fp32 P (_attn_kernel, CLIP vision)
-//     or from the rounded P (_nt_kernel, the UNet's spatial sites), the
+//     main path): FlashAttention-3's layout on TMA + wgmma, in two passes
+//     over K so that P rounds as the TPU kernels round it. Both TPU
+//     kernels hold the whole key row: they round P = exp(s - m) to bf16
+//     against the row's final maximum m (flash.py:71-73, :152-153), and
+//     take the row sum l from the fp32 P (_attn_kernel, CLIP vision) or
+//     from the rounded P (_nt_kernel, the UNet's spatial sites), the
 //     ROW_SUM template parameter. Pass 1 computes only the scores and the
-//     row maximum (no exponential); pass 2 computes the scores again,
-//     forms P from the final m, rounds it to bf16 for P.V, sums l, and
-//     accumulates O with no rescale. A block holds 128 queries of one
-//     (batch, head) (64 where the padded dh is 160 or more), 32 query rows
-//     a warp where dh <= 64 (so each K and V fragment a warp loads serves
-//     two m16 row tiles), else 16. K tiles (pass 1) and K and V tiles
-//     (pass 2) of 64 keys stream through one cp.async double-buffered ring
-//     that runs on from pass 1 into pass 2, so a tile loads while the one
-//     before it computes. K is read by ldmatrix, V by ldmatrix.trans; Q's
-//     A fragments by ldmatrix too: once for pass 1, held in registers that
-//     pass 2's accumulators later take; in pass 2 once where a warp has 16
-//     rows, at every K tile at dh <= 64, where the registers go to a third
-//     block an SM instead. The scores stay in the mma accumulators: a row's
-//     max and sum reduce over the four lanes that share it (two shuffles), one
-//     FFMA folds scale * log2(e) into each exponential, and P is repacked
-//     from the fp32 score accumulators into bf16 A fragments in registers
-//     (the m16n8k16 C -> A layout identity). No score or probability ever
-//     reaches shared memory. The score product contracts dh padded to a
-//     multiple of 16 (the pad columns of the shared tiles are zeroed
-//     once); the output is dh wide, in n = 8 tiles, scaled by 1 / l
-//     (rounded l, as _nt_kernel) or divided by l (fp32 l, as _attn_kernel).
+//     row maximum; pass 2 computes the scores again, forms P from the
+//     final m, rounds it to bf16, sums l, and accumulates O with no
+//     rescale. A CTA holds 128 queries of one (batch, head): two consumer
+//     warpgroups of 64 rows (wgmma's M) and one producer warpgroup, whose
+//     registers setmaxnreg hands to the consumers (24 and 240 a thread),
+//     and one of whose threads issues every TMA load: Q once, then K
+//     tiles (pass 1), then K and V tiles (pass 2), through one ring of
+//     full and empty mbarriers that runs on from pass 1 into pass 2. No
+//     block-wide barrier runs in the key loop. CTAs run in clusters of
+//     two neighbouring query blocks of one (batch, head): each producer
+//     loads half the rows of every K and V tile and multicasts them to
+//     both CTAs, since at dh 40 (80-byte rows at 16-byte alignment) TMA
+//     delivered too few bytes a clock for one CTA to load them all. The
+//     tensor maps are 4-D, (dh, H, S, B), in boxes of 64 columns x 1 head
+//     x rows x 1 batch, so the pad columns dh ... dp of a box are TMA's
+//     zeros, not the next head's, and no box runs into the next batch's
+//     rows. S = Q K^T is an SS wgmma (m64 x key tile x dp / 16 k16 steps;
+//     the key tile 128 up to dp 80, else 64), its accumulators the scores
+//     in registers: a row's max reduces over the four lanes that share it
+//     (two shuffles), one FFMA folds scale * log2(e) into each
+//     exponential, keys at or past Skv are masked by their index on the
+//     last tile (TMA's zero rows would score 0), and P is packed from the
+//     fp32 accumulators into bf16 A fragments in registers (the
+//     accumulator -> A identity of the RS form, wgmma.cuh), so no score
+//     or probability reaches shared memory. O += P V is an RS wgmma, V an
+//     MN-major B straight from the ring (n = dp, or 40 at dh 40); l from
+//     the rounded P is P . ones on the tensor cores, l from the fp32 P a
+//     sum in registers. The overlap: each warpgroup issues the next tile's
+//     score product and this tile's P V before it takes the next tile's
+//     exponentials (intra-warpgroup), and the two warpgroups take turns
+//     issuing their products on two named barriers, so one's exponentials
+//     run while the other's products run (ping-pong). The output is scaled
+//     by 1 / l (rounded l, as _nt_kernel) or divided by l (fp32 l, as
+//     _attn_kernel) and stored from the accumulators, rows past Sq and
+//     columns past dh left alone.
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace rcdms {
 namespace {
@@ -179,376 +196,459 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// ---- the bf16 tensor-core kernel (mma.sync, scores in registers) --------
+
+// ---- the bf16 tensor-core kernel (TMA + wgmma, scores in registers) -----
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMmaKV = 64;           // keys per K/V tile
-constexpr int kKeyTiles = kMmaKV / 8;  // its n8 score tiles
+constexpr int kTcThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kTcQueries = 128;  // queries a block, 64 a consumer warpgroup
+constexpr int kCluster = 2;  // CTAs a cluster: neighbouring query blocks
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kSmemMax = 232448;  // shared memory a block may take
+constexpr int kTurn = 1;  // named barriers kTurn + wg: warpgroup wg's turn
+// The two overlaps (header comment); off only in builds that measure them
+// (rcdms_tpu_torch/tools/attention_overlap_study.py).
+constexpr bool kPingPong = true;
+constexpr bool kOverlap = true;
 
-// DP: the contraction width, dh padded to a multiple of 16. NT: the n8
-// output tiles held, dh / 8 rounded up to a width the kernel is built for
-// (tiles at or past dh / 8 are skipped). BQ: queries a block. MT: m16 row
-// tiles a warp; two where DP <= 64, so each K and V fragment a warp loads
-// from shared memory serves 32 query rows. Q's A fragments stay in
-// registers through pass 1, which holds no output accumulators; in pass 2
-// where a warp holds one row tile up to DP 160, while with two, Q is read
-// by ldmatrix at every K tile, which leaves the registers for three
-// blocks an SM at DP 48. Rows of the shared Q, K and V tiles
-// are DP + 8 bf16 long, an odd number of 16-byte chunks, so the eight row
-// addresses of an ldmatrix fall in eight different bank groups. Must
-// agree with rcdms_tpu_torch/ops/flash.py::_plan.
-template <int DP, int NT_, int BQ>
-struct MmaShape {
-  static constexpr int MT = DP <= 64 ? 2 : 1;
-  static constexpr int WARPS = BQ / (16 * MT);
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int LD = DP + 8;
+// DP: the contraction width, dh padded to a multiple of 16 (a width the
+// kernel is built for), taken as NB boxes of 64 columns, each row of a box
+// 128 bytes in TMA's 128-byte swizzle. NV (the kernel's): the width of P V
+// and of O, dp or, for dh <= 40, 40. BN: keys a tile. Shared memory from
+// its 1024-byte aligned start: Q (a consumer warpgroup's NB boxes of 64
+// rows, then the other's), a 1024-byte tile of bf16 ones (the B operand
+// of the row sums), the ring of STAGES stages (K's NB boxes of BN rows,
+// then V's; as many stages as fit, up to four), then the full and empty
+// mbarriers of each stage and one for Q. Must agree with
+// rcdms_tpu_torch/ops/flash.py::_plan.
+template <int DP, int BN>
+struct TcShape {
+  static constexpr int NB = (DP + 63) / 64;
   static constexpr int KSTEPS = DP / 16;  // k16 steps of the score product
-  static constexpr int NT = NT_;
-  static constexpr bool QREG = MT == 1 && DP <= 160;
-  static constexpr int MIN_BLOCKS = MT == 1 ? 1 : (DP == 48 ? 3 : 2);
-  static_assert(8 * NT <= DP, "the output tiles lie inside the padded row");
-  static constexpr int K_OFF = BQ * LD * 2;               // Q at 0
-  static constexpr int V_OFF = K_OFF + 2 * kMmaKV * LD * 2;  // K: 2 stages
-  static constexpr int BYTES = V_OFF + 2 * kMmaKV * LD * 2;  // V: 2 stages
+  static constexpr int Q_WG = NB * 64 * 128;
+  static constexpr int Q_BYTES = 2 * Q_WG;
+  static constexpr int ONES = Q_BYTES;  // offset of the ones tile
+  static constexpr int RING = ONES + 1024;
+  static constexpr int BOX = BN * 128;  // one 64-column box of a K/V tile
+  static constexpr int HALF = BOX / kCluster;  // the rows one CTA loads
+  static constexpr int STAGE = 2 * NB * BOX;
+  static constexpr int SREGS = BN / 2;   // score accumulators a thread
+  static constexpr int PSTEPS = BN / 16;  // k16 steps of P V
+  static constexpr int bytes(int stages) {
+    return 1024 + RING + stages * STAGE + 8 * (2 * stages + 1);
+  }
+  static constexpr int STAGES = bytes(4) <= kSmemMax   ? 4
+                                : bytes(3) <= kSmemMax ? 3
+                                                       : 2;
+  static constexpr int BYTES = bytes(STAGES);
+  static_assert(DP % 16 == 0 && DP <= 256 && (BN == 64 || BN == 128), "");
+  static_assert(BYTES <= kSmemMax, "");
 };
 
-// One block: BQ queries of one (batch, head), 16 * MT a warp. By the
-// fragment layouts of m16n8k16 (mma.cuh), the score tiles 2kk and 2kk + 1
-// are, as they stand, the A fragment of P for keys 16kk ... 16kk + 15.
-// ROW_SUM: l from the rounded P (1, _nt_kernel) or the fp32 P (0,
-// _attn_kernel).
-template <int DP, int NT, int BQ, int ROW_SUM>
-__global__ void __launch_bounds__(MmaShape<DP, NT, BQ>::THREADS,
-                                  MmaShape<DP, NT, BQ>::MIN_BLOCKS)
-    attention_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int H, int Sq, int Skv, int dh, float scale_log2) {
-  using S = MmaShape<DP, NT, BQ>;
-  extern __shared__ __align__(128) unsigned char mma_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(mma_smem);              // [BQ][LD]
-  bf16* ks = reinterpret_cast<bf16*>(mma_smem + S::K_OFF);   // [2][64][LD]
-  bf16* vs = reinterpret_cast<bf16*>(mma_smem + S::V_OFF);   // [2][64][LD]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const long row = (long)H * dh;
-  const bf16* qp = q + (long)b * Sq * row + (long)h * dh;
-  const bf16* kp = k + (long)b * Skv * row + (long)h * dh;
-  const bf16* vp = v + (long)b * Skv * row + (long)h * dh;
-
-  // Every tile row is DP / 8 chunks of 16 bytes: chunks < dh / 8 come from
-  // device memory by cp.async (zero-filled past Sq / Skv: source size 0),
-  // the pad chunks are zeroed once here and never written again.
-  constexpr int CH = DP / 8;
-  const int nt_out = dh / 8;  // n8 output tiles = 16-byte chunks of a row
-  for (int idx = tid; idx < (BQ + 4 * kMmaKV) * CH; idx += S::THREADS) {
-    if (idx % CH >= nt_out)
-      *reinterpret_cast<uint4*>(qs + idx / CH * S::LD + idx % CH * 8) =
-          make_uint4(0u, 0u, 0u, 0u);
+// keys at or past Skv of tile t: -inf, so they take no part in the max
+// and their P is 0 (TMA's zero rows would score 0)
+template <int BN>
+__device__ __forceinline__ void mask_keys(float (&s)[BN / 2], int t,
+                                          int Skv, int t4) {
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int key = t * BN + 8 * i + 2 * t4;
+    if (key >= Skv) s[4 * i] = s[4 * i + 2] = -INFINITY;
+    if (key + 1 >= Skv) s[4 * i + 1] = s[4 * i + 3] = -INFINITY;
   }
-  for (int idx = tid; idx < BQ * CH; idx += S::THREADS) {
-    const int r = idx / CH;
-    const int c = idx % CH * 8;
-    const bool ok = q0 + r < Sq;
-    if (c < dh)
-      cp_async16(qs + r * S::LD + c, ok ? qp + (long)(q0 + r) * row + c : q,
-                 ok);
+}
+
+// One block: queries q0 ... q0 + 127 of one (batch, head), in a cluster
+// with the neighbouring block of the same (batch, head) (a block past Sq
+// pads an odd count: it loads and computes, and stores nothing). Warps 0-7
+// are the consumer warpgroups (rows q0 + 64 wg ...), warps 8-11 the
+// producer. Each CTA's producer loads half the rows of every K and V tile
+// and multicasts them to both CTAs, so each tile leaves L2 once for the
+// pair; a stage is refilled once both CTAs' consumers have released it
+// (each consumer warp arrives on the empty barriers of both).
+//
+// By the accumulator layout (wgmma.cuh) a thread holds rows g and g + 8 of
+// its warp's 16, at columns 8i + 2t, +1; so P's A fragment of keys 16kk
+// ... 16kk + 15 is, packed to bf16 pairs, accumulators 8kk ... 8kk + 7.
+// Only the last key tile can hold keys at or past Skv: it alone is masked,
+// on code paths of its own. ROW_SUM 1 takes l from the rounded P on the
+// tensor cores, P . ones (m64n8k16 beside each k16 step of P V: every
+// column of the product is the row's sum, in fp32); ROW_SUM 0 sums the
+// fp32 P in registers.
+template <int DP, int NV, int BN, int ROW_SUM>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           bf16* __restrict__ o, int H, int Sq, int Skv,
+                           int dh, float scale_log2) {
+  using T = TcShape<DP, BN>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t raw = smem_addr(tc_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t ones = base + T::ONES;
+  const uint32_t ring = base + T::RING;
+  const uint32_t full = ring + STAGES * T::STAGE;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t qbar = empty + 8 * STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t rank = cluster_ctarank();
+  const int q0 = blockIdx.x * kTcQueries;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int n = (Skv + BN - 1) / BN;  // key tiles; 2n ring steps
+  if (threadIdx.x < 64) {  // the ones tile, 16 bytes a thread
+    *reinterpret_cast<uint4*>(tc_smem + (ones - raw) + 16 * threadIdx.x) =
+        make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  // the K (and, in pass 2, V) tile of keys kv0 ... kv0 + 63
-  auto load_kv = [&](int kv0, int stage, bool with_v) {
-    bf16* kd = ks + stage * kMmaKV * S::LD;
-    bf16* vd = vs + stage * kMmaKV * S::LD;
-    for (int idx = tid; idx < kMmaKV * CH; idx += S::THREADS) {
-      const int r = idx / CH;
-      const int c = idx % CH * 8;
-      const bool ok = kv0 + r < Skv;
-      const long off = ok ? (long)(kv0 + r) * row + c : 0;
-      if (c < dh) {
-        cp_async16(kd + r * S::LD + c, kp + off, ok);
-        if (with_v) cp_async16(vd + r * S::LD + c, vp + off, ok);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8 * kCluster);  // each consumer warp
     }
-  };
-  load_kv(0, 0, false);
-  cp_async_commit();  // group: Q and pass 1's first K tile
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // both CTAs' barriers are ready for the other's arrivals
 
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  constexpr int MT = S::MT;
-  // per row tile mt of the warp: output accumulators, the max of rows g
-  // and g + 8 (m[mt][0], [1]; this lane's columns in pass 1, the row's
-  // after it) and this lane's share of their sums
-  float oacc[MT][NT][4];
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) m[mt][0] = m[mt][1] = -INFINITY;
-  uint32_t qf[S::QREG ? S::KSTEPS : 1][4];  // Q fragments (QREG, pass 2)
-  // this lane's ldmatrix row address of the warp's first Q row tile
-  const bf16* qa =
-      qs + (warp * 16 * MT + lane % 16) * S::LD + (lane / 16) * 8;
-  float s[MT][kKeyTiles][4];          // scores of the current K tile
-  uint32_t pf[MT][kKeyTiles / 2][4];  // P as A fragments, per 16 keys
-  const bf16* kt = ks;  // the current K and V tiles
-  const bf16* vt = vs;
-  int j = 0;            // the current tile
-
-  // S (16 x 64 a row tile) = Q K^T into n8 accumulator tiles, for every
-  // row tile of the warp (each K fragment serves all of them); qfrag(a,
-  // mt, kk) gives Q's A fragment of row tile mt, k-step kk
-  auto scores = [&](auto&& qfrag) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int n = 0; n < kKeyTiles; ++n)
-        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < S::KSTEPS; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) qfrag(a[mt], mt, kk);
-#pragma unroll
-      for (int np = 0; np < kKeyTiles / 2; ++np) {  // key tiles 2np, +1
-        uint32_t bk[4];
-        ldsm_x4(bk, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * S::LD +
-                        kk * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
-          mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
+  if (warp >= 8) {  // ---- producer -------------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
+      for (int wg = 0; wg < 2; ++wg)
+        for (int c = 0; c < T::NB; ++c)
+          tma_load_4d(base + wg * T::Q_WG + c * 64 * 128, &qmap, 64 * c, h,
+                      q0 + 64 * wg, b, qbar);
+      int s = 0, phase = 0;
+      for (int i = 0; i < 2 * n; ++i) {
+        const bool with_v = i >= n;
+        const int key0 = (with_v ? i - n : i) * BN;
+        const uint32_t st = ring + s * T::STAGE;
+        const uint32_t half = rank * T::HALF;
+        const int row0 = key0 + rank * (BN / kCluster);
+        mbar_wait(empty + 8 * s, phase ^ 1);
+        mbar_expect_tx(full + 8 * s, (with_v ? 2 : 1) * T::NB * T::BOX);
+        for (int c = 0; c < T::NB; ++c) {
+          tma_load_4d_multicast(st + c * T::BOX + half, &kmap, 64 * c, h,
+                                row0, b, full + 8 * s, 3);
+          if (with_v)
+            tma_load_4d_multicast(st + (T::NB + c) * T::BOX + half, &vmap,
+                                  64 * c, h, row0, b, full + 8 * s, 3);
         }
+        if (++s == STAGES) s = 0, phase ^= 1;
       }
     }
-  };
+    cluster_sync();  // no CTA leaves while the other may still arrive
+    return;
+  }
 
-  // keys at or past Skv of the current tile: -inf, so they take no part
-  // in the max and their p is 0
-  auto mask = [&](auto mtc) {
-    constexpr int mt = decltype(mtc)::value;
-    const int kv0 = j * kMmaKV;
-    if (kv0 + kMmaKV > Skv) {
-#pragma unroll
-      for (int n = 0; n < kKeyTiles; ++n) {
-        const int key = kv0 + n * 8 + 2 * t4;
-        if (key >= Skv) s[mt][n][0] = s[mt][n][2] = -INFINITY;
-        if (key + 1 >= Skv) s[mt][n][1] = s[mt][n][3] = -INFINITY;
-      }
-    }
+  // ---- consumers --------------------------------------------------------
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t qa = base + wg * T::Q_WG;
+  auto stage = [&](int i) { return ring + (i % STAGES) * T::STAGE; };
+  auto wait_full = [&](int i) {
+    mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
   };
-
-  // pass 1: this lane's max of row tile mt's scores
-  auto row_max = [&](auto mtc) {
-    constexpr int mt = decltype(mtc)::value;
-    mask(mtc);
-#pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n) {
-      m[mt][0] = fmaxf(m[mt][0], fmaxf(s[mt][n][0], s[mt][n][1]));
-      m[mt][1] = fmaxf(m[mt][1], fmaxf(s[mt][n][2], s[mt][n][3]));
-    }
+  // this warp's reads of ring step i are done: lane r counts them in the
+  // CTA of rank r
+  auto release = [&](int i) {
+    if (lane < kCluster) mbar_arrive_cluster(empty + 8 * (i % STAGES), lane);
   };
-
-  // pass 2: P = exp(s - m) of row tile mt against the row's m, as the
-  // argument m * scale * log2(e) of exp2 (ms), rounded into pf[mt]; l
-  // from the rounded or the fp32 P
-  float ms[MT][2];
-  auto probs = [&](auto mtc) {
-    constexpr int mt = decltype(mtc)::value;
-    mask(mtc);
+  // s = Q K^T of the K tile at st: dp / 16 k16 steps, the first
+  // overwriting s; one commit group
+  auto scores = [&](float (&s)[T::SREGS], uint32_t st) {
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n) {
-      const float p0 = fast_exp2(fmaf(s[mt][n][0], scale_log2, -ms[mt][0]));
-      const float p1 = fast_exp2(fmaf(s[mt][n][1], scale_log2, -ms[mt][0]));
-      const float p2 = fast_exp2(fmaf(s[mt][n][2], scale_log2, -ms[mt][1]));
-      const float p3 = fast_exp2(fmaf(s[mt][n][3], scale_log2, -ms[mt][1]));
-      const uint32_t lo = pack_bf16(p0, p1), hi = pack_bf16(p2, p3);
-      if constexpr (ROW_SUM) {
-        l[mt][0] += bf16_lo(lo) + bf16_hi(lo);
-        l[mt][1] += bf16_lo(hi) + bf16_hi(hi);
-      } else {
-        l[mt][0] += p0 + p1;
-        l[mt][1] += p2 + p3;
-      }
-      pf[mt][n / 2][(n % 2) * 2] = lo;
-      pf[mt][n / 2][(n % 2) * 2 + 1] = hi;
-    }
+    for (int kc = 0; kc < T::KSTEPS; ++kc)
+      wgmma<BN>(s, sw128_desc(qa + 64 * 128 * (kc / 4)) + 2 * (kc % 4),
+                sw128_desc(st + T::BOX * (kc / 4)) + 2 * (kc % 4), kc > 0);
+    wgmma_commit();
   };
-
-  // O (16 x dh a row tile) += P (16 x 64) . V tile, for every row tile
-  auto pv = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
-#pragma unroll
-      for (int np = 0; np < (NT + 1) / 2; ++np) {  // tiles 2np, 2np + 1
-        if (2 * np < nt_out) {
-          // for an odd dh / 8 the last pair's second tile lies in the
-          // zeroed pad (dh + 8 <= DP) and is not used
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                                     S::LD +
-                                np * 16 + (lane / 16) * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(oacc[mt][2 * np], pf[mt][kk], bv[0], bv[1]);
-            if (2 * np + 1 < NT && 2 * np + 1 < nt_out)
-              mma_bf16(oacc[mt][(2 * np + 1) % NT], pf[mt][kk], bv[2],
-                       bv[3]);
-          }
-        }
-      }
-    }
+  // the ping-pong: wait for this warpgroup's turn to issue products, and
+  // hand the turn to the other once they are issued
+  auto my_turn = [&]() {
+    if constexpr (kPingPong) named_sync(kTurn + wg, 256);
   };
+  auto your_turn = [&]() {
+    if constexpr (kPingPong) named_arrive(kTurn + (wg ^ 1), 256);
+  };
+  mbar_wait(qbar, 0);
 
-  // pass 1 over the K tiles, then pass 2 over the K and V tiles, through
-  // one ring: the last step of pass 1 loads pass 2's first tile
-  const int ntiles = (Skv + kMmaKV - 1) / kMmaKV;
-  {
-    // Q's fragments stay in registers through pass 1, which holds no
-    // output accumulators
-    uint32_t q1[MT][S::KSTEPS][4];
-    for (int step = 0; step < ntiles; ++step) {
-      const int stage = step & 1;
-      load_kv((step + 1) % ntiles * kMmaKV, stage ^ 1, step + 1 == ntiles);
-      cp_async_commit();
-      cp_async_wait<1>();  // this step's tile (and Q) landed for this thread
-      __syncthreads();     // ... and for every thread
-      if (step == 0) {
+  // pass 1: the row maxima, this lane's columns first. The next tile's
+  // score product is issued before this tile's maximum, into the other
+  // bank of accumulators. Every wgmma and wait below runs on a path of its
+  // own (the last tiles peeled off the loops), so that ptxas can tell
+  // which product is in flight and keeps them asynchronous.
+  float m[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
+  float sa[T::SREGS], sb[T::SREGS];
+  auto row_max = [&](float (&s)[T::SREGS], int t, bool last) {
+    fence_regs(s);
+    release(t);
+    if (last) mask_keys<BN>(s, t, Skv, t4);
+    float a[2][2] = {{m[0], -INFINITY}, {m[1], -INFINITY}};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int kk = 0; kk < S::KSTEPS; ++kk)
-            ldsm_x4(q1[mt][kk], qa + mt * 16 * S::LD + kk * 16);
-      }
-      j = step;
-      kt = ks + stage * kMmaKV * S::LD;
-      scores([&](uint32_t (&a)[4], int mt, int kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = q1[mt][kk][i];
-      });
-      row_max(std::integral_constant<int, 0>{});
-      if constexpr (MT == 2) row_max(std::integral_constant<int, 1>{});
-      __syncthreads();  // this stage is free for the load two steps on
+    for (int i = 0; i < BN / 8; ++i) {
+      a[0][i % 2] = fmaxf(a[0][i % 2], fmaxf(s[4 * i], s[4 * i + 1]));
+      a[1][i % 2] = fmaxf(a[1][i % 2], fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
+    m[0] = fmaxf(a[0][0], a[0][1]);
+    m[1] = fmaxf(a[1][0], a[1][1]);
+  };
+  // tile t's scores are in flight in `cur` and tile t + 1 exists: issue
+  // its scores into `next`, wait for `cur`, take its maximum
+  auto pass1_step = [&](float (&cur)[T::SREGS], float (&next)[T::SREGS],
+                        int t) {
+    wait_full(t + 1);
+    scores(next, stage(t + 1));
+    wgmma_wait<1>();
+    row_max(cur, t, false);
+  };
+  wait_full(0);
+  scores(sa, stage(0));
+  int t = 0;
+  for (; t + 2 < n; t += 2) {
+    pass1_step(sa, sb, t);
+    pass1_step(sb, sa, t + 1);
+  }
+  if (t + 1 < n) {  // tiles n - 2 and n - 1
+    pass1_step(sa, sb, t);
+    wgmma_wait<0>();
+    row_max(sb, t + 1, true);
+  } else {  // tile n - 1
+    wgmma_wait<0>();
+    row_max(sa, t, true);
   }
   // the row's max over the quad sharing it; finite: key 0 < Skv is live
   // in every row
+  float ms[2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1)
-        m[mt][hh] =
-            fmaxf(m[mt][hh], __shfl_xor_sync(0xffffffffu, m[mt][hh], off));
-      ms[mt][hh] = m[mt][hh] * scale_log2;
-      l[mt][hh] = 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      oacc[mt][n][0] = oacc[mt][n][1] = oacc[mt][n][2] = oacc[mt][n][3] = 0.f;
+    for (int off = 1; off <= 2; off <<= 1)
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+    ms[r] = m[r] * scale_log2;
   }
-  for (int step = ntiles; step < 2 * ntiles; ++step) {
-    const int stage = step & 1;
-    if (step + 1 < 2 * ntiles)
-      load_kv((step + 1 - ntiles) * kMmaKV, stage ^ 1, true);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (S::QREG) {
-      if (step == ntiles) {
-#pragma unroll
-        for (int kk = 0; kk < S::KSTEPS; ++kk) ldsm_x4(qf[kk], qa + kk * 16);
-      }
-    }
-    j = step - ntiles;
-    kt = ks + stage * kMmaKV * S::LD;
-    vt = vs + stage * kMmaKV * S::LD;
-    scores([&](uint32_t (&a)[4], int mt, int kk) {
-      if constexpr (S::QREG) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-      } else {
-        ldsm_x4(a, qa + mt * 16 * S::LD + kk * 16);
-      }
-    });
-    probs(std::integral_constant<int, 0>{});
-    if constexpr (MT == 2) probs(std::integral_constant<int, 1>{});
-    pv();
-    __syncthreads();  // this stage is free for the load two steps on
-  }
-  cp_async_wait<0>();
 
+  // pass 2: P = exp2(s * scale * log2(e) - m * scale * log2(e)) against
+  // the final m, rounded to bf16 A fragments; l; O += P V
+  float l[2] = {0.f, 0.f};  // ROW_SUM 0: this lane's share of the sums
+  float lacc[4];            // ROW_SUM 1: P . ones, from tile 0's first step
+  float oacc[NV / 2];       // written first by tile 0's P V
+  uint32_t pf[T::PSTEPS][4];
+  // tile t's exponentials, in place (s becomes the fp32 P); l from it
+  // where ROW_SUM is 0
+  auto exps = [&](float (&s)[T::SREGS], int t, bool last) {
+    fence_regs(s);
+    if (last) mask_keys<BN>(s, t, Skv, t4);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int i = 0; i < T::SREGS; ++i)
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -ms[(i / 2) % 2]));
+    if constexpr (!ROW_SUM) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float sum = l[mt][hh];
+      for (int i = 0; i < T::SREGS; ++i) l[(i / 2) % 2] += s[i];
+    }
+  };
+  // the fp32 P into pf, P V's A fragments (rounded to bf16)
+  auto pack = [&](const float (&s)[T::SREGS]) {
+#pragma unroll
+    for (int kk = 0; kk < T::PSTEPS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pf[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+  };
+  // O += P V of tile t's V tile: MN-major B, a 64-column atom a box on
+  // (the leading byte offset), 16 key rows a k16 step; and where ROW_SUM
+  // is 1, l += P . ones. Tile 0's first step overwrites both.
+  auto pv = [&](int t) {
+    const uint32_t sv = stage(n + t) + T::NB * T::BOX;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::PSTEPS; ++kk) {
+      wgmma_rs<NV, 1>(oacc, pf[kk], sw128_mn_desc(sv + 2048 * kk, T::BOX),
+                      kk > 0 || t > 0);
+      if constexpr (ROW_SUM)
+        wgmma_rs<8, 0>(lacc, pf[kk], sw128_desc(ones), kk > 0 || t > 0);
+    }
+    wgmma_commit();
+  };
+  // one turn: tile t's P is in pf, and tile t + 1 exists, its scores to
+  // go into `next`. Issue them and tile t's P V, hand the turn on, take
+  // tile t + 1's exponentials while P V runs (and the other warpgroup's
+  // products), then its P, once P V has read pf.
+  auto pass2_step = [&](float (&next)[T::SREGS], int t, bool last) {
+    wait_full(n + t + 1);
+    my_turn();
+    scores(next, stage(n + t + 1));
+    pv(t);
+    your_turn();
+    if constexpr (kOverlap) {
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    exps(next, t + 1, last);
+    wgmma_wait<0>();
+    fence_regs(pf);
+    release(n + t);
+    pack(next);
+  };
+  // the last tile's P V; the second warpgroup keeps its last turn
+  auto pass2_last = [&](int t) {
+    my_turn();
+    pv(t);
+    if (wg == 0) your_turn();
+    wgmma_wait<0>();
+    fence_regs(pf);
+    release(n + t);
+  };
+  // the first tile's scores take a turn of their own; the second
+  // warpgroup gives the first the first turn
+  if (kPingPong && wg == 1) named_arrive(kTurn, 256);
+  wait_full(n);
+  my_turn();
+  scores(sa, stage(n));
+  your_turn();
+  wgmma_wait<0>();
+  if (n == 1) {
+    exps(sa, 0, true);
+  } else {
+    exps(sa, 0, false);
+  }
+  pack(sa);
+  // tiles t + 1 and t + 2, whose exponentials the loop takes, are not
+  // the last
+  t = 0;
+  for (; t + 3 < n; t += 2) {
+    pass2_step(sb, t, false);
+    pass2_step(sa, t + 1, false);
+  }
+  if (t + 2 < n) {  // t = n - 3
+    pass2_step(sb, t, false);
+    pass2_step(sa, t + 1, true);
+    pass2_last(t + 2);
+  } else if (t + 1 < n) {  // t = n - 2
+    pass2_step(sb, t, true);
+    pass2_last(t + 1);
+  } else {  // t = n - 1
+    pass2_last(t);
+  }
+  fence_regs(oacc);
+  if constexpr (ROW_SUM) fence_regs(lacc);
+
+  // O / l, rows past Sq and columns past dh not stored
+  const long row = (long)H * dh;
+  const int r0 = q0 + 64 * wg + 16 * (warp % 4) + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    if constexpr (ROW_SUM) {
+      sum = lacc[2 * r];  // every column holds the row's sum
+    } else {
 #pragma unroll
       for (int off = 1; off <= 2; off <<= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float inv = 1.f / sum;
-      const int r = q0 + (warp * MT + mt) * 16 + g + 8 * hh;
-      if (r >= Sq) continue;
-      bf16* op = o + ((long)b * Sq + r) * row + (long)h * dh + 2 * t4;
+    }
+    const float inv = 1.f / sum;
+    const int q = r0 + 8 * r;
+    if (q >= Sq) continue;
+    bf16* op = o + ((long)b * Sq + q) * row + (long)h * dh + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n < nt_out) {
-          const float* a = &oacc[mt][n][2 * hh];
-          *reinterpret_cast<uint32_t*>(op + n * 8) =
-              ROW_SUM ? pack_bf16(a[0] * inv, a[1] * inv)
-                      : pack_bf16(a[0] / sum, a[1] / sum);
-        }
+    for (int i = 0; i < NV / 8; ++i) {
+      if (8 * i < dh) {
+        const float* a = &oacc[4 * i + 2 * r];
+        *reinterpret_cast<uint32_t*>(op + 8 * i) =
+            ROW_SUM ? pack_bf16(a[0] * inv, a[1] * inv)
+                    : pack_bf16(a[0] / sum, a[1] / sum);
       }
     }
   }
+  cluster_sync();
 }
 
-template <int DP, int NT, int BQ, int ROW_SUM>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int Sq, int Skv, int dh, float scale,
-                       int smem, cudaStream_t stream) {
-  using S = MmaShape<DP, NT, BQ>;
-  auto kernel = attention_mma_kernel<DP, NT, BQ, ROW_SUM>;
-  if (smem != S::BYTES || dh > 8 * NT) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, S::BYTES);
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// A bf16 map of a (B, S, H * dh) tensor as 4-D (dh, H, S, B), read in
+// boxes of 64 columns x 1 head x rows x 1 batch.
+cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                     int dh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)H, (uint64_t)S,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)dh * 2, (uint64_t)H * dh * 2,
+                               (uint64_t)S * H * dh * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return make_bf16_map(map, ptr, 4, dims, strides, box);
+}
+
+template <int DP, int NV, int BN, int ROW_SUM>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int B, int H, int Sq, int Skv, int dh, float scale,
+                      int stages, int smem, cudaStream_t stream) {
+  using T = TcShape<DP, BN>;
+  auto kernel = attention_wgmma_kernel<DP, NV, BN, ROW_SUM>;
+  if (stages != T::STAGES || smem != T::BYTES || dh > NV)
+    return cudaErrorInvalidValue;
+  static const cudaError_t ready = allow_smem(kernel, kSmemMax);  // once
+  if (ready != cudaSuccess) return ready;
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = head_map(&qmap, q, B, Sq, H, dh, 64);
+  if (err == cudaSuccess)
+    err = head_map(&kmap, k, B, Skv, H, dh, BN / kCluster);
+  if (err == cudaSuccess)
+    err = head_map(&vmap, v, B, Skv, H, dh, BN / kCluster);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, S::THREADS, S::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Sq, Skv, dh,
-      scale * 1.4426950408889634f);
+  const int blocks = (Sq + kTcQueries - 1) / kTcQueries;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + kCluster - 1) / kCluster * kCluster, B * H);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, qmap, kmap, vmap,
+                           static_cast<bf16*>(o), H, Sq, Skv, dh,
+                           scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The (DP, NT, BQ) triples that flash.py::_plan chooses from, each with
-// l from the rounded P (row_sum 1) or the fp32 P (0).
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int Sq, int Skv, int dh, float scale,
-                         int dp, int nt, int bq, int row_sum, int smem,
-                         cudaStream_t s) {
-  if (dh % 8 != 0 || (row_sum != 0 && row_sum != 1))
+// The (dp, nv, key tile) triples that flash.py::_plan chooses from, each
+// with l from the rounded P (row_sum 1) or the fp32 P (0).
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Sq, int Skv, int dh, float scale,
+                        int dp, int nv, int bn, int bq, int stages,
+                        int cluster, int row_sum, int smem, cudaStream_t s) {
+  if (dh % 8 != 0 || bq != kTcQueries || cluster != kCluster ||
+      B * H > 65535 ||
+      (row_sum != 0 && row_sum != 1) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorInvalidValue;
-#define RCDMS_MMA_CASE(DP, NT, BQ)                                         \
-  if (dp == DP && nt == NT && bq == BQ)                                    \
-    return row_sum ? launch_mma<DP, NT, BQ, 1>(q, k, v, o, B, H, Sq, Skv,  \
-                                               dh, scale, smem, s)         \
-                   : launch_mma<DP, NT, BQ, 0>(q, k, v, o, B, H, Sq, Skv,  \
-                                               dh, scale, smem, s);
-  RCDMS_MMA_CASE(48, 5, 128)
-  RCDMS_MMA_CASE(48, 6, 128)
-  RCDMS_MMA_CASE(64, 8, 128)
-  RCDMS_MMA_CASE(80, 10, 128)
-  RCDMS_MMA_CASE(112, 13, 128)
-  RCDMS_MMA_CASE(112, 14, 128)
-  RCDMS_MMA_CASE(128, 16, 128)
-  RCDMS_MMA_CASE(160, 20, 64)
-  RCDMS_MMA_CASE(256, 32, 64)
-#undef RCDMS_MMA_CASE
+#define RCDMS_TC_CASE(DP, NV, BN)                                           \
+  if (dp == DP && nv == NV && bn == BN)                                     \
+    return row_sum ? launch_tc<DP, NV, BN, 1>(q, k, v, o, B, H, Sq, Skv, dh, \
+                                              scale, stages, smem, s)       \
+                   : launch_tc<DP, NV, BN, 0>(q, k, v, o, B, H, Sq, Skv, dh, \
+                                              scale, stages, smem, s);
+  RCDMS_TC_CASE(48, 40, 128)
+  RCDMS_TC_CASE(48, 48, 128)
+  RCDMS_TC_CASE(64, 64, 128)
+  RCDMS_TC_CASE(80, 80, 128)
+  RCDMS_TC_CASE(112, 112, 64)
+  RCDMS_TC_CASE(128, 128, 64)
+  RCDMS_TC_CASE(160, 160, 64)
+  RCDMS_TC_CASE(256, 256, 64)
+#undef RCDMS_TC_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -574,27 +674,31 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;
 }
 
+
 }  // namespace
 }  // namespace rcdms
 
 // q: (B, Sq, H*dh); k, v: (B, Skv, H*dh); o: (B, Sq, H*dh); all contiguous.
-// fp32 runs the CUDA-core kernel. bf16 runs the mma.sync kernel with the
-// launch plan of flash.py::_plan: the contraction width dp, the output
-// tiles nt, queries a block bq, the row-sum family (1: l from the rounded
-// P, 0: from the fp32 P), and its shared-memory bytes, which must be what
-// the kernel lays out (dh a multiple of 8, q / k / v 16-byte aligned).
+// fp32 runs the CUDA-core kernel. bf16 runs the TMA + wgmma kernel with
+// the launch plan of flash.py::_plan: the contraction width dp, the
+// output width nv, the key tile bn, queries a block bq, the ring's stages,
+// CTAs a cluster, the row-sum family (1: l from the rounded P, 0: from the
+// fp32 P), and its shared-memory bytes, which must be what the kernel lays
+// out (dh a multiple of 8, q / k / v / o 16-byte aligned, B * H at most
+// 65535).
 extern "C" int rcdms_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int Sq, int Skv, int dh, float scale,
-                                   int dp, int nt, int bq, int row_sum,
+                                   int dp, int nv, int bn, int bq,
+                                   int stages, int cluster, int row_sum,
                                    int smem, void* stream) {
   using namespace rcdms;
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || dh <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return dispatch_mma(q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq,
-                        row_sum, smem, s);
+    return dispatch_tc(q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nv, bn, bq,
+                       stages, cluster, row_sum, smem, s);
   if (dtype == kFloat32)
     return dispatch_f32(q, k, v, o, B, H, Sq, Skv, dh, scale, s);
   return cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-// Warp-level tensor-core helpers shared by the mma.sync attention kernels
-// (attention.cu: kernel A; smallk_attention.cu: kernel E).
+// Warp-level tensor-core helpers of the mma.sync attention kernel E
+// (smallk_attention.cu); its bf16 packing and exp2 helpers also serve
+// kernel A (attention.cu).
 //
 // Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4): an
 // fp32 accumulator of an n8 tile holds rows g (regs 0, 1) and g + 8 (regs

@@ -33,8 +33,8 @@
 // kPre, the online fp32 l, whose exponentials the TPU kernel has too);
 // pass 2 computes the scores again, forms p from the exact m as the TPU
 // kernel does and accumulates P V in fp32 registers that never need a
-// rescale. Both passes work on mma.sync m16n8k16 fragments (mma.cuh), as
-// kernel A does: the scores stay in the accumulators, a row's max and sum
+// rescale. Both passes work on mma.sync m16n8k16 fragments (mma.cuh):
+// the scores stay in the accumulators, a row's max and sum
 // reduce over the four lanes that share it, P is repacked into bf16 A
 // fragments in registers (for dscore, transposed by movmatrix into B
 // fragments), and no score or probability reaches shared memory. A warp

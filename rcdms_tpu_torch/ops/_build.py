@@ -39,10 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nt, bq, row_sum,
-    # smem, stream
+    # dtype, q, k, v, o, B, H, Sq, Skv, dh, scale, dp, nv, bn, bq, stages,
+    # cluster, row_sum, smem, stream
     "rcdms_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                            _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, o, b, f, n, c, heads, scale, tokens, group, split,
     # smem, grid, stream
     "rcdms_frame_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

@@ -7,7 +7,7 @@ mid block) and head dims above 256 (the VAE's mid-block attention).
 the port, the counterpart of the JAX package's `_use_pallas` /
 `_use_nt_flash` gates: unmasked attention with at least 256 queries and a
 head dim of at most 256 goes to kernel A (`ops/flash.py`), in bf16 only
-where the head dim is also a multiple of 8 (the `mma.sync` kernel's
+where the head dim is also a multiple of 8 (the `wgmma` kernel's
 tiles; fp32 runs the CUDA-core kernel, which takes any head dim up to
 256); everything else goes to `dot_product_attention` (`uses_kernel`).
 A site whose rows are split over ranks (`core.spatial.spatial`) routes

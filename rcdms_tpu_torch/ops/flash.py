@@ -13,9 +13,9 @@ with identical leading dims. No padding: the kernel masks a ragged Skv
 
 `flash_attention` dispatches on where its operands lie: on the CPU it runs
 `attention_plain`; on a CUDA device it launches a kernel or raises: bf16
-runs the `mma.sync` kernel with the launch plan of `_plan` (dh a multiple
-of 8 up to 256, 16-byte aligned operands: every site of the main path),
-fp32 the CUDA-core kernel (dh up to 256). `flash_attention.launches`
+runs the TMA + `wgmma` kernel with the launch plan of `_plan` (dh a
+multiple of 8 up to 256, 16-byte aligned operands: every site of the main
+path), fp32 the CUDA-core kernel (dh up to 256). `flash_attention.launches`
 counts launches. Where autograd records it (an operand requires grad, grad
 mode on), the same forward runs inside a `torch.autograd.Function` whose
 backward differentiates `attention_reference` (`ops/_grad.py`).
@@ -25,11 +25,11 @@ P.V) but take the row sum l from different P: `_nt_kernel` from the rounded
 P, `_attn_kernel` from the fp32 P. Each call site names its family with
 `row_sum` ("rounded": the UNet's spatial sites, which the JAX package sends
 to `_nt_kernel`; "fp32": the CLIP vision tower's, which go to
-`_attn_kernel`), and the plain version and the `mma.sync` kernel follow
-it: the kernel makes two passes over K, the first for the row's maximum,
-so that it rounds P against the row's final maximum as both TPU kernels
-do, and takes l from the rounded or the fp32 P by a template parameter
-that the plan carries.
+`_attn_kernel`), and the plain version and the `wgmma` kernel follow it:
+the kernel makes two passes over K, the first for the row's maximum, so
+that it rounds P against the row's final maximum as both TPU kernels do,
+and takes l from the rounded or the fp32 P by a template parameter that
+the plan carries.
 """
 
 from __future__ import annotations
@@ -44,28 +44,37 @@ from rcdms_tpu_torch.ops._grad import differentiable
 
 MAX_HEAD_DIM = 256
 ROW_SUMS = ("rounded", "fp32")
-KV_TILE = 64  # keys a K/V tile of the mma kernel
-# contraction widths the mma kernel is built for (dh padded up to one),
-# each with the output tile counts it is built for (dh / 8 rounded up)
-OUTPUT_TILES = {48: (5, 6), 64: (8,), 80: (10,), 112: (13, 14), 128: (16,),
-                160: (20,), 256: (32,)}
+# contraction widths the wgmma kernel is built for (dh padded up to one,
+# a multiple of 16), each with its key tile: 128 keys up to dp 80, 64
+# above, so that two banks of score accumulators, P's fragments and the
+# output accumulators fit a consumer thread's registers
+KEY_TILES = {48: 128, 64: 128, 80: 128, 112: 64, 128: 64, 160: 64, 256: 64}
+NARROW_OUTPUT = 40  # P V's width where dh <= 40 (UNet level 0), below dp 48
+QUERIES = 128       # queries a block: two consumer warpgroups of 64 rows
+CLUSTER = 2         # blocks a cluster, sharing each K/V tile by multicast
+THREADS = 384       # the two consumer warpgroups and a producer warpgroup
+CONSUMER_REGS = 240  # registers a consumer thread, after setmaxnreg
+BOX_COLUMNS = 64    # columns of a TMA box: one 128-byte swizzled row
+ONES_BYTES = 1024   # the tile of bf16 ones, the B operand of the row sums
+MAX_STAGES = 4
+SMEM_MAX = 232448   # shared memory a block may take on the H100
+MAX_GRID_Y = 65535  # blocks along y: one a (batch, head)
 
 
 def _plan(dh: int, row_sum: str) -> dict:
-    """Launch plan of the bf16 `mma.sync` kernel for head dim dh and the
+    """Launch plan of the bf16 TMA + `wgmma` kernel for head dim dh and the
     site's `row_sum` family (`row_sum`: 1 for "rounded", 0 for "fp32",
-    the kernel's template parameter): the
-    contraction width `dp` (dh padded to a multiple of 16, to the next
-    width the kernel is built for), the output's n8 tiles (`n_tiles`,
-    dh / 8 for every head dim of the main path: no pad on the output
-    side; else rounded up to a count the kernel is built for, the extra
-    tiles skipped), queries a block (`bq`: 128, or 64
-    from dp 160, where Q's fragments and the output accumulators fill the
-    registers), query rows a warp (`rows_per_warp`: two m16 tiles up to dp
-    64, so a K or V fragment serves both; one above) and threads a block,
-    and the block's shared memory
-    (`smem`: the Q tile and two stages of K and V tiles, rows dp + 8 bf16
-    long). Raises ValueError for a dh the kernel does not take."""
+    the kernel's template parameter): the contraction width `dp` (dh
+    padded up to the next width the kernel is built for), the width `nv`
+    of P V and of the output accumulators (dp, or 40 where dh is at most
+    40; columns past dh are not stored), the key tile `bn`, taken as
+    `boxes` TMA boxes of 64 columns, queries a block (`bq`, two consumer
+    warpgroups of 64) and threads a block, blocks a `cluster` (each loads
+    half of every K and V tile for both), the ring's `stages` (the most of
+    at most four that fit), and the block's shared memory (`smem`: 1024
+    bytes to align, the Q tile, a 1024-byte tile of ones for the row sums,
+    the ring of K and V tiles, the full and empty mbarriers of each stage
+    and Q's). Raises ValueError for a dh the kernel does not take."""
     if dh <= 0 or dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the bf16 kernel takes a head dim "
                          f"that is a multiple of 8 up to {MAX_HEAD_DIM}, "
@@ -73,14 +82,29 @@ def _plan(dh: int, row_sum: str) -> dict:
     if row_sum not in ROW_SUMS:
         raise ValueError(f"flash_attention: row_sum {row_sum!r}, not one "
                          f"of {ROW_SUMS}")
-    dp = next(w for w in OUTPUT_TILES if w >= dh)
-    n_tiles = next(n for n in OUTPUT_TILES[dp] if 8 * n >= dh)
-    bq = 128 if dp <= 128 else 64
-    rows_per_warp = 32 if dp <= 64 else 16
-    smem = (bq + 4 * KV_TILE) * (dp + 8) * 2
-    return dict(dp=dp, n_tiles=n_tiles, bq=bq, rows_per_warp=rows_per_warp,
-                threads=32 * bq // rows_per_warp, smem=smem,
+    dp = next(w for w in KEY_TILES if w >= dh)
+    bn, boxes, stages, smem = _layout(dp)
+    return dict(dp=dp, nv=NARROW_OUTPUT if dh <= NARROW_OUTPUT else dp,
+                bn=bn, boxes=boxes, bq=QUERIES, threads=THREADS,
+                cluster=CLUSTER, stages=stages, smem=smem,
                 row_sum=int(row_sum == "rounded"))
+
+
+@functools.cache
+def _layout(dp: int) -> tuple:
+    """(key tile, boxes, stages, shared-memory bytes) of contraction
+    width dp: the deepest ring of at most MAX_STAGES that fits."""
+    bn = KEY_TILES[dp]
+    boxes = -(-dp // BOX_COLUMNS)
+    row_bytes = 2 * BOX_COLUMNS * boxes
+    q_bytes, stage = QUERIES * row_bytes, 2 * bn * row_bytes
+
+    def smem(stages):
+        return (1024 + q_bytes + ONES_BYTES + stages * stage
+                + 8 * (2 * stages + 1))
+
+    stages = max(n for n in range(2, MAX_STAGES + 1) if smem(n) <= SMEM_MAX)
+    return bn, boxes, stages, smem(stages)
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -166,20 +190,25 @@ def _attention(q, k, v, heads: int, scale: float,
         return torch.empty_like(q)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
-    plan = dict(dp=0, n_tiles=0, bq=0, row_sum=0, smem=0)
+    sq, skv = q.shape[-2], k.shape[-2]
+    batch = math.prod(q.shape[:-2])
+    plan = dict(dp=0, nv=0, bn=0, bq=0, stages=0, cluster=0, row_sum=0,
+                smem=0)
     if q.dtype == torch.bfloat16:
         plan = _plan(dh, row_sum)
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention: the bf16 kernel takes "
                              "16-byte aligned q, k, v")
-    sq, skv = q.shape[-2], k.shape[-2]
-    batch = math.prod(q.shape[:-2])
+        if batch * heads > MAX_GRID_Y:
+            raise ValueError(f"flash_attention: the bf16 kernel takes at "
+                             f"most {MAX_GRID_Y} (batch, head) pairs, got "
+                             f"{batch * heads}")
     out = torch.empty_like(q)
     code = _build.library().lib.rcdms_attention_fwd(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        batch, heads, sq, skv, dh, float(scale), plan["dp"],
-        plan["n_tiles"], plan["bq"], plan["row_sum"], plan["smem"],
-        _build.stream(q))
+        batch, heads, sq, skv, dh, float(scale), plan["dp"], plan["nv"],
+        plan["bn"], plan["bq"], plan["stages"], plan["cluster"],
+        plan["row_sum"], plan["smem"], _build.stream(q))
     _build.check(code, "rcdms_attention_fwd")
     flash_attention.launches += 1
     return out

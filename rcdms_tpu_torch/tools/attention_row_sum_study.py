@@ -1,10 +1,12 @@
 """Kernel A at the UNet's level 0 in its two row-sum families: l from the
 rounded P (`row_sum="rounded"`, as the TPU's `_nt_kernel`: the UNet's
 spatial sites) and l from the fp32 P (`"fp32"`, as `_attn_kernel`: CLIP
-vision), both two-pass builds of `csrc/attention.cu` (its `ROW_SUM`
-template parameter): device time a call from `torch.profiler`, and each
-one's error and share of bf16 outputs off the bits of the plain version
-of its own family. The two alternate: rounded, fp32, fp32, rounded.
+vision), both of the two-pass TMA + `wgmma` kernel of `csrc/attention.cu`
+(its `ROW_SUM` template parameter: l from P . ones on the tensor cores,
+or from the fp32 P in registers): device time a call from
+`torch.profiler`, and each one's error and share of bf16 outputs off the
+bits of the plain version of its own family. The two alternate: rounded,
+fp32, fp32, rounded.
 
 (Before the kernel rounded P against the row's final maximum, this study
 built a one-pass variant that summed the rounded P from the kernel's

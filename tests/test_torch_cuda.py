@@ -326,27 +326,60 @@ def test_cuda_study_wrappers_raise_on_bad_operands(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [40, 80, 104, 160])
+@pytest.mark.parametrize("dh", [40, 80, 104, 160, 256])
 def test_cuda_attention_tile_edges(cuda, dh):
-    """The bf16 mma kernel at every head dim of the main path, ragged on
-    both sides: 200 queries (a partial 128- or 64-query block) against 91
-    keys (a partial 64-key tile) and against 200 (three full tiles and a
-    partial one); 2 heads, so a head is a stride inside the token row."""
+    """The bf16 wgmma kernel at every head dim of the main path and at 256,
+    ragged on both sides, batch 3 (so a query block and a key tile end at
+    a batch's last row): 1, 63 and 65 queries (a partial warpgroup, one
+    warpgroup and a row of the second) and 200 (a partial 128-query
+    block) against 1, 91, 127, 129 and 200 keys (partial 64- and 128-key
+    tiles, and one key); 2 heads, so a head is a stride inside the token
+    row."""
     g = torch.Generator(cuda).manual_seed(3)
 
     def r(*s):
         return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
 
     ops.reset_launch_counts()
-    for skv in (91, 200):
-        q, k, v = r(3, 200, 2 * dh), r(3, skv, 2 * dh), r(3, skv, 2 * dh)
-        for row_sum in ("rounded", "fp32"):
-            out = flash_attention(q, k, v, 2, row_sum=row_sum)
-            assert _rel(out, attention_plain(q, k, v, 2, dh ** -0.5,
-                                             row_sum=row_sum)) \
-                <= TOL[torch.bfloat16], (dh, skv, row_sum)
+    launches = 0
+    for sq in (1, 63, 65, 200):
+        for skv in (1, 91, 127, 129, 200):
+            q, k, v = r(3, sq, 2 * dh), r(3, skv, 2 * dh), r(3, skv, 2 * dh)
+            for row_sum in ("rounded", "fp32"):
+                out = flash_attention(q, k, v, 2, row_sum=row_sum)
+                launches += 1
+                assert _rel(out, attention_plain(q, k, v, 2, dh ** -0.5,
+                                                 row_sum=row_sum)) \
+                    <= TOL[torch.bfloat16], (dh, sq, skv, row_sum)
     torch.cuda.synchronize()
-    assert ops.launch_counts("story")["attention"] == 4
+    assert ops.launch_counts("story")["attention"] == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [40, 104])
+def test_cuda_attention_reads_no_other_head(cuda, dh):
+    """At a dh the kernel pads (40 -> 48, 104 -> 112), the pad columns of
+    its tiles are TMA's zeros, not the next head's or the next token's
+    columns: with the other head's columns of q, k and v all NaN, a head's
+    output equals, bit for bit, its output beside finite values."""
+    g = torch.Generator(cuda).manual_seed(5)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k, v = r(3, 200, 2 * dh), r(3, 129, 2 * dh), r(3, 129, 2 * dh)
+    for row_sum in ("rounded", "fp32"):
+        finite = flash_attention(q, k, v, 2, row_sum=row_sum)
+        assert torch.isfinite(finite).all()
+        for head in (0, 1):  # the head whose columns are NaN
+            cols = slice(head * dh, (head + 1) * dh)
+            keep = slice((1 - head) * dh, (2 - head) * dh)
+            nq, nk, nv = (t.clone() for t in (q, k, v))
+            for t in (nq, nk, nv):
+                t[..., cols] = float("nan")
+            out = flash_attention(nq, nk, nv, 2, row_sum=row_sum)
+            assert torch.equal(out[..., keep], finite[..., keep]), \
+                (dh, row_sum, head)
 
 
 # kernel B: (b, f, n, c) with 8 heads: the story's five sites at a cut n
@@ -459,6 +492,9 @@ def test_cuda_wrappers_raise_on_bad_operands(cuda):
     odd = flat[1:].view(2, 8, 32)  # contiguous, 2 bytes off 16
     with pytest.raises(ValueError):
         flash_attention(odd, odd, odd, 1, row_sum="rounded")
+    many = torch.zeros(65536, 1, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a grid row of 65536 (batch, head)s
+        flash_attention(many, many, many, 1, row_sum="rounded")
     xb = torch.zeros(4, 100, device=cuda, dtype=torch.bfloat16)
     w1 = torch.zeros(400, 100, device=cuda, dtype=torch.bfloat16)
     b1 = torch.zeros(400, device=cuda, dtype=torch.bfloat16)

@@ -1,6 +1,6 @@
 """The launch plans of the port's redesigned bf16 kernels, on the CPU.
 
-`rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, `mma.sync` attention),
+`rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, TMA + `wgmma` attention),
 `rcdms_tpu_torch/ops/geglu.py::_plan` (kernels C and D, two TMA + `wgmma`
 GEMM passes), `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
 studies' whole attention block on `mma.sync`) and
@@ -49,6 +49,22 @@ FF_SITES = [(20480, 320, True), (5120, 640, True), (1280, 1280, True),
             (320, 1280, True), (970, 2048, True), (970, 2048, False)]
 
 
+# registers a consumer thread keeps for addresses, loop state and the row
+# statistics, beside the accumulators and P's fragments
+ATTENTION_SPARE_REGS = 32
+
+
+def _attention_layout_bytes(plan):
+    """The kernel's shared memory from the plan's tiles: 1024 bytes to
+    align, Q (128 rows), the tile of ones, the ring (K and V tiles of bn
+    rows a stage), the full and empty mbarriers of each stage and Q's; rows
+    of `boxes` 128-byte swizzled boxes."""
+    row = plan["boxes"] * 2 * flash.BOX_COLUMNS
+    stages = plan["stages"]
+    return (1024 + plan["bq"] * row + flash.ONES_BYTES
+            + stages * 2 * plan["bn"] * row + 8 * (2 * stages + 1))
+
+
 @pytest.mark.parametrize("label,dh", ATTENTION_SITES)
 def test_attention_plan_fits_and_pads(label, dh):
     row_sum = "fp32" if label == "clip vision" else "rounded"
@@ -56,19 +72,28 @@ def test_attention_plan_fits_and_pads(label, dh):
     assert plan["row_sum"] == int(row_sum == "rounded")
     assert plan["smem"] <= SMEM_LIMIT, label
     assert plan["dp"] % 16 == 0 and dh <= plan["dp"] < dh + 16
-    assert plan["n_tiles"] * 8 == dh  # the output side is not padded
-    assert plan["n_tiles"] in flash.OUTPUT_TILES[plan["dp"]]
-    assert plan["bq"] == (128 if plan["dp"] <= 128 else 64)
-    assert plan["rows_per_warp"] == (32 if plan["dp"] <= 64 else 16)
-    assert plan["threads"] * plan["rows_per_warp"] == 32 * plan["bq"]
-    rows = plan["bq"] + 4 * flash.KV_TILE  # Q, then K and V, two stages
-    assert plan["smem"] == rows * (plan["dp"] + 8) * 2
+    assert dh <= plan["nv"] <= plan["dp"] and plan["nv"] % 8 == 0
+    assert plan["bn"] == flash.KEY_TILES[plan["dp"]]
+    assert plan["boxes"] * flash.BOX_COLUMNS >= plan["dp"] \
+        > (plan["boxes"] - 1) * flash.BOX_COLUMNS
+    # two consumer warpgroups of 64 rows and a producer warpgroup, in
+    # clusters of two blocks that each load half of a K/V tile
+    assert plan["bq"] == 128 and plan["threads"] == 3 * 128
+    assert plan["cluster"] == 2 and plan["bn"] % (8 * plan["cluster"]) == 0
+    assert 2 <= plan["stages"] <= flash.MAX_STAGES
+    assert plan["smem"] == _attention_layout_bytes(plan)
+    # the deepest ring that fits
+    deeper = dict(plan, stages=plan["stages"] + 1)
+    assert plan["stages"] == flash.MAX_STAGES \
+        or _attention_layout_bytes(deeper) > SMEM_LIMIT
 
 
-@pytest.mark.parametrize("dh,dp", [(40, 48), (104, 112), (80, 80),
-                                   (160, 160), (8, 48), (256, 256)])
-def test_attention_plan_padded_widths(dh, dp):
-    assert flash._plan(dh, "rounded")["dp"] == dp
+@pytest.mark.parametrize("dh,dp,nv", [(40, 48, 40), (104, 112, 112),
+                                      (80, 80, 80), (160, 160, 160),
+                                      (8, 48, 40), (256, 256, 256)])
+def test_attention_plan_padded_widths(dh, dp, nv):
+    plan = flash._plan(dh, "rounded")
+    assert (plan["dp"], plan["nv"]) == (dp, nv)
 
 
 @pytest.mark.parametrize("dh", [0, 20, 44, 260, 264])
@@ -89,11 +114,34 @@ def test_attention_plan_carries_the_row_sum_family():
 
 
 def test_attention_plan_every_supported_width_fits():
+    """Every dh the kernel takes: shared memory, wgmma's shapes (m64 a
+    consumer warpgroup; the score product n = bn, P V n = nv, each a
+    multiple of 8 up to 256; k16 steps over dp and over bn), TMA's boxes
+    (64 columns x 1 head x rows x 1 batch, a K/V box half a tile's rows:
+    128 bytes inner, every dimension at most 256, global strides
+    multiples of 16 bytes at the story's head counts) and a consumer
+    thread's registers (two banks of score accumulators, P's fragments,
+    the output accumulators)."""
     for dh in range(8, flash.MAX_HEAD_DIM + 1, 8):
         plan = flash._plan(dh, "rounded")
-        assert plan["dp"] in flash.OUTPUT_TILES
-        assert dh <= 8 * plan["n_tiles"] <= plan["dp"]
+        dp, nv, bn = plan["dp"], plan["nv"], plan["bn"]
         assert plan["smem"] <= SMEM_LIMIT, dh
+        assert plan["smem"] == _attention_layout_bytes(plan), dh
+        assert plan["bq"] == 2 * 64
+        for n in (bn, nv):
+            assert n % 8 == 0 and 8 <= n <= 256, (dh, n)
+        assert dp % 16 == 0 and bn % 16 == 0 and dh <= nv <= dp
+        inner = 2 * flash.BOX_COLUMNS
+        assert inner % 16 == 0 and inner <= 128  # the swizzle's span
+        for box in ((flash.BOX_COLUMNS, 1, 64, 1),
+                    (flash.BOX_COLUMNS, 1, bn // plan["cluster"], 1)):
+            assert all(1 <= d <= 256 for d in box), (dh, box)
+        for heads in (1, 8, 16):
+            for s in (1, 91, 257, 4096):
+                strides = (2 * dh, 2 * heads * dh, 2 * s * heads * dh)
+                assert all(x % 16 == 0 for x in strides), (dh, heads, s)
+        regs = 2 * (bn // 2) + bn // 4 + nv // 2
+        assert regs + ATTENTION_SPARE_REGS <= flash.CONSUMER_REGS, (dh, regs)
 
 
 @pytest.mark.parametrize("rows,c,geglu_", FF_SITES)

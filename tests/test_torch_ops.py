@@ -140,7 +140,7 @@ def test_ff_matches_pallas(geglu, lead, n):
 @pytest.mark.parametrize("dh", [40, 44, 256, 264])
 def test_attention_router(monkeypatch, dtype, dh):
     """Kernel A takes unmasked sites of at least 256 queries and dh <= 256;
-    in bf16 (the `mma.sync` kernel) dh must also be a multiple of 8."""
+    in bf16 (the `wgmma` kernel) dh must also be a multiple of 8."""
     takes = dh <= 256 and (dtype == torch.float32 or dh % 8 == 0)
     routed = []
     monkeypatch.setattr(attention_ops, "flash_attention",
