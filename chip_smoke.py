@@ -32,7 +32,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
    over generated P, softmax, softmax2, reduce_only) also print their
    device time (`torch.profiler`), which must not be under their bound
    (every exponential on MUFU.EX2, or P read once and the output written
-   once): a share of the bound above 1.0 means work was left out;
+   once): a share of the bound above 1.0 means work was left out; C and
+   D are timed beside the unfused pair (two cuBLAS products with the
+   biases and the activation between them, `others_ms`); last, every
+   (mode, column tile) instance of C/D's GEMM kernel, forced through the
+   plan override, at the prior's FF shape (970 x 2048, inner 8192), one
+   line each (`check_ff_instances`);
 4. reference: the tiny pipeline in fp32 on the card, through the kernels,
    against the same pipeline on the CPU (plain versions) on the same
    noise: stage-1 embeds within 5e-4, frames within 1e-3; the same for
@@ -349,8 +354,10 @@ def kernel_cases(dev, dtype):
     from rcdms_tpu_torch.ops.geglu import (
         geglu_ff,
         geglu_ff_plain,
+        geglu_ff_reference,
         gelu_ff,
         gelu_ff_plain,
+        gelu_ff_reference,
     )
 
     g = torch.Generator(dev).manual_seed(0)
@@ -403,7 +410,9 @@ def kernel_cases(dev, dtype):
             lambda t=per_token, dh=dh: F.scaled_dot_product_attention(
                 *t, scale=dh ** -0.5)))
     # kernels C and D: UNet and prior feed-forwards (rows x c, inner 4c);
-    # bf16 takes the tensor-core kernel, fp32 the CUDA-core one
+    # bf16 takes the tensor-core kernel, fp32 the CUDA-core one; timed
+    # beside the unfused pair (the reference function: two cuBLAS
+    # products, the biases and the activation between them)
     for rows, c, geglu in ((20480, 320, True), (5120, 640, True),
                            (1280, 1280, True), (320, 1280, True),
                            (970, 2048, True), (970, 2048, False)):
@@ -411,13 +420,15 @@ def kernel_cases(dev, dtype):
         up = 2 * inner if geglu else inner
         args = (r(rows, c), r(up, c, scale=c ** -0.5), r(up, scale=0.1),
                 r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
-        fn, plain = (geglu_ff, geglu_ff_plain) if geglu else (gelu_ff,
-                                                               gelu_ff_plain)
+        fn, plain, pair = ((geglu_ff, geglu_ff_plain, geglu_ff_reference)
+                           if geglu else
+                           (gelu_ff, gelu_ff_plain, gelu_ff_reference))
         cases.append(Case(
             fn.__name__, f"{rows}x{c} inner {inner}",
             lambda a=args, fn=fn: fn(*a), lambda a=args, p=plain: p(*a),
             (2 * rows * c * (up + inner), 0,
-             _nbytes(*args) + _nbytes(args[0]))))
+             _nbytes(*args) + _nbytes(args[0])),
+            baselines=(("cuBLAS pair", lambda a=args, p=pair: p(*a)),)))
     cases += study_kernel_cases(r, dev, dtype)
     if dtype == torch.bfloat16:
         cases += smallk_kernel_cases(r, dev)
@@ -677,10 +688,65 @@ def check_kernels(dev, card: str) -> dict:
             if dtype == torch.bfloat16 and "ms" not in s:
                 s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound, bound_by=bound_by, shape=label)
+    for row in check_ff_instances(dev):
+        rows.append(row)
+        s = summary[row["kernel"]]
+        s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
         json.dump(rows, fh, indent=1)
     return summary
+
+
+def check_ff_instances(dev) -> list:
+    """Phase 3's last step: every (mode, column tile) instance of the FF
+    GEMM kernel (`geglu.LIBRARY_WIDTHS`: the default plans' tiles and the
+    studies' sweep), forced through the plan override at the prior's FF
+    shape (970 rows, ragged against the 128-row block; c 2048, inner
+    8192): C for the geglu and bias tiles, D for the gelu tiles, in bf16
+    against the plain version within TOL. One printed line an instance;
+    returns the rows."""
+    from rcdms_tpu_torch.ops import geglu
+    from rcdms_tpu_torch.tools import rel_err
+
+    g = torch.Generator(dev).manual_seed(5)
+    rows, c = 970, 2048
+    inner = 4 * c
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    args = {gg: (r(rows, c), r(up, c, scale=c ** -0.5), r(up, scale=0.1),
+                 r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+            for gg, up in ((True, 2 * inner), (False, inner))}
+    plain = {True: geglu.geglu_ff_plain(*args[True]),
+             False: geglu.gelu_ff_plain(*args[False])}
+    out = []
+    try:
+        for mode, widths in geglu.LIBRARY_WIDTHS.items():
+            gg = mode != "gelu"
+            fn = geglu.geglu_ff if gg else geglu.gelu_ff
+            for bn in widths:
+                geglu.set_plan_override(*((None, bn) if mode == "bias"
+                                          else (bn, None)))
+                got = fn(*args[gg])
+                torch.cuda.synchronize()
+                rel, err = rel_err(got, plain[gg]), _max_diff(got, plain[gg])
+                print(f"ff instance {mode:5s} bn {bn:3d}: {fn.__name__} "
+                      f"{rows}x{c} inner {inner} rel_err {rel:.2e}",
+                      flush=True)
+                if not rel <= TOL[torch.bfloat16]:
+                    raise AssertionError(f"{fn.__name__} with the {mode} "
+                                         f"tile {bn}: relative error "
+                                         f"{rel:.3e}")
+                out.append(dict(kernel=fn.__name__, dtype="bfloat16",
+                                shape=f"{rows}x{c} inner {inner}, {mode} "
+                                      f"tile {bn}", max_abs_err=err,
+                                rel_err=rel))
+    finally:
+        geglu.set_plan_override(None)
+    return out
 
 
 def check_int8_products(dev, unet_cpu) -> dict:

@@ -396,7 +396,9 @@ cudaError_t launch_gemm(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// The (mode, BN) pairs that geglu.py::_gemm_plan chooses from.
+// The library's (mode, BN) instances, geglu.py::LIBRARY_WIDTHS:
+// geglu.py::_gemm_plan chooses from a subset of them (TILE_WIDTHS), and a
+// plan override (geglu.py::set_plan_override) from all of them.
 cudaError_t dispatch_gemm(int mode, int bn, const void* x, const void* w,
                           const void* bias, void* y, int M, int N, int K,
                           int smem, cudaStream_t s) {
@@ -404,13 +406,20 @@ cudaError_t dispatch_gemm(int mode, int bn, const void* x, const void* w,
 #define RCDMS_GEMM_CASE(MODE, BN)                                         \
   if (mode == MODE && bn == BN)                                           \
     return launch_gemm<BN, MODE>(x, w, bias, y, M, N, K, smem, s);
+  RCDMS_GEMM_CASE(kGeglu, 32)
   RCDMS_GEMM_CASE(kGeglu, 64)
+  RCDMS_GEMM_CASE(kGeglu, 96)
   RCDMS_GEMM_CASE(kGeglu, 128)
+  RCDMS_GEMM_CASE(kGelu, 64)
   RCDMS_GEMM_CASE(kGelu, 128)
+  RCDMS_GEMM_CASE(kGelu, 192)
   RCDMS_GEMM_CASE(kGelu, 256)
+  RCDMS_GEMM_CASE(kBias, 32)
   RCDMS_GEMM_CASE(kBias, 64)
+  RCDMS_GEMM_CASE(kBias, 96)
   RCDMS_GEMM_CASE(kBias, 128)
   RCDMS_GEMM_CASE(kBias, 160)
+  RCDMS_GEMM_CASE(kBias, 192)
   RCDMS_GEMM_CASE(kBias, 256)
 #undef RCDMS_GEMM_CASE
   return cudaErrorInvalidValue;

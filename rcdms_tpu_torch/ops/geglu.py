@@ -35,30 +35,62 @@ from rcdms_tpu_torch.ops._grad import differentiable
 BM, BK, STAGES = 128, 64, 4  # rows a block, K a stage, depth of the ring
 SMS = 132                    # an H100 SXM's multiprocessors: one wave
 MODES = {"bias": 0, "gelu": 1, "geglu": 2}
-# column tiles the GEMM kernel is built for, per epilogue (per W half for
+# column tiles the default plans choose from, per epilogue (per W half for
 # geglu, which holds two accumulators)
 TILE_WIDTHS = {"geglu": (128, 64), "gelu": (256, 128),
                "bias": (256, 160, 128, 64)}
+# every column tile the GEMM kernel is built for (`csrc/ff.cu::
+# dispatch_gemm`): TILE_WIDTHS and the widths a plan override may sweep
+LIBRARY_WIDTHS = {"geglu": (32, 64, 96, 128), "gelu": (64, 128, 192, 256),
+                  "bias": (32, 64, 96, 128, 160, 192, 256)}
+PASS_MODES = {"pass1": ("geglu", "gelu"), "pass2": ("bias",)}
+
+_plan_override: dict = {}  # pass name -> its column tile, while one is set
+
+
+def set_plan_override(pass1_bn: int | None,
+                      pass2_bn: int | None = None) -> None:
+    """Study and test hook, not a production knob: every bf16 FF from now
+    on takes column tile `pass1_bn` in pass 1 and `pass2_bn` in pass 2
+    (None: that pass's default plan); `set_plan_override(None)` resets
+    both. Raises ValueError for a width that no mode of its pass has in
+    the library; `_plan` raises, before any launch, where the call's
+    mode lacks the width."""
+    override = {}
+    for name, bn in (("pass1", pass1_bn), ("pass2", pass2_bn)):
+        if bn is None:
+            continue
+        if not any(bn in LIBRARY_WIDTHS[m] for m in PASS_MODES[name]):
+            raise ValueError(f"{name}: the library has no column tile {bn} "
+                             f"for {PASS_MODES[name]}")
+        override[name] = bn
+    global _plan_override
+    _plan_override = override
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _gemm_plan(m: int, n: int, mode: str) -> dict:
+def _gemm_plan(m: int, n: int, mode: str, bn: int | None = None) -> dict:
     """Plan of one GEMM pass, Y (m, n) = epilogue(X W^T): the column tile
-    `bn` that gives the fewest waves of blocks over the card, each wave
-    weighted by a block's width (its W tiles plus a constant for its X
-    tile), ties to the wider tile; the grid, the ring's `stages` and the
-    block's shared memory (`smem`: the ring of X and W tiles, the
-    stages' two mbarriers, 1024 bytes to align the ring)."""
+    `bn` (by default the one that gives the fewest waves of blocks over
+    the card, each wave weighted by a block's width (its W tiles plus a
+    constant for its X tile), ties to the wider tile); the grid, the
+    ring's `stages` and the block's shared memory (`smem`: the ring of X
+    and W tiles, the stages' two mbarriers, 1024 bytes to align the
+    ring)."""
     nw = 2 if mode == "geglu" else 1
     m_blocks = _cdiv(m, BM)
 
     def cost(bn):
         return _cdiv(m_blocks * _cdiv(n, bn), SMS) * (nw * bn + 64), -bn
 
-    bn = min(TILE_WIDTHS[mode], key=cost)
+    if bn is None:
+        bn = min(TILE_WIDTHS[mode], key=cost)
+    elif bn not in LIBRARY_WIDTHS[mode]:
+        raise ValueError(f"the library has no {mode} column tile {bn}: "
+                         f"{LIBRARY_WIDTHS[mode]}")
     smem = STAGES * (BM * BK * 2 + nw * bn * BK * 2) + 2 * STAGES * 8 + 1024
     return dict(mode=mode, bm=BM, bn=bn, stages=STAGES, smem=smem,
                 grid=(_cdiv(n, bn), m_blocks))
@@ -66,13 +98,16 @@ def _gemm_plan(m: int, n: int, mode: str) -> dict:
 
 def _plan(rows: int, c: int, inner: int, geglu: bool) -> dict:
     """Launch plan of the bf16 FF: pass 1 (x -> the activated intermediate
-    of shape `intermediate`) and pass 2 (-> y). Raises ValueError for a
-    shape the kernel does not take."""
+    of shape `intermediate`) and pass 2 (-> y), with the column tiles of
+    `set_plan_override` where one is set. Raises ValueError for a shape
+    the kernel does not take."""
     if rows <= 0 or c <= 0 or inner <= 0 or c % 8 or inner % 8:
         raise ValueError(f"the bf16 FF kernel takes c and inner multiples "
                          f"of 8, got rows {rows}, c {c}, inner {inner}")
-    return dict(pass1=_gemm_plan(rows, inner, "geglu" if geglu else "gelu"),
-                pass2=_gemm_plan(rows, c, "bias"), intermediate=(rows, inner))
+    return dict(pass1=_gemm_plan(rows, inner, "geglu" if geglu else "gelu",
+                                 _plan_override.get("pass1")),
+                pass2=_gemm_plan(rows, c, "bias", _plan_override.get("pass2")),
+                intermediate=(rows, inner))
 
 
 def _up(x, w1, b1) -> torch.Tensor:

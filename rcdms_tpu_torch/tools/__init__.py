@@ -12,6 +12,16 @@ formulations:
     python -m rcdms_tpu_torch.tools.pv_overlap_study
     python -m rcdms_tpu_torch.tools.pv_softmax_study
 
+The studies of the main path's own kernels and loops (the feed-forwards
+C/D, B beside them, the prior loop, the prior's projections, the int8
+products) time each row both ways, device time first (`device_row`):
+
+    python -m rcdms_tpu_torch.tools.geglu_study
+    python -m rcdms_tpu_torch.tools.prior_ff_study
+    python -m rcdms_tpu_torch.tools.prior_floor_study
+    python -m rcdms_tpu_torch.tools.qkv_fusion_study
+    python -m rcdms_tpu_torch.tools.int8_study
+
 `conv_device_times` prints the conv kernel's device time by kernel beside
 cuDNN's, `gn_device_times` the fused GroupNorm's beside the first port's
 kernel and F.group_norm, and `gn_cluster_study` the fused GroupNorm's at
@@ -39,14 +49,16 @@ import statistics
 import subprocess
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 
-# Published peaks of one H100 SXM5 at its 700 W limit: dense bf16 tensor
-# cores, fp32 outside them, HBM3, and MUFU.EX2: 16 an SM a clock on 132
-# SMs at the 1980 MHz maximum SM clock (nvidia-smi's clocks.max.sm on the
-# H100 80GB HBM3).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Published peaks of one H100 SXM5 at its 700 W limit: dense bf16 and
+# int8 tensor cores, fp32 outside them, HBM3, and MUFU.EX2: 16 an SM a
+# clock on 132 SMs at the 1980 MHz maximum SM clock (nvidia-smi's
+# clocks.max.sm on the H100 80GB HBM3).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 PEAK_EXPS = 132 * 16 * 1.98e9
 
@@ -91,26 +103,55 @@ def median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, reps: int = 20, tries: int = 3) -> dict[str, float]:
+MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def per_call_us(kernels: list, reps: int) -> dict[str, float] | None:
+    """Microseconds a call by kernel name from a profile's kernels, (name,
+    start, duration in us) each, that ran warm-up calls, one marker kernel
+    (`MARKER`) and then `reps` calls: the kernels that start after the
+    marker, over reps. None where the marker is not seen once, or a
+    kernel is seen a number of times that is no multiple of reps."""
+    kernels = sorted(kernels, key=lambda k: k[1])
+    marks = [i for i, k in enumerate(kernels) if MARKER in k[0]]
+    if len(marks) != 1:
+        return None
+    times, counts = collections.Counter(), collections.Counter()
+    for name, _, us in kernels[marks[0] + 1:]:
+        times[name] += us / reps
+        counts[name] += 1
+    if not times or any(n % reps for n in counts.values()):
+        return None
+    return dict(times)
+
+
+def device_us(fn, reps: int = 20, tries: int = 3,
+              warm: int = 5) -> dict[str, float]:
     """Microseconds of device time a call, per kernel name, over `reps`
-    profiled calls after three warm-up calls. A profile now and then
-    holds no device event at all: it is taken again, up to `tries`
-    times, then this raises."""
+    profiled calls after three warm-up calls. A profile may miss its first
+    calls (2-3 of 20 calls of the kernels launched from the ctypes library
+    were unseen in some profiles on the H100), so each profile runs `warm`
+    calls, a marker kernel and then the `reps` calls it reads
+    (`per_call_us`). A profile without the marker or with a partial call
+    is taken again, up to `tries` times, then this raises."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = collections.Counter()
-        for e in prof.key_averages():
-            if e.device_time_total > 0:
-                times[e.key] += e.device_time_total / reps
-        if times:
-            return dict(times)
-    raise RuntimeError(f"the profiler saw no device time in {tries} tries")
+        times = per_call_us([(e.key, e.time_range.start, e.device_time_total)
+                             for e in prof.events()
+                             if e.device_type == DeviceType.CUDA], reps)
+        if times is not None:
+            return times
+    raise RuntimeError(f"the profiler saw no marker or not every call's "
+                       f"kernels in {tries} tries")
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -131,11 +172,41 @@ def timed_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
                 bound_ms=bound[0], bound_by=bound[1])
 
 
+def device_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
+               ref, flops: float, nbytes: float = 0.0, reps: int = 10,
+               **extra) -> dict:
+    """A study row timed two ways: `device_ms`, the profiler's device time
+    of one call summed over its kernels (`kernels`: us a call by kernel
+    name), and `ms`, its event time (`median_ms`: the wrapper's host time
+    included). The rate (TFLOP/s of `flops`) and the share of the bound
+    (`bound_ms` of flops and nbytes) are by device time. fn's output is
+    held against ref first (`rel_err`; ref None: timed only), so a wrong
+    result cannot pass for a time; a device time under the bound raises."""
+    err = None if ref is None else rel_err(fn(), ref)
+    bound, bound_by = bound_ms(flops, 0.0, nbytes, dtype)
+    kernels = device_us(fn, reps=2 * reps)
+    device_ms = sum(kernels.values()) / 1e3
+    if device_ms < bound:
+        raise RuntimeError(f"{study} {name}: device time {device_ms:.4f} ms "
+                           f"under its bound {bound:.4f} ms: the profile "
+                           f"lost work")
+    ms = median_ms(fn, reps)
+    return dict(study=study, row=name, dtype=str(dtype)[6:], shape=shape,
+                ms=ms, device_ms=device_ms, rate=flops / device_ms / 1e9,
+                unit="TFLOP/s", rel_err=err, bound_ms=bound,
+                bound_by=bound_by, kernels=kernels, **extra)
+
+
 def print_rows(rows: list[dict]) -> None:
+    """One line a row; a `device_row` shows its device time first, and its
+    rate and share of the bound are by device time."""
     for r in rows:
         err = "-" if r["rel_err"] is None else f"{r['rel_err']:.2e}"
-        bound = (f" {r['bound_ms'] / r['ms']:6.1%} of bound"
+        t = r.get("device_ms", r["ms"])
+        bound = (f" {r['bound_ms'] / t:6.1%} of bound"
                  if r.get("bound_ms") else "")
+        device = (f"device {r['device_ms']:9.4f} ms event "
+                  if "device_ms" in r else "")
         print(f"  {r['row']:16s} {r['dtype']:9s} {r['shape']:24s} "
-              f"{r['ms']:9.4f} ms {r['rate']:8.1f} {r['unit']:7s} "
+              f"{device}{r['ms']:9.4f} ms {r['rate']:8.1f} {r['unit']:7s} "
               f"rel_err {err}{bound}", flush=True)

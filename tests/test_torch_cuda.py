@@ -66,6 +66,7 @@ from rcdms_tpu_torch.ops.smallk import (
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 fa = importlib.import_module("rcdms_tpu_torch.ops.frame_attention")
+geglu_ops = importlib.import_module("rcdms_tpu_torch.ops.geglu")
 
 
 @pytest.fixture
@@ -465,6 +466,42 @@ def test_cuda_ff_tile_edges(cuda, rows, c, geglu):
     assert _rel(out, plain(*args)) <= TOL[torch.bfloat16]
     torch.cuda.synchronize()
     assert ops.launch_counts("story")[fn.__name__] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,bn", [
+    (mode, bn) for mode, widths in geglu_ops.LIBRARY_WIDTHS.items()
+    for bn in widths])
+@pytest.mark.parametrize("rows,c", [(1280, 1280), (970, 2048)])
+def test_cuda_ff_every_library_instance(cuda, mode, bn, rows, c):
+    """Every (mode, column tile) instance of the FF GEMM kernel, forced
+    through the plan override, against the plain version in bf16: C for
+    the geglu and bias tiles, D for the gelu tiles, at UNet level 2's FF
+    (1280 rows) and the prior's (970 rows, ragged against the 128-row
+    block); tiles of 96 and 192 leave a ragged column tail at every c."""
+    g = torch.Generator(cuda).manual_seed(6)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(
+            torch.bfloat16)
+
+    geglu = mode != "gelu"
+    inner = 4 * c
+    up = 2 * inner if geglu else inner
+    args = (r(rows, c), r(up, c, scale=c ** -0.5), r(up, scale=0.1),
+            r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    fn, plain = (geglu_ff, geglu_ff_plain) if geglu else (gelu_ff,
+                                                           gelu_ff_plain)
+    override = (None, bn) if mode == "bias" else (bn, None)
+    geglu_ops.set_plan_override(*override)
+    try:
+        plan = geglu_ops._plan(rows, c, inner, geglu)
+        assert plan["pass2" if mode == "bias" else "pass1"]["bn"] == bn
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        geglu_ops.set_plan_override(None)
+    assert _rel(out, plain(*args)) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.gpu
