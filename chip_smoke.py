@@ -25,14 +25,18 @@ Phases, in order; any failure raises and the exit code is nonzero:
    GN kernel timed beside the cluster kernel where it takes the shape),
    and the case's bound (its work at the card's published peaks); each
    bf16 B case must take B's tiled kernel (its launch count is printed),
-   each fp32 one the general kernel; A's share of bf16 outputs off the
-   plain version's bits is printed, and must be below 0.38 at UNet level
-   0 (A rounds P against the row's final maximum, as the TPU kernels);
-   A's bf16 rows (beside SDPA's device time) and H's four rows (softmax
-   over generated P, softmax, softmax2, reduce_only) also print their
-   device time (`torch.profiler`), which must not be under their bound
-   (every exponential on MUFU.EX2, or P read once and the output written
-   once): a share of the bound above 1.0 means work was left out; C and
+   each fp32 one the general kernel; A's and E's share of bf16 outputs
+   off the plain version's bits is printed, and A's must be below 0.38 at
+   UNet level 0 (A rounds P against the row's final maximum, as the TPU
+   kernels); A's bf16 rows (beside SDPA's device time), E's seven rows
+   (beside SDPA's at base128 and nt_t40; nt40's bound counts two
+   exponentials a score, its online l and p), the bf16 moments (beside
+   torch.var_mean's) and H's four rows (softmax over generated P,
+   softmax, softmax2, reduce_only) also print their device time
+   (`torch.profiler`, `tools.device_us`), which must not be under their
+   bound (every exponential on MUFU.EX2, or every byte read once and
+   written once): a share of the bound above 1.0 means work was left
+   out; C and
    D are timed beside the unfused pair (two cuBLAS products with the
    biases and the activation between them, `others_ms`); last, every
    (mode, column tile) instance of C/D's GEMM kernel, forced through the
@@ -509,40 +513,29 @@ def study_kernel_cases(r, dev, dtype):
 def smallk_kernel_cases(r, dev):
     """E-H at the small-head-dim studies' full shape (B = 80 batch-heads,
     Sq = Skv = 4096, dh = 40, 512-row cells), bf16: every whole-block row
-    of the two attention studies (E, SDPA beside base128), both score rows
-    (F), the PV rows over generated and over input P (G), the softmax rows
-    (H). Work counts what the inputs need: products as wide as their
+    of the two attention studies (E, with SDPA beside base128 and nt_t40;
+    rows, operands and work from `tools.smallk_device_times`), both score
+    rows (F), the PV rows over generated and over input P (G), the softmax
+    rows (H). Work counts what the inputs need: products as wide as their
     nonzero columns (base128's are zero past 40), one exponential a
     score."""
     from rcdms_tpu_torch.ops import smallk as sk
     from rcdms_tpu_torch.tools import flash_smallk_study as fs
+    from rcdms_tpu_torch.tools import smallk_device_times as sdt
 
     b, sq, skv, dh, cells = fs.B, fs.SQ, fs.SKV, fs.DH, fs.CELLS
-    qt, kt, vt = r(b, dh, sq), r(b, dh, skv), r(b, dh, skv)
-    tok = [F.pad(t.transpose(1, 2), (0, 128 - dh)).contiguous()
-           for t in (qt, kt, vt)]
     exps = b * sq * skv
-    block = (4 * exps * dh, exps, 4 * _nbytes(qt))
-    # SDPA beside base128 on its (80, 1, 4096, 128) tensors and beside
-    # nt_t40 on the unpadded (80, 1, 4096, 40) ones
-    sdpa = {"base128": [t.unsqueeze(1) for t in tok],
-            "nt_t40": [t.transpose(1, 2).contiguous().unsqueeze(1)
-                       for t in (qt, kt, vt)]}
+    qt, kt, vt = r(b, dh, sq), r(b, dh, skv), r(b, dh, skv)
+    tok, sdpa = sdt.operands(qt, kt, vt)
     cases = []
-    for label, kw in (("base128", dict(dk=128)), ("slice40", dict(dk=dh)),
-                      ("nt40", dict(norm="pre")), ("nt_t40", {}),
-                      ("split2", dict(split=2)), ("split4", dict(split=4)),
-                      ("dscore", dict(dscore=True))):
-        cm = "dk" not in kw
-        kw = ({"channel_major": True, "norm": "rounded", **kw} if cm
-              else {"norm": "post", **kw})
-        args = (qt, kt, vt) if cm else tok
+    for label, kw in sdt.rows(dh):
+        args = (qt, kt, vt) if kw.get("channel_major") else tok
         cases.append(Case(
             "smallk_attention", f"{label} {tuple(args[0].shape)}",
             lambda a=args, kw=kw: sk.smallk_attention(*a, fs.SCALE, **kw),
             lambda a=args, kw=kw: sk.smallk_attention_plain(*a, fs.SCALE,
                                                             **kw),
-            block,
+            sdt.work(qt, skv),
             (lambda t=sdpa[label]: F.scaled_dot_product_attention(
                 *t, scale=fs.SCALE)) if label in sdpa else None))
     out_bytes = b * sq * 128 * 4
@@ -620,24 +613,27 @@ def check_kernels(dev, card: str) -> dict:
                 rel = max(rel_err(o, p) for o, p in zip(out, ref))
             else:
                 err, rel = _max_diff(out, ref), rel_err(out, ref)
-            # A rounds P as its plain version: the share of bf16 outputs
-            # off the plain version's bits
+            # A and E round P as their plain versions: the share of bf16
+            # outputs off the plain version's bits
             bits_off = ((out != ref).float().mean().item()
-                        if name == "attention" and dtype == torch.bfloat16
-                        else None)
+                        if name in ("attention", "smallk_attention")
+                        and dtype == torch.bfloat16 else None)
             del out, ref
             ms, plain_ms = median_ms(case.kernel), median_ms(case.plain)
             lib_ms = None if case.library is None else median_ms(
                 case.library)
             others = {other: median_ms(fn) for other, fn in case.baselines}
             bound, bound_by = bound_ms(*case.work, dtype=dtype)
-            # A (bf16) and H: device time, which must not be under the
-            # bound; A's beside SDPA's
-            a_bf16 = name == "attention" and dtype == torch.bfloat16
+            # A (bf16), E, H and the moments (bf16): device time, which
+            # must not be under the bound; A's, E's and the moments' beside
+            # their library call's
+            beside = name in ("attention", "smallk_attention",
+                              "gn_moments") and dtype == torch.bfloat16
             device_ms = (sum(device_us(case.kernel).values()) / 1e3
-                         if a_bf16 or name == "attn_softmax" else None)
+                         if beside or name == "attn_softmax" else None)
             lib_device_ms = (sum(device_us(case.library).values()) / 1e3
-                             if a_bf16 else None)
+                             if beside and case.library is not None
+                             else None)
             row = dict(kernel=name, shape=label, dtype=str(dtype)[6:],
                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                        lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by,

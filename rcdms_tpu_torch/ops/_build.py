@@ -64,10 +64,10 @@ SIGNATURES = {
     # dtype, silu, x, scale, bias, y, B, N, C, groups, eps, stream
     "rcdms_group_norm_act_slab": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _P],
-    # cm, norm, split, dscore, q, k, v, o, B, Sq, Skv, W, dk, scale, smem,
-    # stream
+    # cm, norm, split, dscore, q, k, v, o, B, Sq, Skv, W, dk, scale, dp,
+    # nv, bn, stages, smem, stream
     "rcdms_smallk_attention": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _I, _P],
+                               _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # cm, kp, stages, smem, q, k, out, B, Sq, Skv, dk, stream
     "rcdms_attn_scores": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # vlayout, n, stages, smem, seeds, p, v, out, B, Sq, Skv, blk, dh,

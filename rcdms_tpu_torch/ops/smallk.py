@@ -24,7 +24,7 @@ level 0: B = 80 batch-heads, 4096 x 4096 tokens, dh = 40, bf16):
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches `csrc/smallk_attention.cu` (E,
-`mma.sync`, with the launch plan of `_plan`) or `csrc/attn_parts.cu` (F
+TMA + `wgmma`, with the launch plan of `_plan`) or `csrc/attn_parts.cu` (F
 and G on TMA + `wgmma`, with the plans of `_scores_plan` and `_pv_plan`;
 H, a row of P read by one TMA bulk copy or generated once a block and
 shared by the warps of its cells, one FFMA and one MUFU.EX2 an element,
@@ -99,32 +99,60 @@ def _check_smallk(q, k, v, channel_major, dk, norm, split, dscore) -> int:
     return dk
 
 
+E_QUERIES = 128       # queries a block: two consumer warpgroups of 64
+E_MAX_STAGES = 4
+E_CM_ROWS = 48        # channel-major box rows: dh padded to k48 by TMA
+E_SPLITS = (1, 2, 4)  # the kernel's schedules: base, ping-pong, + overlap
+
+
 def _plan(channel_major: bool, dk: int, split: int, dscore: bool) -> dict:
-    """Launch plan of E's `mma.sync` kernel: a block of `bq` = 128 queries
-    in `threads` / 32 warps of `split` m16 row tiles each
-    (`rows_per_warp`); the score contracting `dp` columns (dk padded to
-    48, or 128 token-major); `n_tiles` n8 output tiles a row tile (the 128
-    token-major columns, or dk / 8 rounded up to 5 or 6 channel-major); and
-    the block's shared memory (`smem`): the Q tile and two stages of K and
-    V tiles of `kv_tile` keys, token-major rows (or channel-major rows of
-    128 / 64 tokens) 8 bf16 longer than their data, plus dscore's 128
-    fp32 row maxima. Raises ValueError for operands the kernel does not
-    take."""
-    if dk <= 0 or dk % 8 or dk > (48 if channel_major else 128):
-        raise ValueError(f"smallk_attention: the kernel takes dk a multiple "
-                         f"of 8 up to {48 if channel_major else 128}, got "
-                         f"{dk}")
-    bq, kv, width = 128, 64, 128
-    dp = 48 if dk <= 48 else 128
+    """Launch plan of E's TMA + `wgmma` kernel (blocks of E_QUERIES
+    queries in two consumer warpgroups, and a producer warpgroup): the
+    score contracting `dp` columns (dk padded to 48, or 128 token-major;
+    channel-major boxes of 48 rows of 64 tokens, rows past dh TMA's
+    zeros); `nv` the width of P V (channel-major n40 for dk <= 40, else
+    n48; dscore 64, V^T's rows padded to wgmma's M; token-major 128); `bn`
+    keys a tile (128 channel-major, 64 token-major); the ring of `stages`
+    K and V tiles (`stage_bytes` each), the most of at most four that fit;
+    and the block's shared memory (`smem`): 1024 bytes to align, the Q
+    tiles, a 1024-byte tile of ones, dscore's four P^T buffers (bn keys x
+    64 queries), the ring, dscore's 128 fp32 a query, the full and empty
+    mbarriers of each stage and Q's. The C entry takes dp, nv, bn, stages
+    and smem and refuses any that differ from the instance's. Raises
+    ValueError for operands the kernel does not take."""
+    if split not in E_SPLITS or (dscore and (split != 1
+                                             or not channel_major)):
+        raise ValueError(f"smallk_attention: no kernel schedule for split "
+                         f"{split}, dscore {dscore}, channel_major "
+                         f"{channel_major}")
     if channel_major:
-        n_tiles = 5 if dk <= 40 else 6
-        smem = 2 * (dp * (bq + 8) + 4 * dp * (kv + 8)) + (4 * bq if dscore
-                                                           else 0)
+        if dk <= 0 or dk % 8 or dk > E_CM_ROWS:
+            raise ValueError(f"smallk_attention: the kernel takes channel-"
+                             f"major dh a multiple of 8 up to {E_CM_ROWS}, "
+                             f"got {dk}")
+        dp, bn = E_CM_ROWS, 128
+        nv = 64 if dscore else (40 if dk <= 40 else 48)
+        q_tile = k_box = E_CM_ROWS * 128   # a warpgroup's Q; 64 keys of K
+        k_tile, v_box = 2 * k_box, (64 if dscore else E_CM_ROWS) * 128
     else:
-        n_tiles = width // 8
-        smem = 2 * ((bq + 2 * kv) * (dp + 8) + 2 * kv * (width + 8))
-    return dict(bq=bq, kv_tile=kv, dp=dp, n_tiles=n_tiles,
-                rows_per_warp=16 * split, threads=32 * 8 // split, smem=smem)
+        if dk <= 0 or dk % 8 or (48 < dk != GROUP):
+            raise ValueError(f"smallk_attention: the kernel takes token-"
+                             f"major dk a multiple of 8 up to 48, or "
+                             f"{GROUP}, got {dk}")
+        dp, bn, nv = (48 if dk <= 48 else GROUP), 64, GROUP
+        boxes = -(-dp // 64)
+        q_tile, k_tile, v_box = boxes * 64 * 128, boxes * bn * 128, bn * 128
+    stage = k_tile + 2 * v_box
+    fixed = 1024 + 2 * q_tile + 1024 + (4 * bn * 128 if dscore else 0)
+
+    def smem(stages):
+        return (fixed + stages * stage + (4 * E_QUERIES if dscore else 0)
+                + 8 * (2 * stages + 1))
+
+    stages = max(n for n in range(2, E_MAX_STAGES + 1)
+                 if smem(n) <= SMEM_MAX)
+    return dict(dp=dp, nv=nv, bn=bn, stages=stages, stage_bytes=stage,
+                smem=smem(stages))
 
 
 # ---- F and G: the TMA + wgmma tile kernels' plans --------------------------
@@ -305,13 +333,17 @@ def smallk_attention(q, k, v, scale: float, *, channel_major=False, dk=None,
                          f"{tuple(k.shape)}, dk {dk}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("smallk_attention: the kernel takes 16-byte "
-                         "aligned q, k, v")
+                         "aligned q, k, v (TMA)")
+    if bsz > 65535:
+        raise ValueError(f"smallk_attention: batch {bsz} past the grid's "
+                         f"65535")
     plan = _plan(channel_major, dk, split, dscore)
     out = torch.empty_like(q)
     code = _build.library().lib.rcdms_smallk_attention(
         int(channel_major), NORMS[norm], split, int(dscore), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, sq, skv, width, dk,
-        float(scale), plan["smem"], _build.stream(q))
+        float(scale), plan["dp"], plan["nv"], plan["bn"], plan["stages"],
+        plan["smem"], _build.stream(q))
     _build.check(code, "rcdms_smallk_attention")
     smallk_attention.launches += 1
     return out

@@ -23,7 +23,9 @@ products) time each row both ways, device time first (`device_row`):
     python -m rcdms_tpu_torch.tools.int8_study
 
 `conv_device_times` prints the conv kernel's device time by kernel beside
-cuDNN's, `gn_device_times` the fused GroupNorm's beside the first port's
+cuDNN's, `smallk_device_times` kernel E's at the studies' seven rows
+beside SDPA's (a parent checkout's in turns with `--parent`),
+`gn_device_times` the fused GroupNorm's beside the first port's
 kernel and F.group_norm, and `gn_cluster_study` the fused GroupNorm's at
 every launch plan and with one part of it changed, from `torch.profiler`
 (`device_us` here).
@@ -45,8 +47,13 @@ previous layer has just written it.
 from __future__ import annotations
 
 import collections
+import json
+import os
 import statistics
 import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -195,6 +202,47 @@ def device_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
                 ms=ms, device_ms=device_ms, rate=flops / device_ms / 1e9,
                 unit="TFLOP/s", rel_err=err, bound_ms=bound,
                 bound_by=bound_by, kernels=kernels, **extra)
+
+
+def turns(parent: str, command: list[str], key: tuple[str, ...],
+          keep=None) -> list[dict]:
+    """A parent checkout's kernels timed in turns with this one's on one
+    card: parent, change, change, parent, each `python <command> --out
+    <file>` in a process of its own from that checkout's root with that
+    checkout on the path (`command` is `["-m", module]` to run each
+    checkout's own module, or a script's path to run one file in both, so
+    a parent without it is timed too). Each turn's `rows` (those `keep`
+    takes, if given) are matched to the change's by the fields of `key`;
+    prints each row's device times side by side, the parent / change
+    ratio and the change's share of the row's bound, and returns the
+    turns."""
+    here = str(Path(__file__).resolve().parents[2])
+    parent = str(Path(parent).resolve())
+    out = []
+    for label, root in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rows.json")
+            print(f"turn {len(out) + 1}: {label} ({root})", flush=True)
+            subprocess.run([sys.executable, *command, "--out", path],
+                           cwd=root, check=True,
+                           env={**os.environ, "PYTHONPATH": root})
+            with open(path) as fh:
+                rows = [r for r in json.load(fh)["rows"]
+                        if keep is None or keep(r)]
+            out.append(dict(label=label, root=root, rows=rows))
+    print("device ms a call, parent / change / change / parent:", flush=True)
+    for row in out[1]["rows"]:
+        times = [next(r["device_ms"] for r in t["rows"]
+                      if all(r[f] == row[f] for f in key)) for t in out]
+        parents, changes = times[::3], times[1:3]
+        shares = [row["bound_ms"] / t for t in changes]
+        print("  " + " ".join(f"{row[f]:12s}" for f in key) + " "
+              + " / ".join(f"{t:.4f}" for t in times)
+              + f"  parent / change {min(parents) / max(changes):.2f}-"
+              f"{max(parents) / min(changes):.2f}x  change "
+              f"{min(shares):.1%}-{max(shares):.1%} of bound", flush=True)
+    return out
 
 
 def print_rows(rows: list[dict]) -> None:

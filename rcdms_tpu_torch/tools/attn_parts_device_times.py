@@ -26,11 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
-import sys
-import tempfile
-from pathlib import Path
 
 import torch
 
@@ -49,6 +44,7 @@ from rcdms_tpu_torch.tools import (
     median_ms,
     rel_err,
     require_cuda,
+    turns,
 )
 
 B, SQ, SKV, DH, GROUP, BLK = 80, 4096, 4096, 40, 128, 512
@@ -136,41 +132,6 @@ def run(dev: torch.device, only: str | None = None) -> list[dict]:
     return out
 
 
-def turns(parent: str, only: str | None) -> list[dict]:
-    """Parent, change, change, parent: each checkout's own module in a
-    process of its own from its root, with that checkout on the path;
-    prints each variant's device times side by side (kernel `only`'s, if
-    given) and returns the turns."""
-    here = str(Path(__file__).resolve().parents[2])
-    parent = str(Path(parent).resolve())
-    out = []
-    for label, root in (("parent", parent), ("change", here),
-                        ("change", here), ("parent", parent)):
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "rows.json")
-            print(f"turn {len(out) + 1}: {label} ({root})", flush=True)
-            subprocess.run([sys.executable, "-m", MODULE, "--out",
-                            path], cwd=root, check=True,
-                           env={**os.environ, "PYTHONPATH": root})
-            with open(path) as fh:
-                rows = [r for r in json.load(fh)["rows"]
-                        if only is None or r["kernel"] == only]
-            out.append(dict(label=label, root=root, rows=rows))
-    print("device ms a call, parent / change / change / parent:", flush=True)
-    for i, row in enumerate(out[1]["rows"]):
-        key = (row["kernel"], row["variant"])
-        times = [next(r["device_ms"] for r in t["rows"]
-                      if (r["kernel"], r["variant"]) == key) for t in out]
-        parents, changes = times[::3], times[1:3]
-        shares = [row["bound_ms"] / t for t in changes]
-        print(f"  {row['kernel']:12s} {row['variant']:12s} "
-              + " / ".join(f"{t:.4f}" for t in times)
-              + f"  parent / change {min(parents) / max(changes):.2f}-"
-              f"{max(parents) / min(changes):.2f}x  change "
-              f"{min(shares):.1%}-{max(shares):.1%} of bound", flush=True)
-    return out
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the rows (or turns) here as JSON")
@@ -184,7 +145,10 @@ def main() -> None:
         raise SystemExit("attn_parts_device_times: needs a CUDA card")
     card = card_line()
     if args.parent:
-        result = dict(card=card, turns=turns(args.parent, args.kernel))
+        result = dict(card=card, turns=turns(
+            args.parent, ["-m", MODULE], ("kernel", "variant"),
+            None if args.kernel is None
+            else lambda r: r["kernel"] == args.kernel))
     else:
         print(f"{card}  B={B} Sq={SQ} Skv={SKV} dh={DH} blk={BLK}, bf16: "
               f"device ms a call (torch.profiler), event ms (median of 10)",

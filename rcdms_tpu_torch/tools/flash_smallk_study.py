@@ -9,7 +9,7 @@ The rows ask what the layout and the padding of dh cost there:
   base128     a whole block over (B, S, 128) operands zero past 40, the
               score contracting all 128 columns (kernel E)
   slice40     the same operands, the score contracting the first 40 (padded
-              to 48 in shared memory only)
+              to 48 by the TMA box's zeros, not in device memory)
   nt40        channel-major (B, 40, S) operands and output, p normalised
               before it is rounded to bf16
   nt_t40      channel-major, l the sum of the rounded p, o scaled after the

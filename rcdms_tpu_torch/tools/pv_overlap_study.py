@@ -4,18 +4,24 @@ batch-heads, 4096 x 4096 tokens, dh = 40, channel-major (B, 40, S)
 operands, bf16).
 
 The TPU study asked whether the exponentials of one part of a q block can
-hide behind the P.V product of another. On the H100 the question becomes
-whether the instructions of the two, interleaved inside a warp, overlap
-(the question FlashAttention-3's ping-pong schedule answers across warps).
-Every row is kernel E with p = bf16(exp(s - m)), l the sum of the rounded
-p, o = (p v) * (1 / l):
+hide behind the P.V product of another. On the H100 the products are
+asynchronous wgmma and the exponentials MUFU.EX2, so the question becomes
+which products run while a warpgroup takes its exponentials. Every row is
+kernel E (TMA + wgmma, two consumer warpgroups of 64 queries) with p =
+bf16(exp(s - m)), l the sum of the rounded p, o = (p v) * (1 / l):
 
-  base     one 16-query sub-block a warp
-  split2   2 sub-blocks a warp: all score tiles first, then exp of one
-           beside the P.V product of the other
-  split4   4 sub-blocks a warp, the same interleaving
+  base     no overlap: a warpgroup issues its products, waits for them,
+           then takes a key tile's exponentials
+  split2   the two warpgroups take turns to issue their products, so one's
+           exponentials run beside the other's products (ping-pong)
+  split4   the ping-pong, and each warpgroup issues its next tile's score
+           product and this tile's P.V before this tile's exponentials
   dscore   the score computed twice: s for the row max, s^T = k q^T for
-           p^T, the product then V^T P^T
+           p^T, staged in shared memory (wgmma's B operand), the product
+           then V^T P^T
+
+The split rows change only the schedule: their outputs equal base's bit
+for bit.
 
 Each row is held to the JAX study's own check: max|row - oracle| <= 0.02
 against the fp32 oracle softmax(q^T k * scale) v (`oracle`); a row outside

@@ -47,6 +47,7 @@ from rcdms_tpu_torch.tools import attn_parts_device_times as apdt
 from rcdms_tpu_torch.tools import flash_smallk_study as pfs
 from rcdms_tpu_torch.tools import pv_overlap_study as pos
 from rcdms_tpu_torch.tools import pv_softmax_study as pps
+from rcdms_tpu_torch.tools import smallk_device_times as sdt
 from rcdms_tpu_torch.tools.sass_mix import inner_loops, instruction_mix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -427,6 +428,20 @@ def test_attn_parts_device_times_import_does_no_work():
     _import_quietly("attn_parts_device_times")
 
 
+def _main_with_parent(monkeypatch, tool, tmp_path, *flags):
+    """Run a timing tool's `main` with `--parent` as on a card (the card's
+    presence and line faked); returns the JSON it wrote."""
+    out = tmp_path / "turns.json"
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tool, "card_line", lambda: "card")
+    monkeypatch.setattr(sys, "argv", [tool.__file__, "--parent",
+                                      str(tmp_path / "parent"), "--out",
+                                      str(out), *flags])
+    tool.main()
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def test_attn_parts_device_times_turns_run_each_checkouts_own_module(
         monkeypatch, tmp_path):
     """`--parent`: parent, change, change, parent, each that checkout's own
@@ -452,8 +467,9 @@ def test_attn_parts_device_times_turns_run_each_checkouts_own_module(
         with open(cmd[cmd.index("--out") + 1], "w") as fh:
             json.dump(dict(card="card", rows=rows), fh)
 
-    monkeypatch.setattr(apdt.subprocess, "run", fake_run)
-    out = apdt.turns(str(parent), "attn_softmax")
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    out = _main_with_parent(monkeypatch, apdt, tmp_path, "--kernel",
+                            "attn_softmax")["turns"]
     assert [t["label"] for t in out] == ["parent", "change", "change",
                                          "parent"]
     assert [c[1] for c in calls] == [str(parent), REPO, REPO, str(parent)]
@@ -461,6 +477,83 @@ def test_attn_parts_device_times_turns_run_each_checkouts_own_module(
         assert cmd[1:3] == ["-m", apdt.MODULE] and path == cwd
     assert [r["variant"] for r in out[0]["rows"]] == ["softmax",
                                                       "softmax gen"]
+
+
+def test_smallk_device_times_refuses_the_cpu():
+    """E's timing tool measures the card: no CPU path."""
+    with pytest.raises(RuntimeError):
+        sdt.run(torch.device("cpu"))
+
+
+def test_smallk_device_times_import_does_no_work():
+    _import_quietly("smallk_device_times")
+
+
+def test_smallk_device_times_rows_are_the_studies():
+    """The seven rows are the studies' whole-block variants, as the
+    wrapper takes them, and nt40 alone is "pre"."""
+    assert [name for name, _ in sdt.ROWS] == [
+        "base128", "slice40", "nt40", "nt_t40", "split2", "split4",
+        "dscore"]
+    for name, kw in sdt.ROWS:
+        key = (kw.get("channel_major", False), kw["norm"],
+               kw.get("split", 1), kw.get("dscore", False))
+        assert key in sk.SMALLK_VARIANTS, name
+        assert (kw["norm"] == "pre") == (name == "nt40")
+
+
+def test_smallk_device_times_turns_run_this_file_in_each_checkout(
+        monkeypatch, tmp_path):
+    """`--parent`: parent, change, change, parent, each this file run by
+    path from that checkout's root with that checkout on the path (a
+    parent without the tool is timed the same way), its rows matched to
+    the change's by name whatever their order."""
+    parent = tmp_path / "parent"
+    parent.mkdir()
+    calls = []
+
+    def fake_run(cmd, cwd, check, env):
+        calls.append((cmd, cwd, env["PYTHONPATH"]))
+        ms = 1.3 if cwd == str(parent) else 0.9
+        rows = [dict(row="nt_t40", device_ms=ms, bound_ms=0.32),
+                dict(row="base128", device_ms=3 * ms, bound_ms=0.32)]
+        with open(cmd[cmd.index("--out") + 1], "w") as fh:
+            json.dump(dict(card="card", rows=rows[::1 if ms > 1 else -1]),
+                      fh)
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    out = _main_with_parent(monkeypatch, sdt, tmp_path)["turns"]
+    assert [t["label"] for t in out] == ["parent", "change", "change",
+                                         "parent"]
+    assert [c[1] for c in calls] == [str(parent), REPO, REPO, str(parent)]
+    for cmd, cwd, path in calls:
+        assert cmd[1] == os.path.abspath(sdt.__file__) and path == cwd
+    assert [r["row"] for r in out[0]["rows"]] == ["nt_t40", "base128"]
+
+
+@pytest.mark.parametrize("dh", [16, 40, 48])
+def test_smallk_device_times_operands_and_work(dh):
+    """The token-major copies are the channel-major operands transposed
+    and zero past dh to 128 columns; SDPA's are base128's tensors and the
+    unpadded ones; the work is what phase 3 bounds every row by: the score
+    and P V products at dh, one exponential a score (nt40's second is the
+    two-pass design's own), q, k, v read and o written once."""
+    g = torch.Generator().manual_seed(dh)
+    b, sq, skv = 3, 128, 64
+    qt, kt, vt = (torch.randn(b, dh, s, generator=g).bfloat16()
+                  for s in (sq, skv, skv))
+    tok, sdpa = sdt.operands(qt, kt, vt)
+    for t, c in zip(tok, (qt, kt, vt)):
+        assert t.shape == (b, c.shape[2], sdt.WIDTH) and t.is_contiguous()
+        assert torch.equal(t[..., :dh], c.transpose(1, 2))
+        assert not t[..., dh:].any()
+    assert set(sdpa) == set(sdt.SDPA_ROWS)
+    assert all(torch.equal(s[:, 0], t) for s, t in zip(sdpa["base128"], tok))
+    assert all(torch.equal(s[:, 0], c.transpose(1, 2))
+               for s, c in zip(sdpa["nt_t40"], (qt, kt, vt)))
+    assert sdt.work(qt, skv) == (4 * b * sq * skv * dh, b * sq * skv,
+                                 4 * b * dh * sq * 2)
+    assert [kw.get("dk") for _, kw in sdt.rows(dh)][:2] == [sdt.WIDTH, dh]
 
 
 _SASS = """

@@ -3,7 +3,7 @@
 `rcdms_tpu_torch/ops/flash.py::_plan` (kernel A, TMA + `wgmma` attention),
 `rcdms_tpu_torch/ops/geglu.py::_plan` (kernels C and D, two TMA + `wgmma`
 GEMM passes), `rcdms_tpu_torch/ops/smallk.py::_plan` (kernel E, the
-studies' whole attention block on `mma.sync`) and
+studies' whole attention block on TMA + `wgmma`) and
 `rcdms_tpu_torch/ops/cm_conv.py::_plan` (the bf16 3x3 conv, an implicit
 GEMM on TMA + `wgmma`) and `rcdms_tpu_torch/ops/frame_attention.py::_plan`
 (kernel B's tiled bf16 kernel: TMA bulk copies, one thread a (token, head,
@@ -180,31 +180,48 @@ def test_ff_plan_refuses(rows, c, inner):
 
 
 # kernel E: (channel_major, dk, split, dscore, smem bytes) of every row of
-# the attention studies at dh 40, and the widest dk of each layout. Bytes:
-# token-major Q (128 rows) and two stages of K (64 rows) of dp + 8 bf16,
-# two stages of V (64 rows of 136); channel-major Q (dp rows of 136 bf16)
-# and two stages of K and V (dp rows of 72), dscore 512 more for its 128
-# fp32 row maxima.
+# the attention studies at dh 40, and the widest dk of each layout. Bytes
+# (1024 to align, then 1024-aligned 128-byte swizzled boxes): token-major
+# Q (two warpgroups of one or two [64 rows][64 columns] boxes), channel-
+# major Q (two [48 rows][64 tokens] boxes); the 1024-byte tile of ones;
+# dscore's four P^T buffers (128 keys x 64 queries); four ring stages (K,
+# then V's two boxes: token-major [64 keys][64 columns], channel-major
+# [48 rows][64 keys], dscore's 64 rows); dscore's 128 fp32; the full and
+# empty mbarriers of the four stages and Q's.
 SMALLK_PLANS = [
-    (False, 128, 1, False, 104448), (False, 40, 1, False, 63488),
-    (False, 48, 1, False, 63488), (True, 40, 1, False, 40704),
-    (True, 40, 2, False, 40704), (True, 40, 4, False, 40704),
-    (True, 40, 1, True, 41216), (True, 48, 1, True, 41216)]
+    (False, 128, 1, False, 165960), (False, 40, 1, False, 116808),
+    (False, 48, 1, False, 116808), (True, 40, 1, False, 112712),
+    (True, 40, 2, False, 112712), (True, 40, 4, False, 112712),
+    (True, 40, 1, True, 195144), (True, 48, 1, True, 195144)]
 
 
 @pytest.mark.parametrize("cm,dk,split,dscore,smem", SMALLK_PLANS)
 def test_smallk_plan(cm, dk, split, dscore, smem):
+    """Shared memory within the H100's 227 KB and as the kernel lays it
+    out (the bytes above), with a ring as deep as fits, up to four stages;
+    TMA's boxes (64 elements = 128 bytes innermost, the 128-byte swizzle's
+    span; at most 256 a dimension; 1024-byte aligned stages); a CTA of 128
+    queries in two consumer warpgroups of 64 (wgmma's M); wgmma's shapes
+    (the score n = bn, P V n = nv, multiples of 8 up to 256, k16 steps
+    over dp and bn)."""
     plan = smallk._plan(cm, dk, split, dscore)
+    assert set(plan) == {"dp", "nv", "bn", "stages", "stage_bytes", "smem"}
     assert plan["smem"] == smem <= SMEM_LIMIT
-    assert plan["bq"] == 128 and plan["kv_tile"] == 64
-    assert plan["dp"] == (48 if dk <= 48 else 128)
-    assert plan["rows_per_warp"] == 16 * split
-    assert plan["threads"] * plan["rows_per_warp"] == 32 * plan["bq"]
-    if cm:  # the output's n8 tiles cover dk inside the padded width
-        assert dk <= 8 * plan["n_tiles"] <= plan["dp"]
-        assert plan["n_tiles"] == (5 if dk <= 40 else 6)
-    else:   # V and o are 128 wide
-        assert plan["n_tiles"] == 16
+    assert smallk.E_QUERIES == 2 * 64
+    assert plan["dp"] == (48 if dk <= 48 else 128) and plan["dp"] % 16 == 0
+    assert plan["bn"] % 16 == 0 and plan["nv"] % 8 == 0
+    assert 8 <= plan["bn"] <= 256 and 8 <= plan["nv"] <= 256
+    assert plan["stage_bytes"] % 1024 == 0
+    assert 2 <= plan["stages"] <= smallk.E_MAX_STAGES
+    # one stage more: its tiles and its two mbarriers
+    assert plan["stages"] == smallk.E_MAX_STAGES \
+        or plan["smem"] + plan["stage_bytes"] + 16 > SMEM_LIMIT
+    if cm:  # boxes of 48 rows (dh padded to k48 by TMA's zeros)
+        assert smallk.E_CM_ROWS == 48 and plan["bn"] == 128
+        assert plan["nv"] == (64 if dscore else 40 if dk <= 40 else 48)
+        assert dscore or dk <= plan["nv"] <= 48  # the output's columns
+    else:   # V and o are 128 wide, in boxes of 64 rows
+        assert plan["bn"] == 64 and plan["nv"] == 128 and not dscore
 
 
 @pytest.mark.parametrize("cm,dk", [(True, 0), (True, 44), (True, 56),
