@@ -228,6 +228,21 @@ Phases, in order; any failure raises and the exit code is nonzero:
    in the int8 convs' activation quantization, and prints each one's SSIM
    min and latent relative RMS to bf16: the readings (a)'s limits sit
    between (PERF.md). Rows go to chiprun_out/chip_smoke_int8_faults.json.
+14. the bench entry points (`rcdms_tpu_torch/bench.py`,
+   `rcdms_tpu_torch/tools/profile_bench.py`): (a) stage 2 at full width
+   in-process through `bench.run` (bf16, seeded random weights, 20 steps,
+   2 timed calls): its JSON line finite with the card's keys, its value
+   5 / p50, each timed call launching A 1200, B 1600 (all tiled), C 1440,
+   D 0; (b) `--full-pipeline`: each call one story's launches (A 1248,
+   B 2400, C 1840, D 400); (c) `--train-step` with bf16 and with fp32
+   parameters: the loss finite, each step launching phase 9's forward
+   launches, the peak memory printed; (d) `--attn plain --steps 2`: no
+   kernel launched in the whole run; `--attn kernel` at (a)'s settings:
+   (a)'s B, C and D launches and more of A, its p50 printed beside (a)'s;
+   (e) `python -m rcdms_tpu_torch.bench --tiny` and `python -m
+   rcdms_tpu_torch.tools.profile_bench --tiny` in processes of their own
+   on the card: rc 0, their JSON lines parsed and finite. The phase
+   prints its seconds; rows go to chiprun_out/chip_smoke_bench.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
@@ -235,8 +250,9 @@ again, phase 8 the story's in the served requests, phase 9 the story's in
 each training step and encode, phase 10 the story's in each CLI run,
 phase 11 the story's in each rank's run, phase 12 the story's in (a)'s
 run and in each rank's request, phase 13 the story's in each sampler run
-and in the inversion: each path's counts are set to 0 just before it and
-read just after.
+and in the inversion, phase 14 the story's in each timed call of a bench
+mode and in (d)'s whole run: each path's counts are set to 0 just before
+it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
@@ -244,7 +260,8 @@ CLI run, encodes included; `dp_launches`: phase 11's, each rank's 2-step
 run; `shard_launches`: phase 12's, (a)'s run and each rank's request in (b)
 (`rank<r>`), (c) (`c_rank<r>`) and (d) (`d_rank<r>`);
 `quality_launches`: phase 13's, each sampler run of (a) and (b)'s
-inversion);
+inversion; `bench_launches`: phase 14's, the first timed call of each
+bench mode, "kernel" included, and "plain": (d)'s whole run);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -1036,61 +1053,24 @@ def run_story(configs, dev, dtype, steps: int, pixels: int) -> dict:
                 profile=profile, request1=request1)
 
 
-# profiler groups of a story's kernels: (group, substrings of the kernel
-# name), the first match wins; "other" takes the rest (cuBLAS products,
-# norms, elementwise PyTorch kernels, copies)
-KERNEL_GROUPS = (
-    ("C/D", ("ff_gemm_kernel", "rcdms::(anonymous namespace)::ff_kernel")),
-    ("B", ("frame_attention_kernel", "frame_attention_tiled_kernel")),
-    ("A", ("attention_wgmma_kernel",
-           "rcdms::(anonymous namespace)::attention_kernel")),
-    ("cuDNN", ("cudnn", "fprop", "implicit_gemm", "winograd")),
-)
-
-
-def kernel_group(name: str) -> str:
-    for group, keys in KERNEL_GROUPS:
-        if any(k in name for k in keys):
-            return group
-    return "other"
-
-
 def profile_request(pipe, req, cache, dev, seed: int) -> dict:
     """One request under torch.profiler: the device time of every kernel
-    and copy, summed by name and by group (KERNEL_GROUPS); prints each
-    group's seconds and share of the request's device time and writes
-    them, with the 15 longest names, to chip_smoke_story_profile.json."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    and copy, summed by name and by group (`tools.KERNEL_GROUPS`); prints
+    each group's seconds and share of the request's device time and
+    writes them, with the 15 longest names, to
+    chip_smoke_story_profile.json."""
+    from rcdms_tpu_torch.tools import group_profile, profile_call
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.generate(req, cache, torch.Generator(dev).manual_seed(seed))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() * 1e-6)
-    device = sum(by_name.values())
-    if device <= 0:
-        raise AssertionError("the profiler saw no device time")
-    groups = dict.fromkeys(("A", "B", "C/D", "cuDNN", "other"), 0.0)
-    for name, sec in by_name.items():
-        groups[kernel_group(name)] += sec
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    result = dict(wall_s=wall, device_s=device,
-                  groups={g: dict(s=sec, share=sec / device)
-                          for g, sec in groups.items()},
-                  top=[dict(name=n[:160], s=sec) for n, sec in top])
+    result = group_profile(profile_call(
+        lambda: pipe.generate(req, cache,
+                              torch.Generator(dev).manual_seed(seed)),
+        dev), 15, dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_story_profile.json"),
               "w") as fh:
         json.dump(result, fh, indent=1)
-    print(f"story profile: one request {wall:.3f} s wall (profiled), "
-          f"{device:.3f} s device: " + ", ".join(
+    print(f"story profile: one request {result['wall_s']:.3f} s wall "
+          f"(profiled), {result['device_s']:.3f} s device: " + ", ".join(
               f"{g} {v['s']:.3f} s ({v['share']:.1%})"
               for g, v in result["groups"].items()), flush=True)
     return result
@@ -1341,12 +1321,9 @@ def _serve_args(*extra):
 
 
 def _story_counts() -> dict:
-    from rcdms_tpu_torch import ops
-    from rcdms_tpu_torch.ops.frame_attention import frame_attention
+    from rcdms_tpu_torch.bench import story_counts
 
-    counts = ops.launch_counts("story")
-    counts["frame_attention_tiled"] = frame_attention.tiled_launches
-    return counts
+    return story_counts()
 
 
 def serve_requests(url: str, frame0) -> list:
@@ -3300,6 +3277,175 @@ def run_quality(dev, card: str) -> dict:
     return result
 
 
+# ---- phase 14: the bench entry points ---------------------------------------
+
+# launches of one full-width two-stage story (phase 5's request, with the
+# CondCache): A, the UNet's 1200 and the bigG vision tower's 48 layers at
+# 257 tokens; B, the UNet's 1600 and the prior's 800 temporal layers
+# (20 steps x 2 CFG x 20); C, the UNet's 1440 and the prior's temporal
+# FFs' 400; D, the prior's 10 spatial FFs (20 steps x 2 CFG x 10)
+STORY_CALL = {"attention": 1248, "frame_attention": 2400, "geglu_ff": 1840,
+              "gelu_ff": 400}
+BENCH_REPEATS = 2  # timed calls of each in-process bench mode
+BENCH_TIMEOUT_S = 300  # a subprocess of (e), its build load included
+
+
+def _check_bench_line(line: dict, metric: str, where: str) -> None:
+    """The bench's JSON line: its metric, every number finite, and the
+    card's keys set."""
+    if line["metric"] != metric:
+        raise AssertionError(f"{where}: metric {line['metric']}")
+    _finite_numbers(line, where)
+    missing = [k for k in ("device_name", "power_limit_w", "gb_in_use",
+                           "peak_gb_in_use", "gb_limit") if line[k] is None]
+    if line["backend"] != "cuda" or missing:
+        raise AssertionError(f"{where}: backend {line['backend']}, keys "
+                             f"without a value {missing}")
+
+
+def _check_calls(launches: list, want: dict, where: str) -> None:
+    """Every timed call launched `want` of each story kernel, and every B
+    launch took the tiled kernel."""
+    if len(launches) != BENCH_REPEATS:
+        raise AssertionError(f"{where}: {len(launches)} timed calls counted")
+    for i, counts in enumerate(launches):
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{where}: call {i} launched {got}, not "
+                                 f"{want}")
+        _check_tiled_b(counts, f"{where} (call {i})")
+
+
+def _bench(argv: list, where: str, per_call: bool = True):
+    """`bench.run(argv)` in this process; returns its line and, with
+    `per_call`, each timed call's launches (else None, and the counts
+    run on over the whole run), the card's memory released after."""
+    import gc
+
+    from rcdms_tpu_torch import bench
+
+    launches = [] if per_call else None
+    t0 = time.perf_counter()
+    line = bench.run(argv, launches)
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bench: {where} ({' '.join(argv)}) in {seconds:.1f} s: "
+          f"{json.dumps(line)}", flush=True)
+    return line, launches
+
+
+def _bench_subprocess(module: str, where: str) -> dict:
+    """`python -m <module> --tiny` on the card in a process of its own: rc
+    0, and its last line parsed."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--tiny"], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{where}: rc {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    _finite_numbers(line, where)
+    print(f"bench: {where} in {seconds:.1f} s: "
+          f"{proc.stdout.strip().splitlines()[-1][:600]}", flush=True)
+    return dict(line=line, seconds=seconds)
+
+
+def run_bench(card: str, step_launches: dict) -> dict:
+    """Phase 14: `rcdms_tpu_torch/bench.py` and `tools/profile_bench.py`
+    on the card. (a) stage 2 at full width through `bench.run`, 20 steps:
+    value 5 x batch / p50, each timed call 40 UNet calls' launches (A
+    1200, B 1600 all tiled, C 1440, D 0); (b) `--full-pipeline`: each call
+    one story's (`STORY_CALL`); (c) `--train-step` with bf16 and with fp32
+    parameters: each step phase 9's forward launches (`step_launches`),
+    the peak memory printed; (d) `--attn plain --steps 2`: no launch in
+    the whole run (counts set to 0 before it, read after), and `--attn
+    kernel` at (a)'s settings: each timed call (a)'s B, C and D launches
+    and more A launches than (a)'s (the sites under 256 queries), its p50
+    printed beside (a)'s; (e) `python -m rcdms_tpu_torch.bench --tiny` and
+    `python -m rcdms_tpu_torch.tools.profile_bench --tiny` in processes of
+    their own, each rc 0 with its JSON line parsed. Returns the lines and
+    each mode's first timed call's launches (`bench_launches`)."""
+    from rcdms_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    reps = ["--repeats", str(BENCH_REPEATS)]
+    result, first = dict(card=card), {}
+
+    line, calls = _bench(["--steps", str(STEPS)] + reps, "(a) stage 2")
+    _check_bench_line(line, "stage2_frames_per_sec_per_chip", "(a)")
+    # one story of 5 frames a call, on one card
+    if not math.isclose(line["value"], 5 / line["p50_story_latency_s"],
+                        rel_tol=1e-3):
+        raise AssertionError(f"(a): {line['value']} frames/s, p50 "
+                             f"{line['p50_story_latency_s']} s")
+    _check_calls(calls, _unet_launches(2 * STEPS), "(a) stage 2")
+    result["stage2"], first["stage2"] = line, calls[0]
+
+    line, calls = _bench(["--full-pipeline"] + reps, "(b) full pipeline")
+    _check_bench_line(line, "two_stage_frames_per_sec_per_chip", "(b)")
+    _check_calls(calls, STORY_CALL, "(b) full pipeline")
+    result["full_pipeline"], first["full_pipeline"] = line, calls[0]
+
+    want = {k: step_launches[k] for k in STORY_CALL}
+    for dtype in ("bfloat16", "float32"):
+        where = f"(c) train step, {dtype} parameters"
+        line, calls = _bench(["--train-step", "--params-dtype", dtype]
+                             + reps, where)
+        _check_bench_line(line, "stage2_train_step_p50_s", where)
+        _check_calls(calls, want, where)
+        print(f"bench: {where}: {line['value']} s a step, peak "
+              f"{line['peak_gb_in_use']} GiB", flush=True)
+        result[f"train_{dtype}"], first[f"train_{dtype}"] = line, calls[0]
+
+    ops.reset_launch_counts()
+    line, _ = _bench(["--attn", "plain", "--steps", "2"] + reps,
+                     "(d) --attn plain", per_call=False)
+    whole = _story_counts()
+    _check_bench_line(line, "stage2_frames_per_sec_per_chip", "(d)")
+    if any(whole.values()) or line["attn"] != "plain":
+        raise AssertionError(f"(d) --attn plain launched {whole}")
+    result["plain"], first["plain"] = line, whole
+
+    auto = _unet_launches(2 * STEPS)
+    line, calls = _bench(["--attn", "kernel", "--steps", str(STEPS)] + reps,
+                         "(d) --attn kernel")
+    _check_bench_line(line, "stage2_frames_per_sec_per_chip", "(d)")
+    _check_calls(calls, {k: v for k, v in auto.items()
+                         if k != "attention"}, "(d) --attn kernel")
+    if line["attn"] != "kernel" or any(
+            c["attention"] <= auto["attention"] for c in calls):
+        raise AssertionError(f"(d) --attn kernel: A launched "
+                             f"{[c['attention'] for c in calls]}, auto "
+                             f"{auto['attention']}")
+    print(f"bench: (d) stage 2 p50 --attn kernel "
+          f"{line['p50_story_latency_s']} s (A {calls[0]['attention']} a "
+          f"call), auto {result['stage2']['p50_story_latency_s']} s "
+          f"(A {auto['attention']})", flush=True)
+    result["kernel"], first["kernel"] = line, calls[0]
+
+    result["bench_tiny"] = _bench_subprocess("rcdms_tpu_torch.bench",
+                                             "(e) bench --tiny")
+    if result["bench_tiny"]["line"]["backend"] != "cuda":
+        raise AssertionError("(e) bench --tiny did not run on the card")
+    result["profile_tiny"] = _bench_subprocess(
+        "rcdms_tpu_torch.tools.profile_bench", "(e) profile_bench --tiny")
+    if result["profile_tiny"]["line"]["device"] != "cuda":
+        raise AssertionError("(e) profile_bench --tiny saw no card")
+    result["launches"] = first
+    result["seconds"] = time.perf_counter() - t0
+    print(f"bench: phase 14 took {result['seconds']:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_bench.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3398,6 +3544,9 @@ def main() -> int:
     quality_launches = {**{name: run["launches"] for name, run in
                            quality["int8"]["runs"].items()},
                         "inversion": quality["inversion"]["launches"]}
+    _after_phase("phase 13")
+    bench_launches = run_bench(card, step2["steps"][0]["launches"])[
+        "launches"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3422,6 +3571,9 @@ def main() -> int:
             kernels[-1]["quality_launches"] = {
                 run: counts[name] for run, counts in
                 quality_launches.items()}
+            kernels[-1]["bench_launches"] = {
+                mode: counts[name] for mode, counts in
+                bench_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,10 @@ import torch.nn as nn
 
 from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.layers import FeedForward, GroupNorm, LayerNorm
+from rcdms_tpu_torch.ops import impl
 from rcdms_tpu_torch.ops.attention import multihead_attention
-from rcdms_tpu_torch.ops.frame_attention import frame_attention
+from rcdms_tpu_torch.ops.frame_attention import frame_attention, \
+    frame_attention_plain
 
 
 def spatial_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,7 +78,11 @@ class Attention(nn.Module):
             if context is not None or mask is not None:
                 raise ValueError("frame-axis attention is self-attention "
                                  "without a mask")
-            o = frame_attention(q, k, v, self.heads)
+            if impl.routes_to_wrapper("frame_attention", q.device):
+                o = frame_attention(q, k, v, self.heads)
+            else:  # the "plain" route (ops/impl.py)
+                o = frame_attention_plain(
+                    q, k, v, self.heads, (q.shape[-1] // self.heads) ** -0.5)
         else:
             k, v, queries = spatial_kv(q, k, v, context is None, cols)
             o = multihead_attention(q, k, v, self.heads, mask,

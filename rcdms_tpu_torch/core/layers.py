@@ -27,7 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rcdms_tpu_torch.core import spatial
-from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
+from rcdms_tpu_torch.ops import impl
+from rcdms_tpu_torch.ops.geglu import geglu_ff, geglu_ff_plain, gelu_ff, \
+    gelu_ff_plain
 from rcdms_tpu_torch.ops.quant import (
     conv_weight_int8,
     int8_conv3x3,
@@ -167,7 +169,8 @@ class _Proj(nn.Module):
 class FeedForward(nn.Module):
     """diffusers `FeedForward` (state-dict names `net.0.proj`, `net.2`),
     computed by the fused FF kernels: 'geglu' (UNet and temporal blocks,
-    kernel C) or 'gelu' (the prior's blocks, kernel D)."""
+    kernel C) or 'gelu' (the prior's blocks, kernel D); by their plain
+    versions under the "plain" route (`ops/impl.py`)."""
 
     def __init__(self, dim: int, activation: str = "geglu", mult: int = 4):
         super().__init__()
@@ -180,7 +183,10 @@ class FeedForward(nn.Module):
                                   nn.Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = geglu_ff if self.activation == "geglu" else gelu_ff
+        geglu = self.activation == "geglu"
+        fn = geglu_ff if geglu else gelu_ff
+        if not impl.routes_to_wrapper(fn.__name__, x.device):
+            fn = geglu_ff_plain if geglu else gelu_ff_plain
         proj_in, proj_out = self.net[0].proj, self.net[2]
         # the JAX package's FF casts its input to the model dtype
         return fn(x.to(proj_in.weight.dtype), proj_in.weight, proj_in.bias,

@@ -6,13 +6,18 @@ The kernels belong to two paths: the story (`StoryPipeline.generate`) runs
 A-D; the kernel studies (`rcdms_tpu_torch/tools/`) run the conv and
 GroupNorm kernels and the small-head-dim attention kernels E-H, which no
 story launches. `launch_counts(path)` reads one
-path's kernels, so each path is checked for its own."""
+path's kernels, so each path is checked for its own. `set_attention_impl`
+(`ops/impl.py`) chooses, for the whole process, the route the story
+ops' callers take: today's routing ("auto"), the plain versions of A-D
+("plain") or A wherever it takes a site ("kernel"); the wrappers
+themselves dispatch by device alone."""
 
 from rcdms_tpu_torch.ops.cm_conv import cm_conv3x3
 from rcdms_tpu_torch.ops.flash import flash_attention
 from rcdms_tpu_torch.ops.frame_attention import frame_attention
 from rcdms_tpu_torch.ops.geglu import geglu_ff, gelu_ff
 from rcdms_tpu_torch.ops.group_norm import gn_moments, group_norm_act
+from rcdms_tpu_torch.ops.impl import attention_impl, set_attention_impl
 from rcdms_tpu_torch.ops.smallk import (
     attn_pv,
     attn_scores,

@@ -12,7 +12,9 @@ tiles; fp32 runs the CUDA-core kernel, which takes any head dim up to
 256); everything else goes to `dot_product_attention` (`uses_kernel`).
 A site whose rows are split over ranks (`core.spatial.spatial`) routes
 by its whole query count, so that it takes the path it takes alone (A
-takes any local count).
+takes any local count). The attention impl (`ops/impl.py`, the bench's
+`--attn`) can send every site to the plain path or every unmasked site A
+can take to A (`uses_kernel`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from rcdms_tpu_torch.ops import impl
 from rcdms_tpu_torch.ops.flash import MAX_HEAD_DIM, _split_heads, \
     flash_attention
 
@@ -41,10 +44,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def uses_kernel(dtype: torch.dtype, dh: int, queries: int,
                 masked: bool) -> bool:
-    """The routing rule: True where kernel A takes the site."""
-    return (not masked and queries >= MIN_KERNEL_QUERIES
-            and dh <= MAX_HEAD_DIM
-            and (dtype != torch.bfloat16 or dh % 8 == 0))
+    """The routing rule: True where kernel A takes the site. Under the
+    attention impl of `ops/impl.py`, "auto" is the rule of the module
+    docstring, "plain" sends no site to A, and "kernel" every unmasked
+    site A can take, whatever its query count."""
+    mode = impl.attention_impl()
+    takes = (not masked and dh <= MAX_HEAD_DIM
+             and (dtype != torch.bfloat16 or dh % 8 == 0))
+    if mode == "auto":
+        return takes and queries >= MIN_KERNEL_QUERIES
+    return takes and mode == "kernel"
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +68,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `ops.attention.dot_product_attention` (CLIP, the VAE). `queries`: the
     site's whole query count where q holds a block of it (default q's)."""
     dh = q.shape[-1] // heads
-    if uses_kernel(q.dtype, dh, queries or q.shape[-2], mask is not None):
+    if uses_kernel(q.dtype, dh, queries or q.shape[-2], mask is not None) \
+            and impl.routes_to_wrapper("flash_attention", q.device):
         return flash_attention(q, k, v, heads, row_sum=row_sum)
     o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), mask)

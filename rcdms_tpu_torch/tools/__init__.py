@@ -53,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -79,6 +80,73 @@ def bound_ms(flops: float = 0.0, exps: float = 0.0, nbytes: float = 0.0,
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+# profiler groups of the story's kernels: (group, substrings of the kernel
+# name), the first match wins; "other" takes the rest (cuBLAS products,
+# norms, elementwise PyTorch kernels, copies)
+KERNEL_GROUPS = (
+    ("C/D", ("ff_gemm_kernel", "rcdms::(anonymous namespace)::ff_kernel")),
+    ("B", ("frame_attention_kernel", "frame_attention_tiled_kernel")),
+    ("A", ("attention_wgmma_kernel",
+           "rcdms::(anonymous namespace)::attention_kernel")),
+    ("cuDNN", ("cudnn", "fprop", "implicit_gemm", "winograd")),
+)
+GROUPS = ("A", "B", "C/D", "cuDNN", "other")
+
+
+def kernel_group(name: str) -> str:
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def profile_call(call, device: torch.device) -> dict:
+    """One call under torch.profiler: its wall seconds (`wall_s`), and the
+    seconds of each kernel name on the card (`by_name`; on the CPU, of
+    each operator's self time). On a card the profiler records the
+    card's activity alone: the CPU's operator events would only slow the
+    profile's processing down."""
+    cuda = device.type == "cuda"
+    activity = ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        t0 = time.perf_counter()
+        call()
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    by_name = collections.Counter()
+    if cuda:
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] += e.time_range.elapsed_us() * 1e-6
+    else:
+        for e in prof.key_averages():
+            if e.self_cpu_time_total > 0:
+                by_name[e.key] = e.self_cpu_time_total * 1e-6
+    return dict(wall_s=wall, by_name=dict(by_name))
+
+
+def group_profile(profiled: dict, top: int, device: torch.device) -> dict:
+    """A `profile_call`'s seconds by kernel group (`kernel_group`) with
+    each group's share, the device total, the idle share of the wall
+    time (1 - device busy / wall) and the `top` longest names."""
+    by_name = profiled["by_name"]
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    groups = dict.fromkeys(GROUPS, 0.0)
+    for name, sec in by_name.items():
+        groups[kernel_group(name)] += sec
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(
+        device="cuda" if device.type == "cuda" else "cpu",
+        wall_s=profiled["wall_s"], device_s=busy,
+        idle_share=1.0 - busy / profiled["wall_s"],
+        groups={g: dict(s=s, share=s / busy) for g, s in groups.items()},
+        top=[dict(name=n[:160], group=kernel_group(n), s=s)
+             for n, s in ranked])
 
 
 def require_cuda(dev: torch.device) -> None:

@@ -2,7 +2,7 @@
 stage, `chip_smoke.py` phase 9's build and batch (b = 1, 5 frames, 512 px,
 bf16 over fp32 masters, AdamW), two warm steps, three timed steps, then
 one step under `torch.profiler`: its device time summed by kernel group
-(`chip_smoke.KERNEL_GROUPS`, with the optimizer's multi-tensor kernels
+(`tools.KERNEL_GROUPS`, with the optimizer's multi-tensor kernels
 apart), the 12 longest kernels, and the share of the step's wall time in
 which the card ran no kernel. Prints the card's name and power limit,
 then one JSON line a stage.
@@ -20,39 +20,30 @@ import time
 
 import torch
 
+from rcdms_tpu_torch.tools import kernel_group, profile_call
 
-def _group(name: str, kernel_group) -> str:
+
+def _group(name: str) -> str:
     return ("optimizer" if "multi_tensor_apply" in name
             else kernel_group(name))
 
 
-def profile_step(state, batch, noise, kernel_group) -> dict:
+def profile_step(state, batch, noise) -> dict:
     """One step under torch.profiler: wall seconds, device seconds by
     group, the longest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from rcdms_tpu_torch.train import loop
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loop.train_step(state, batch, noise)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() * 1e-6)
+    profiled = profile_call(lambda: loop.train_step(state, batch, noise),
+                            torch.device("cuda"))
+    by_name, wall = profiled["by_name"], profiled["wall_s"]
     device = sum(by_name.values())
     if device <= 0:
         raise SystemExit("train_device_time: the profiler saw no device "
                          "time")
     groups = {}
     for name, sec in by_name.items():
-        g = _group(name, kernel_group)
+        g = _group(name)
         groups[g] = groups.get(g, 0.0) + sec
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_s=wall, device_s=device, idle_share=1 - device / wall,
@@ -96,8 +87,7 @@ def main() -> None:
             torch.cuda.synchronize()
             if i >= 2:
                 seconds.append(time.perf_counter() - t0)
-        result = profile_step(state, batch, state.module.draw_noise(batch, g),
-                              chip_smoke.kernel_group)
+        result = profile_step(state, batch, state.module.draw_noise(batch, g))
         print(json.dumps(dict(stage=stage, step_s=seconds,
                               median_step_s=statistics.median(seconds),
                               profiled=result)), flush=True)

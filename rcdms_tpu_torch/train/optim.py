@@ -21,8 +21,10 @@ max / (norm + 1e-6). Here, in optax's order:
     updates and the count advances once per k.
 
 The schedules are evaluated on the host in fp32, as jnp evaluates
-optax's. The moments and the parameters are fp32 tensors keyed by
-parameter name; the update runs as `torch._foreach_*` ops over chunks of
+optax's. The moments and the parameters are tensors keyed by parameter
+name, the moments in their parameter's dtype (fp32 masters, or bf16 ones
+with bf16 moments, as optax keeps a bf16 tree's: `TrainState.create`'s
+`params_dtype`); the update runs as `torch._foreach_*` ops over chunks of
 the tensors, so a step launches a few kernels a chunk and never
 synchronises with the host.
 """

@@ -13,6 +13,14 @@ transpose of that cast widens the bf16 cotangent. (`torch.autocast` would
 round at the places of its op lists instead.) In fp32 the masters are the
 module's own parameters.
 
+With `params_dtype` bf16 (the JAX bench's `--params-dtype bfloat16`,
+whose parameters, and so optax's moments, are bf16) the masters are the
+bf16 module's own parameters too: the gradients stay bf16, and the
+optimizer's moments (`train/optim.py`, zeros like the masters) are bf16.
+The norms and the time MLP keep fp32 parameters there, and so fp32
+moments; the JAX bench casts those to bf16 as well (under 0.1% of the
+bytes).
+
 Under a process group the masters are whole on every rank and the
 optimizer state is this rank's ZeRO-2 cut (`train/optim.py::AdamW`);
 `host_state_dicts` gathers the cuts for a checkpoint, and
@@ -45,17 +53,22 @@ class TrainState:
 
     @classmethod
     def create(cls, module: nn.Module, optimizer: AdamW,
-               dtype=torch.float32) -> "TrainState":
+               dtype=torch.float32,
+               params_dtype=torch.float32) -> "TrainState":
         """`module` with fp32 parameters, all of them trained, becomes the
         compute module in `dtype` (channels-last on a card, as the
-        inference towers); the masters keep its fp32 values."""
+        inference towers); the masters keep its fp32 values, or, with
+        `params_dtype` equal to `dtype`, are its own parameters."""
+        if params_dtype not in (torch.float32, dtype):
+            raise ValueError(f"params_dtype {params_dtype} with compute "
+                             f"dtype {dtype}")
         fp32 = {n: p.detach() for n, p in module.named_parameters()}
         module.to(dtype)
         if next(module.parameters()).device.type == "cuda":
             module.to(memory_format=torch.channels_last)
         params = {}
         for n, p in module.named_parameters():
-            if p.dtype == torch.float32:
+            if p.dtype == torch.float32 or params_dtype == dtype:
                 params[n] = p
             else:
                 params[n] = torch.empty_like(p, dtype=torch.float32)
@@ -64,13 +77,14 @@ class TrainState:
         return cls(module, optimizer, params, optimizer.init(params))
 
     def gradients(self) -> Dict[str, torch.Tensor]:
-        """The compute module's gradients widened to fp32, by name (zero
-        where a parameter got none); the module's own are released."""
+        """The compute module's gradients in the masters' dtype (fp32
+        unless the masters are bf16), by name (zero where a parameter got
+        none); the module's own are released."""
         grads = {}
         for n, p in self.module.named_parameters():
             g = p.grad
             grads[n] = (torch.zeros_like(self.params[n]) if g is None
-                        else g.float())
+                        else g.to(self.params[n].dtype))
             p.grad = None
         return grads
 

@@ -156,7 +156,10 @@ _BLOCKED = textwrap.dedent("""
             "rcdms_tpu_torch.data.native_feeder",
             "rcdms_tpu_torch.utils.video",
             "rcdms_tpu_torch.tools.parity_check",
-            "rcdms_tpu_torch.tools.int8_quality"} <= set(names)
+            "rcdms_tpu_torch.tools.int8_quality",
+            "rcdms_tpu_torch.bench", "rcdms_tpu_torch.ops.impl",
+            "rcdms_tpu_torch.tools.profile_bench",
+            "rcdms_tpu_torch.tools.bench_feeder"} <= set(names)
     for name in names:
         importlib.import_module(name)
     for name in blocked:
