@@ -243,6 +243,25 @@ Phases, in order; any failure raises and the exit code is nonzero:
    rcdms_tpu_torch.tools.profile_bench --tiny` in processes of their own
    on the card: rc 0, their JSON lines parsed and finite. The phase
    prints its seconds; rows go to chiprun_out/chip_smoke_bench.json.
+15. sharded serving (`cli.serve --shard-story`, phase 8's model flags,
+   a batching window of SERVE_SHARD_WAIT_MS, each batch's requests sent
+   SERVE_STAGGER_S apart so that it forms as it did): (a) in this process
+   under a one-rank NCCL group joined from torchrun's variables, built as
+   phase 8 built its server: phase 8's batches replayed in phase 8's
+   order, every reply's frames and the launches equal phase 8's bit for
+   bit; then (b)'s batches that phase 8 did not run, the one-process
+   frames of (b); (b) two spawned processes on the one card in a gloo
+   group (cfg 2; NCCL refuses two ranks on one device), rank 0 on port 0:
+   phase 8's pair as a batch of 2, then phase 8's other request with
+   phase 7a's known frame and another negative prompt (a CondCache miss,
+   the towers split over the ranks); each request's frames within
+   SHARD_MEAN_TOL and SHARD_MAX_TOL (phase 12's) of (a)'s, each rank
+   launching each of A-D after its warmup and every B launch tiled, both
+   ranks exiting 0 after SIGINT to rank 0 (the server's stop); each
+   request's latency and batch size and each rank's launches, build and
+   warmup seconds and peak memory printed. Before the spawn the card's
+   free memory is held against what the two ranks need. Rows go to
+   chiprun_out/chip_smoke_serve_shard.json.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
@@ -251,8 +270,9 @@ each training step and encode, phase 10 the story's in each CLI run,
 phase 11 the story's in each rank's run, phase 12 the story's in (a)'s
 run and in each rank's request, phase 13 the story's in each sampler run
 and in the inversion, phase 14 the story's in each timed call of a bench
-mode and in (d)'s whole run: each path's counts are set to 0 just before
-it and read just after.
+mode and in (d)'s whole run, phase 15 the story's in (a)'s replay and in
+each rank's served requests after its warmup: each path's counts are set
+to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
@@ -261,7 +281,9 @@ run; `shard_launches`: phase 12's, (a)'s run and each rank's request in (b)
 (`rank<r>`), (c) (`c_rank<r>`) and (d) (`d_rank<r>`);
 `quality_launches`: phase 13's, each sampler run of (a) and (b)'s
 inversion; `bench_launches`: phase 14's, the first timed call of each
-bench mode, "kernel" included, and "plain": (d)'s whole run);
+bench mode, "kernel" included, and "plain": (d)'s whole run;
+`serve_shard_launches`: phase 15's, (a)'s replay and each rank's served
+requests in (b));
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -1326,25 +1348,34 @@ def _story_counts() -> dict:
     return story_counts()
 
 
-def serve_requests(url: str, frame0) -> list:
-    """Three concurrent POST /generate requests (seeds 1, 2, 3; seed 2
-    with `frame0` as a PNG reference frame); returns their replies, frames
-    still base64 PNGs (the client shares the server's process, so decoding
-    them now would hold the interpreter lock the dispatch thread needs)."""
+def serve_body(seed: int, frame0=None, negative: str = "") -> dict:
+    """A POST /generate body of phase 7a's captions: `frame0`, if given,
+    as a PNG reference frame, and a negative prompt, if not empty."""
     import base64
-    import threading
-    import urllib.request
 
     from rcdms_tpu_torch.sample.eval import encode_png
 
-    replies = [None] * 3
+    body = {"captions": ENTRY_CAPTIONS, "seed": seed}
+    if frame0 is not None:
+        body["reference_frames"] = [
+            base64.b64encode(encode_png(frame0)).decode()]
+    if negative:
+        body["negative_prompt"] = negative
+    return body
+
+
+def serve_requests(url: str, bodies: list, stagger_s: float = 0.0) -> list:
+    """Concurrent POST /generate requests of `bodies`, each started
+    `stagger_s` after the one before; returns their replies, frames still
+    base64 PNGs (the client may share the server's process, so decoding
+    them now would hold the interpreter lock the dispatch thread needs)."""
+    import threading
+    import urllib.request
+
+    replies = [None] * len(bodies)
     errors = []
 
-    def post(i, seed):
-        body = {"captions": ENTRY_CAPTIONS, "seed": seed}
-        if seed == 2:
-            body["reference_frames"] = [
-                base64.b64encode(encode_png(frame0)).decode()]
+    def post(i, body):
         req = urllib.request.Request(
             url + "/generate", data=json.dumps(body).encode(),
             headers={"Content-Type": "application/json"})
@@ -1353,19 +1384,28 @@ def serve_requests(url: str, frame0) -> list:
                 reply = json.loads(r.read())
                 reply["status"] = r.status
         except Exception as e:  # noqa: BLE001 - reported below
-            errors.append(f"seed {seed}: {type(e).__name__}: {e}")
+            errors.append(f"seed {body['seed']}: {type(e).__name__}: {e}")
             return
         replies[i] = reply
 
-    threads = [threading.Thread(target=post, args=(i, seed))
-               for i, seed in enumerate((1, 2, 3))]
-    for t in threads:
-        t.start()
+    threads = []
+    for i, body in enumerate(bodies):
+        if i and stagger_s:
+            time.sleep(stagger_s)
+        threads.append(threading.Thread(target=post, args=(i, body)))
+        threads[-1].start()
     for t in threads:
         t.join(timeout=900)
     if errors or any(r is None for r in replies):
         raise AssertionError(f"serve requests failed: {errors}")
     return replies
+
+
+def _recorded(batch: list, batches: list) -> list:
+    """`batch` (a dispatch thread's), its seeds appended to `batches`."""
+    if batch:
+        batches.append([r.seed for r in batch])
+    return batch
 
 
 def run_serve(dev, card: str, entry: dict) -> dict:
@@ -1405,12 +1445,20 @@ def run_serve(dev, card: str, entry: dict) -> dict:
     print(f"serve: {card}: built, warmed and listening in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # the seeds of each batch the dispatch thread takes, in its order
+    # (phase 15 replays them)
+    batches = []
+    take = srv._take_batch
+    srv._take_batch = lambda: _recorded(take(), batches)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    replies = serve_requests(url, entry["frame0"])
+    bodies = [serve_body(seed, entry["frame0"] if seed == 2 else None)
+              for seed in (1, 2, 3)]
+    replies = serve_requests(url, bodies)
     http_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = _story_counts()
+    del srv._take_batch
     httpd.shutdown()
     srv.stop()
     srv.worker.join(timeout=60)
@@ -1522,6 +1570,9 @@ def run_serve(dev, card: str, entry: dict) -> dict:
     del srv, exact, frames_q
     torch.cuda.empty_cache()
     return dict(batch_sizes=[r["batch_size"] for r in replies],
+                batches=batches, bodies=dict(zip((1, 2, 3), bodies)),
+                frames={seed: np.stack(r["frames"])
+                        for seed, r in zip((1, 2, 3), replies)},
                 http_s=http_s, launches=counts,
                 batch1_s=one["per_story_s"], batch2_s=two["per_story_s"],
                 batch_err=batch_err, propagation_s=prop_s,
@@ -3446,6 +3497,351 @@ def run_bench(card: str, step_launches: dict) -> dict:
     return result
 
 
+# ---- phase 15: one story server over the ranks ------------------------------
+
+SERVE_SHARD_DIR = os.path.join(REPO, "build", "chip_smoke_serve_shard")
+SERVE_SHARD_RANKS = 2  # (b)'s gloo ranks on the one card: cfg 2
+SERVE_SHARD_JOIN_S = 420  # seconds (b)'s ranks may take, builds included
+# the servers' batching window: long enough that a batch's requests, sent
+# SERVE_STAGGER_S apart, join it in the order they were sent
+SERVE_SHARD_WAIT_MS = "2000"
+SERVE_STAGGER_S = 0.5
+# (b)'s third request: its own negative prompt (a CondCache miss: the
+# towers split over the ranks) and phase 7a's known frame
+SERVE_SHARD_NEGATIVE = "blurry"
+
+
+def _serve_batches(url: str, batches: list) -> list:
+    """Each batch of bodies sent in turn, its requests SERVE_STAGGER_S
+    apart (one batch, in that order, on a server of SERVE_SHARD_WAIT_MS):
+    the replies of each batch, frames decoded, each batch size checked."""
+    import base64
+
+    import numpy as np
+
+    from rcdms_tpu_torch.sample.eval import decode_png
+
+    out = []
+    for bodies in batches:
+        replies = serve_requests(url, bodies, SERVE_STAGGER_S)
+        for r in replies:
+            r["frames"] = np.stack([decode_png(base64.b64decode(x))
+                                    for x in r["frames"]])
+            if r["status"] != 200 or r["frames"].shape != (
+                    len(ENTRY_CAPTIONS), PIXELS, PIXELS, 3):
+                raise AssertionError(f"a serve reply is off: status "
+                                     f"{r['status']}, {r['frames'].shape}")
+            if r["batch_size"] != len(bodies):
+                raise AssertionError(f"a batch of {len(bodies)} ran as "
+                                     f"{r['batch_size']}")
+        out.append(replies)
+    return out
+
+
+def serve_shard_batches(served: dict) -> list:
+    """(b)'s batches of bodies: phase 8's pair as it ran (its first two
+    requests if it formed none), then its other request with phase 7a's
+    known frame and SERVE_SHARD_NEGATIVE."""
+    bodies = served["bodies"]
+    pair = next((b for b in served["batches"] if len(b) == 2),
+                sorted(bodies)[:2])
+    other = next(seed for seed in sorted(bodies) if seed not in pair)
+    third = dict(bodies[other], negative_prompt=SERVE_SHARD_NEGATIVE)
+    if "reference_frames" not in third:
+        third["reference_frames"] = bodies[2]["reference_frames"]
+    return [[bodies[s] for s in pair], [third]]
+
+
+def serve_one_rank(card: str, served: dict, batches_b: list) -> dict:
+    """Phase 15 (a): `cli.serve --shard-story` in this process under a
+    one-rank NCCL group joined from torchrun's variables, built as phase 8
+    built its server: phase 8's batches replayed as they ran, each reply
+    and the launches equal phase 8's bit for bit; then (b)'s batches that
+    phase 8 did not run, the one-process frames (b) is held against."""
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import serve
+    from rcdms_tpu_torch.ops import quant
+    from rcdms_tpu_torch.train import distributed
+
+    env = _torchrun_env()
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    ready, box = threading.Event(), []
+    thread = None
+    try:
+        args = _serve_args("--shard-story", "--max-wait-ms",
+                           SERVE_SHARD_WAIT_MS)
+        t0 = time.perf_counter()
+        # as phase 8: built (and warmed) in the int8 mode, served exact
+        quant.set_quant_mode(_serve_args("--quantize", "int8").eval.quantize)
+        thread = threading.Thread(target=serve.serve, args=(args,),
+                                  kwargs=dict(ready_event=ready,
+                                              httpd_box=box), daemon=True)
+        thread.start()
+        try:
+            while not ready.wait(timeout=1):
+                if not thread.is_alive() or time.perf_counter() - t0 > 900:
+                    raise AssertionError("the one-rank server did not "
+                                         "start")
+        finally:
+            quant.set_quant_mode(None)
+        httpd, srv = box.pop()
+        built_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        row = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                   server_world=srv.world, built_s=built_s)
+        bodies = served["bodies"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        replayed = _serve_batches(url, [[bodies[s] for s in batch]
+                                        for batch in served["batches"]])
+        torch.cuda.synchronize()
+        row["replay_s"] = time.perf_counter() - t0
+        row["launches"] = _story_counts()
+        seeds = [s for batch in served["batches"] for s in batch]
+        replies = [r for batch in replayed for r in batch]
+        row["frames_equal"] = {s: bool(np.array_equal(
+            r["frames"], served["frames"][s])) for s, r in zip(seeds,
+                                                             replies)}
+        row["launches_equal"] = row["launches"] == served["launches"]
+        # (b)'s batches: phase 8's as replayed, the others run here
+        ran = [[bodies[s] for s in batch] for batch in served["batches"]]
+        refs = [replayed[ran.index(batch)] if batch in ran
+                else _serve_batches(url, [batch])[0] for batch in batches_b]
+        row["reference_latency_s"] = [r["latency_s"] for b in refs for r in b]
+        httpd.shutdown()
+        srv.stop()
+        srv.worker.join(timeout=60)
+        thread.join(timeout=60)
+        del srv, httpd
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"serve shard one rank: {card}: cli.serve --shard-story under a "
+          f"one-rank {row['backend']} group (server world "
+          f"{row['server_world']}): built, warmed and listening in "
+          f"{row['built_s']:.2f} s; phase 8's batches {served['batches']} "
+          f"replayed in {row['replay_s']:.3f} s; replies equal phase 8's "
+          f"bit for bit {row['frames_equal']}, launches "
+          f"{row['launches_equal']} ({row['launches']})", flush=True)
+    if not (all(row["frames_equal"].values()) and row["launches_equal"]):
+        raise AssertionError(f"--shard-story on one rank serves other "
+                             f"frames or launches than phase 8: phase 8 "
+                             f"launched {served['launches']}")
+    return dict(row, refs=refs)
+
+
+def _serve_shard_rank(rank: int, store: str, root: str) -> None:
+    """Rank `rank` of phase 15 (b) (a spawned process): joins the gloo
+    group of SERVE_SHARD_RANKS ranks on the one card and runs `cli.serve
+    --shard-story`, rank 0 on port 0 (written to `root`/port once it
+    listens), until rank 0's stop; writes its launches after the warmup,
+    its build and warmup seconds and its peak memory."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import threading
+
+    from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.cli import serve
+    from rcdms_tpu_torch.train import distributed
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    distributed.maybe_initialize("cuda", init_method=f"file://{store}",
+                                 world_size=SERVE_SHARD_RANKS, rank=rank,
+                                 local_rank=0, backend="gloo")
+    row = {}
+    warmup = serve.StoryServer.warmup
+
+    def counted_warmup(self):
+        """The warmup, timed; the counts and the peak start after it."""
+        torch.cuda.synchronize()
+        row["build_s"] = time.perf_counter() - t0
+        row["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        warmup(self)
+        torch.cuda.synchronize()
+        row["warmup_s"] = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+
+    serve.StoryServer.warmup = counted_warmup
+    ready, box = threading.Event(), []
+
+    def report():
+        if ready.wait(SERVE_SHARD_JOIN_S):
+            with open(os.path.join(root, "port.tmp"), "w") as fh:
+                fh.write(str(box[0][0].server_address[1]))
+            os.replace(os.path.join(root, "port.tmp"),
+                       os.path.join(root, "port"))
+
+    if rank == 0:
+        threading.Thread(target=report, daemon=True).start()
+    try:
+        t0 = time.perf_counter()
+        srv = serve.serve(_serve_args("--shard-story", "--max-wait-ms",
+                                      SERVE_SHARD_WAIT_MS),
+                          ready_event=ready, httpd_box=box)
+        torch.cuda.synchronize()
+        row.update(rank=srv.rank, world=srv.world,
+                   mesh=list(srv.pipeline.mesh[:6]),
+                   launches=_story_counts(),
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   lru=len(srv._cond_caches))
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(row, fh)
+    finally:
+        distributed.shutdown()
+
+
+def serve_shard_ranks(card: str, batches_b: list, refs: list) -> dict:
+    """Phase 15 (b): SERVE_SHARD_RANKS spawned processes on the one card
+    in a gloo group (cfg 2; NCCL refuses two ranks on one device) serve
+    (b)'s batches from rank 0; each request's frames against (a)'s one
+    process (SHARD_MEAN_TOL, SHARD_MAX_TOL), every rank launching each of
+    A-D, every B launch tiled, both ranks ending rc 0 after SIGINT to rank
+    0 (its stop)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
+    os.makedirs(SERVE_SHARD_DIR)
+    # the ranks build at once: each holds SHARD_BUILDING_BYTES at its
+    # build's peak (a tower's fp32 weights beside the others' bf16 ones)
+    need = SERVE_SHARD_RANKS * SHARD_BUILDING_BYTES
+    cycles = _collect_cycles()
+    parent_bytes = torch.cuda.memory_allocated()
+    free_bytes = torch.cuda.mem_get_info()[0]
+    print(f"serve shard: the card has {free_bytes / 2**30:.2f} GiB free for "
+          f"{SERVE_SHARD_RANKS} ranks needing about {need / 2**30:.2f} (this "
+          f"process holds {parent_bytes / 2**30:.2f} GiB; the collector "
+          f"freed {cycles / 2**30:.2f} GiB left in reference cycles)",
+          flush=True)
+    if free_bytes < need:
+        raise AssertionError(
+            f"phase 15 (b): {free_bytes / 2**30:.2f} GiB of the card free, "
+            f"under the {need / 2**30:.2f} GiB its ranks need: an earlier "
+            f"phase still holds {parent_bytes / 2**30:.2f} GiB")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_serve_shard_rank,
+                         args=(r, os.path.join(SERVE_SHARD_DIR, "store"),
+                               SERVE_SHARD_DIR))
+             for r in range(SERVE_SHARD_RANKS)]
+    port = os.path.join(SERVE_SHARD_DIR, "port")
+    try:
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        while not os.path.exists(port):
+            if time.perf_counter() - t0 > SERVE_SHARD_JOIN_S or not all(
+                    p.is_alive() for p in procs):
+                raise AssertionError(
+                    f"phase 15 (b): rank 0 did not serve (exit codes "
+                    f"{[p.exitcode for p in procs]})")
+            time.sleep(0.1)
+        listening_s = time.perf_counter() - t0
+        with open(port) as fh:
+            url = f"http://127.0.0.1:{fh.read()}"
+        t1 = time.perf_counter()
+        replied = _serve_batches(url, batches_b)
+        http_s = time.perf_counter() - t1
+        os.kill(procs[0].pid, signal.SIGINT)  # the server's stop
+        for p in procs:
+            p.join(SERVE_SHARD_JOIN_S)
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SERVE_SHARD_RANKS:
+            raise AssertionError(f"phase 15 (b) rank exit codes {codes} "
+                                 f"(None: still running after "
+                                 f"{SERVE_SHARD_JOIN_S} s)")
+        ranks = []
+        for r in range(SERVE_SHARD_RANKS):
+            with open(os.path.join(SERVE_SHARD_DIR, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
+    requests = []
+    for batch, ref in zip(replied, refs):
+        for got, want in zip(batch, ref):
+            diff = np.abs(got["frames"].astype(np.float64)
+                          - want["frames"].astype(np.float64)) / 255.0
+            requests.append(dict(
+                batch_size=got["batch_size"], latency_s=got["latency_s"],
+                one_process_latency_s=want["latency_s"],
+                frames_mean_abs=float(diff.mean()),
+                frames_max_abs=float(diff.max())))
+    row = dict(card=card, world=SERVE_SHARD_RANKS, mesh=ranks[0]["mesh"][:3],
+               wall_s=wall, listening_s=listening_s, http_s=http_s,
+               requests=requests, parent_bytes=parent_bytes,
+               free_bytes=free_bytes,
+               ranks=[{k: x[k] for k in ("rank", "mesh", "launches",
+                                         "build_s", "warmup_s",
+                                         "build_peak_bytes", "peak_bytes",
+                                         "lru")} for x in ranks])
+    means = [f"{x['frames_mean_abs']:.3e}" for x in requests]
+    maxes = [f"{x['frames_max_abs']:.3e}" for x in requests]
+    print(f"serve shard (b): {card}: cli.serve --shard-story on "
+          f"{SERVE_SHARD_RANKS} gloo ranks (mesh cfg, frame, space "
+          f"{row['mesh']}) listening after {listening_s:.1f} s (spawn, "
+          f"builds and warmup), {len(requests)} requests in "
+          f"{http_s:.1f} s, both ranks rc 0 after the stop, {wall:.1f} s in "
+          f"all; per request: batch size "
+          f"{[x['batch_size'] for x in requests]}, latency s "
+          f"{[x['latency_s'] for x in requests]} (one process "
+          f"{[x['one_process_latency_s'] for x in requests]}), frames mean "
+          f"|diff| {means}, max |diff| {maxes}; per rank: build s "
+          f"{[round(x['build_s'], 1) for x in ranks]}, warmup s "
+          f"{[round(x['warmup_s'], 1) for x in ranks]}, peak GiB serving "
+          f"{[round(x['peak_bytes'] / 2**30, 2) for x in ranks]}, build "
+          f"{[round(x['build_peak_bytes'] / 2**30, 2) for x in ranks]}, "
+          f"CondCaches {[x['lru'] for x in ranks]}; launches "
+          f"{[x['launches'] for x in ranks]}", flush=True)
+    for x in ranks:
+        _check_story_launches(x["launches"],
+                              f"on serve shard rank {x['rank']}")
+    for x in requests:
+        if not (x["frames_mean_abs"] <= SHARD_MEAN_TOL
+                and x["frames_max_abs"] <= SHARD_MAX_TOL):
+            raise AssertionError(f"a sharded served request differs from "
+                                 f"one process: {x}")
+    return row
+
+
+def run_serve_shard(card: str, served: dict) -> dict:
+    """Phase 15: one story server over the ranks (module docstring)."""
+    print(f"serve shard on {card}", flush=True)
+    t0 = time.perf_counter()
+    batches_b = serve_shard_batches(served)
+    one = serve_one_rank(card, served, batches_b)
+    refs = one.pop("refs")
+    result = dict(card=card, one_rank=one,
+                  ranks=serve_shard_ranks(card, batches_b, refs))
+    result["seconds"] = time.perf_counter() - t0
+    print(f"serve shard: phase 15 took {result['seconds']:.1f} s",
+          flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_serve_shard.json"),
+              "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3547,6 +3943,12 @@ def main() -> int:
     _after_phase("phase 13")
     bench_launches = run_bench(card, step2["steps"][0]["launches"])[
         "launches"]
+    _after_phase("phase 14")
+    serve_shard = run_serve_shard(card, served)
+    serve_shard_launches = {
+        "one_rank": serve_shard["one_rank"]["launches"],
+        **{f"rank{x['rank']}": x["launches"]
+           for x in serve_shard["ranks"]["ranks"]}}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3574,6 +3976,9 @@ def main() -> int:
             kernels[-1]["bench_launches"] = {
                 mode: counts[name] for mode, counts in
                 bench_launches.items()}
+            kernels[-1]["serve_shard_launches"] = {
+                run: counts[name] for run, counts in
+                serve_shard_launches.items()}
         if name == "frame_attention":
             kernels[-1]["tiled_launches"] = launches["frame_attention_tiled"]
     print(json.dumps({"kernels": kernels}))

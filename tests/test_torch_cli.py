@@ -313,19 +313,19 @@ def test_generate_checks_counts_before_the_build(monkeypatch, captions,
 
 @pytest.mark.parametrize("flag", [["--shard-story"]])
 def test_flags_left_for_later_are_rejected(flag, capsys):
-    """--shard-story parses in evaluate and generate (sharded single-story
-    inference, tests/test_torch_sharded_inference.py); serve, one process,
-    still rejects it."""
+    """--shard-story, once left for later, parses in evaluate, generate
+    (sharded single-story inference, tests/test_torch_sharded_inference.py)
+    and serve (one server over the ranks, tests/
+    test_torch_serve_sharded.py); off by default in each."""
     from rcdms_tpu_torch.cli import serve as pserve
 
     assert pevaluate.parse_args(CPU + flag).shard_story
     assert pgenerate.parse_args(["--caption", "c"] + CPU + flag
                                 ).eval.shard_story
+    assert pserve.parse_args(CPU + flag).eval.shard_story
     assert not pevaluate.parse_args(CPU).shard_story
-    with pytest.raises(SystemExit) as e:
-        pserve.parse_args(CPU + flag)
-    assert e.value.code == 2
-    assert "--shard-story" in capsys.readouterr().err
+    assert not pserve.parse_args(CPU).eval.shard_story
+    assert capsys.readouterr().err == ""
 
 
 @pytest.mark.parametrize("flag,dest", [
