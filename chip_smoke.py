@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --shard-faults  # phase 12's fault readings
     python3 chip_smoke.py --int8-faults   # phase 13 (a)'s fault readings
+    python3 chip_smoke.py --tools         # phase 16 alone
 
 Phases, in order; any failure raises and the exit code is nonzero:
 
@@ -165,8 +166,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    phase 10's, its checkpoint (the moments gathered to the host) the
    trained state; step seconds, peak memory and launches a step printed;
    (b) two spawned processes on the one card in a gloo group (NCCL
-   refuses two ranks on one device), phase 10 (b)'s stage 1 (prior cut
-   to 4 layers) in fp32 at global batch 2 on two stories, with ZeRO-2
+   refuses two ranks on one device), phase 10 (b)'s stage 1 with the
+   prior cut further, to DP_PRIOR_LAYERS layers, in fp32 at global batch
+   2 on two stories, with ZeRO-2
    and with --no-zero2, against one process (this one, no group) at
    batch 2: the logged losses and the step-2 masters and moments within
    1e-5 relative (max |diff| over the set's largest magnitude); whether
@@ -191,7 +193,14 @@ Phases, in order; any failure raises and the exit code is nonzero:
    SHARD_EMBEDS_TOL, 2e-2 (max |diff| over max |embed|), every rank
    launching each of A-D and every B launch tiled; the mesh, max |diff|,
    each rank's launches, request and build seconds and peak memory
-   printed. Rows go to chiprun_out/chip_smoke_shard.json. Before each
+   printed. (b)'s ranks run the request inside
+   `core.spatial.recording()`: each rank's collectives (count, bytes and
+   in-loop count by kind) must equal those of `tools.comm_audit`'s dry
+   `--full` run of the same mesh, widths and request (rank r of 4 on the
+   meta device, 1 step scaled to 20), which this process computes on the
+   host while phase 16 runs and holds against (b)'s records after it;
+   both are printed. Rows go to
+   chiprun_out/chip_smoke_shard.json. Before each
    run the card's free memory is held against what its ranks need, and
    after every phase before 12 the garbage collector's yield is printed
    (`cycles: ...`).
@@ -241,7 +250,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    (a)'s B, C and D launches and more of A, its p50 printed beside (a)'s;
    (e) `python -m rcdms_tpu_torch.bench --tiny` and `python -m
    rcdms_tpu_torch.tools.profile_bench --tiny` in processes of their own
-   on the card: rc 0, their JSON lines parsed and finite. The phase
+   on the card, started together: rc 0, their JSON lines parsed and
+   finite. The phase
    prints its seconds; rows go to chiprun_out/chip_smoke_bench.json.
 15. sharded serving (`cli.serve --shard-story`, phase 8's model flags,
    a batching window of SERVE_SHARD_WAIT_MS, each batch's requests sent
@@ -262,6 +272,20 @@ Phases, in order; any failure raises and the exit code is nonzero:
    warmup seconds and peak memory printed. Before the spawn the card's
    free memory is held against what the two ranks need. Rows go to
    chiprun_out/chip_smoke_serve_shard.json.
+16. the measuring tools (`rcdms_tpu_torch/tools/`, a budget of 120 s of
+   the smoke's time, TOOLS_REPS timed calls a row), in a process of its
+   own (`python3 chip_smoke.py --tools`, `run_tools_process`): (a)
+   `mxu_pad_study`'s ten bf16 products and its four ratios; (b)
+   `conv_study`'s six cuDNN convs (each row's kernels and share of the
+   bound; a Winograd or FFT algorithm is timed by events alone); (c)
+   `conv_variants_study` at level 0: every formulation within the tool's
+   TOL (TOL[bf16] here) of `cudnn_conv`; (d)
+   `strip_efficiency`'s four heights, timed by events alone: each forward
+   finite, launching A, B and C; (e) `chainbench.slope_ms` of (a)'s score_pad128 product:
+   finite and above 0, printed beside (a)'s device and event times.
+   Every check is of a result; times are printed, never compared. The
+   phase prints its seconds; rows go to chiprun_out/chip_smoke_tools.json.
+   Meanwhile this process computes phase 12 (b)'s dry audits on the host.
 
 Phases 4 and 5 count only the story's kernels (`ops.PATHS["story"]`),
 phase 6 only the studies' (`ops.PATHS["studies"]`), phase 7a the story's
@@ -271,8 +295,9 @@ phase 11 the story's in each rank's run, phase 12 the story's in (a)'s
 run and in each rank's request, phase 13 the story's in each sampler run
 and in the inversion, phase 14 the story's in each timed call of a bench
 mode and in (d)'s whole run, phase 15 the story's in (a)'s replay and in
-each rank's served requests after its warmup: each path's counts are set
-to 0 just before it and read just after.
+each rank's served requests after its warmup, phase 16 the story's in one
+strip forward at each height: each path's counts are set to 0 just
+before it and read just after.
 The line before the last is a JSON object with one entry per kernel (the
 story kernels' `train_launches`: phase 9's forward launches a full-width
 step of each stage; `train_cli_launches`: phase 10's launches in each
@@ -369,11 +394,17 @@ def _collect_cycles() -> int:
     return before - torch.cuda.memory_allocated()
 
 
+_START = time.perf_counter()  # the smoke's start, for `_after_phase`
+
+
 def _after_phase(name: str) -> None:
-    """Prints what the collector frees after phase `name`: 0 unless the
-    phase left tensors in reference cycles."""
+    """Prints what the collector frees after phase `name` (0 unless the
+    phase left tensors in reference cycles) and the seconds since the
+    smoke started."""
     print(f"cycles: {_collect_cycles() / 2**30:.3f} GiB of the card freed "
-          f"by the collector after {name}", flush=True)
+          f"by the collector after {name}; "
+          f"{time.perf_counter() - _START:.1f} s since the start",
+          flush=True)
 
 
 def _nbytes(*tensors) -> int:
@@ -2293,6 +2324,9 @@ def run_train_cli(dev, card: str, step_launches: Optional[dict],
 
 DP_DIR = os.path.join(REPO, "build", "chip_smoke_dp")
 DP_JOIN_S = 300  # seconds the two rank processes of phase 11 (b) may take
+# phase 11 (b)'s prior layers: its gloo steps move every fp32 gradient
+# through the host, 595 M parameters at phase 10 (b)'s 4 layers, 310 M at 2
+DP_PRIOR_LAYERS = 2
 
 
 def _free_port() -> int:
@@ -2405,8 +2439,9 @@ class TwoStories:
 
 
 def _dp_stage1(out: str, batch_size: int, *extra):
-    """Phase 10 (b)'s stage 1 (the prior cut to 4 layers) in fp32, 2 steps
-    of --batch-size `batch_size` on `TwoStories`, one checkpoint."""
+    """Phase 10 (b)'s stage 1 with the prior cut to DP_PRIOR_LAYERS layers,
+    in fp32, 2 steps of --batch-size `batch_size` on `TwoStories`, one
+    checkpoint."""
     import dataclasses
 
     from rcdms_tpu_torch.cli import train_stage1
@@ -2414,7 +2449,7 @@ def _dp_stage1(out: str, batch_size: int, *extra):
 
     configs = full_configs(temporal_zero_init=False)
     configs = dataclasses.replace(configs, prior=dataclasses.replace(
-        configs.prior, num_layers=4))
+        configs.prior, num_layers=DP_PRIOR_LAYERS))
     args = train_stage1.parse_args([
         "--device", "cuda", "--batch-size", str(batch_size), "--dtype",
         "float32", "--learning-rate", "1e-5", "--warmup-steps", "0",
@@ -2526,7 +2561,8 @@ def dp_two_ranks(card: str) -> dict:
             for n, t in got["replicated"][k].items())
         peaks = [{m: (x[m]["s"], x[m]["peak_bytes"] / 2**30) for m in x}
                  for x in ranks]
-        print(f"dp two ranks: {card}: stage 1 (4 layers, fp32, global "
+        print(f"dp two ranks: {card}: stage 1 ({DP_PRIOR_LAYERS} layers, "
+              f"fp32, global "
               f"batch 2) on two gloo ranks against one process at batch 2 "
               f"(losses {want_losses}): ZeRO-2 {row['zero2']}, --no-zero2 "
               f"{row['replicated']}; ZeRO-2 equals --no-zero2 bit for bit "
@@ -2566,6 +2602,8 @@ SHARD_DIR = os.path.join(REPO, "build", "chip_smoke_shard")
 # (b) cfg 2 x space 2, (c) space 3, (d) cfg 2 x frame 2
 SHARD_RUNS = {"b": (4, 1), "c": (3, 1), "d": (4, 2)}
 SHARD_JOIN_S = 420  # seconds a run may take, builds included
+# the steps of (b)'s dry audits (`shard_dry_audits`, scaled to STEPS)
+SHARD_AUDIT_STEPS = 1
 # card memory of a phase-12 rank once built (13.27-13.45 GiB were read at
 # the request's peak) and while building (25.05 GiB: fp32 weights cast)
 SHARD_BUILT_BYTES = int(13.5 * 2**30)
@@ -2725,17 +2763,20 @@ def _shard_rank(rank: int, world: int, frame: int, store: str, root: str,
     gloo group of `world` ranks on the one card, builds phase 5's pipeline
     (seed 0, bf16) with the inference mesh at 'frame' axis `frame`, the
     ranks one after another (each build holds fp32 weights for a moment),
-    and runs phase 5's request 1 (seed 1, generator 11); writes its mesh,
-    launches, seconds and peak memory, and rank 0 the frames and embeds.
-    `fault`: a planted fault of SHARD_FAULTS."""
+    and runs phase 5's request 1 (seed 1, generator 11) within
+    `core.spatial.recording()`; writes its mesh, launches, collectives,
+    seconds and peak memory, and rank 0 the frames and embeds. `fault`: a
+    planted fault of SHARD_FAULTS."""
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
 
     from rcdms_tpu_torch import ops
+    from rcdms_tpu_torch.core import spatial
     from rcdms_tpu_torch.ops.frame_attention import frame_attention
     from rcdms_tpu_torch.sample.pipeline import build_pipeline, full_configs
+    from rcdms_tpu_torch.tools import comm_audit
     from rcdms_tpu_torch.train import distributed, sharding
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -2769,8 +2810,9 @@ def _shard_rank(rank: int, world: int, frame: int, store: str, root: str,
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        frames, embeds = pipe.generate(req, cache,
-                                       torch.Generator(dev).manual_seed(11))
+        with spatial.recording() as record:
+            frames, embeds = pipe.generate(
+                req, cache, torch.Generator(dev).manual_seed(11))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = ops.launch_counts("story")
@@ -2778,10 +2820,14 @@ def _shard_rank(rank: int, world: int, frame: int, store: str, root: str,
         if rank == 0:
             torch.save(dict(frames=frames.cpu(), embeds=embeds.cpu()),
                        os.path.join(root, "story.pt"))
+        row = dict(mesh=list(mesh[:6]), launches=counts, s=seconds,
+                   build_s=build_s, build_peak_bytes=build_peak,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   comm=comm_audit.summarize(record, STEPS),
+                   comm_sites=comm_audit.summarize(record, STEPS,
+                                                   key="site"))
         with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
-            json.dump(dict(mesh=list(mesh[:6]), launches=counts, s=seconds,
-                           build_s=build_s, build_peak_bytes=build_peak,
-                           peak_bytes=torch.cuda.max_memory_allocated()), fh)
+            json.dump(row, fh)
     finally:
         distributed.shutdown()
 
@@ -2793,8 +2839,10 @@ def shard_ranks(card: str, request1: dict, run: str = "b",
     device) split phase 5's request 1; against phase 5's one-process
     frames (mean and max |diff| within SHARD_MEAN_TOL and SHARD_MAX_TOL)
     and embeds (max |diff| / max |embed| within SHARD_EMBEDS_TOL); every
-    rank launches each of A-D, every B launch tiled. With a planted
-    `fault` (`--shard-faults`) the row is returned unchecked."""
+    rank launches each of A-D, every B launch tiled. Each rank's
+    collectives are in the row (`comm`), held against the dry audit's
+    after phase 16 (`check_shard_comm`). With a planted `fault`
+    (`--shard-faults`) the row is returned unchecked."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -2883,6 +2931,41 @@ def shard_ranks(card: str, request1: dict, run: str = "b",
         raise AssertionError(f"the sharded story differs from phase 5's: "
                              f"{row}")
     return row
+
+
+def shard_dry_audits(world: int, frame: int) -> list:
+    """Each rank's collectives by kind in `comm_audit`'s dry `--full` run
+    of phase 5's pipeline (full width, bf16, a warm CondCache) on the mesh
+    of `world` ranks at 'frame' axis `frame`: rank r of `world` on the
+    meta device, `SHARD_AUDIT_STEPS` steps scaled to STEPS, and the
+    seconds each took (`s`). Host work alone: no tensor on the card."""
+    from rcdms_tpu_torch.tools import comm_audit
+
+    built = comm_audit.build_pipeline(SHARD_AUDIT_STEPS)
+    out = []
+    for rank in range(world):
+        t0 = time.perf_counter()
+        record = comm_audit.audit_full(built, world, frame, rank)
+        out.append(dict(kinds=comm_audit.summarize(
+            record, SHARD_AUDIT_STEPS, STEPS), s=time.perf_counter() - t0))
+    return out
+
+
+def check_shard_comm(run: str, ranks: list, dry: list) -> None:
+    """Each rank's recorded collectives (count and bytes by kind) equal
+    the dry audit's for that rank (`shard_dry_audits`); prints both."""
+    for r, (x, d) in enumerate(zip(ranks, dry, strict=True)):
+        got, want = x["comm"], d["kinds"]
+        print(f"shard ({run}) rank {r} collectives, recorded: "
+              + "; ".join(f"{k} {v['count']} ({v['bytes']} B, in loop "
+                          f"{v['in_loop']})" for k, v in got.items())
+              + f"\n    dry audit ({d['s']:.1f} s): "
+              + "; ".join(f"{k} {v['count']} ({v['bytes']} B, in loop "
+                          f"{v['in_loop']})" for k, v in want.items()),
+              flush=True)
+        if got != want:
+            raise AssertionError(f"phase 12 ({run}) rank {r}'s collectives "
+                                 f"{got} differ from the dry audit's {want}")
 
 
 def run_shard(card: str, entry: dict, request1: dict) -> dict:
@@ -3386,25 +3469,48 @@ def _bench(argv: list, where: str, per_call: bool = True):
     return line, launches
 
 
-def _bench_subprocess(module: str, where: str) -> dict:
-    """`python -m <module> --tiny` on the card in a process of its own: rc
-    0, and its last line parsed."""
+def _bench_subprocesses(runs: dict) -> dict:
+    """`python -m <module> --tiny` on the card for each (where -> module)
+    of `runs`, each in a process of its own, all started together: each
+    rc 0, and its last line parsed. Returns where -> its line and the
+    seconds until all had ended."""
     import subprocess
+    import tempfile
 
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    # files, not pipes: a process whose pipe is full would wait on the other
+    files = {where: (tempfile.TemporaryFile("w+"),
+                     tempfile.TemporaryFile("w+")) for where in runs}
+    procs = {where: subprocess.Popen(
         [sys.executable, "-m", module, "--tiny"], cwd=REPO,
-        env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
-        text=True, timeout=BENCH_TIMEOUT_S)
+        env={**os.environ, "PYTHONPATH": REPO}, stdout=files[where][0],
+        stderr=files[where][1], text=True) for where, module in runs.items()}
+    out = {}
+    try:
+        for where, proc in procs.items():
+            proc.wait(timeout=BENCH_TIMEOUT_S)
+            for f in files[where]:
+                f.seek(0)
+            stdout, stderr = (f.read() for f in files[where])
+            if proc.returncode != 0:
+                raise AssertionError(f"{where}: rc {proc.returncode}:\n"
+                                     f"{stderr[-4000:]}")
+            last = stdout.strip().splitlines()[-1]
+            out[where] = dict(line=json.loads(last))
+            _finite_numbers(out[where]["line"], where)
+            print(f"bench: {where}: {last[:600]}", flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (f for pair in files.values() for f in pair):
+            f.close()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{where}: rc {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    _finite_numbers(line, where)
-    print(f"bench: {where} in {seconds:.1f} s: "
-          f"{proc.stdout.strip().splitlines()[-1][:600]}", flush=True)
-    return dict(line=line, seconds=seconds)
+    print(f"bench: (e) both processes in {seconds:.1f} s", flush=True)
+    for row in out.values():
+        row["seconds"] = seconds
+    return out
 
 
 def run_bench(card: str, step_launches: dict) -> dict:
@@ -3420,7 +3526,7 @@ def run_bench(card: str, step_launches: dict) -> dict:
     and more A launches than (a)'s (the sites under 256 queries), its p50
     printed beside (a)'s; (e) `python -m rcdms_tpu_torch.bench --tiny` and
     `python -m rcdms_tpu_torch.tools.profile_bench --tiny` in processes of
-    their own, each rc 0 with its JSON line parsed. Returns the lines and
+    their own, started together, each rc 0 with its JSON line parsed. Returns the lines and
     each mode's first timed call's launches (`bench_launches`)."""
     from rcdms_tpu_torch import ops
 
@@ -3480,12 +3586,13 @@ def run_bench(card: str, step_launches: dict) -> dict:
           f"(A {auto['attention']})", flush=True)
     result["kernel"], first["kernel"] = line, calls[0]
 
-    result["bench_tiny"] = _bench_subprocess("rcdms_tpu_torch.bench",
-                                             "(e) bench --tiny")
+    tiny = _bench_subprocesses({
+        "(e) bench --tiny": "rcdms_tpu_torch.bench",
+        "(e) profile_bench --tiny": "rcdms_tpu_torch.tools.profile_bench"})
+    result["bench_tiny"] = tiny["(e) bench --tiny"]
+    result["profile_tiny"] = tiny["(e) profile_bench --tiny"]
     if result["bench_tiny"]["line"]["backend"] != "cuda":
         raise AssertionError("(e) bench --tiny did not run on the card")
-    result["profile_tiny"] = _bench_subprocess(
-        "rcdms_tpu_torch.tools.profile_bench", "(e) profile_bench --tiny")
     if result["profile_tiny"]["line"]["device"] != "cuda":
         raise AssertionError("(e) profile_bench --tiny saw no card")
     result["launches"] = first
@@ -3842,6 +3949,100 @@ def run_serve_shard(card: str, served: dict) -> dict:
     return result
 
 
+# ---- phase 16: the measuring tools ported last ------------------------------
+
+TOOLS_REPS = 1  # timed calls a row (`device_row`'s reps)
+TOOLS_TIMEOUT_S = 600  # the phase's process, its library load included
+
+
+def run_tools_process(meanwhile: Callable[[], object]):
+    """Phase 16 in a process of its own (`python3 chip_smoke.py --tools`,
+    the library reused from phase 2's build): after phases 1-15 this
+    process's profiler missed `tools.device_us`'s marker on every try,
+    and a tool runs in a fresh process, as a user runs it. The child
+    checks and prints its rows. `meanwhile()`, work on the host alone,
+    runs here while the child runs; returns what it returned."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--tools"], cwd=REPO)
+    try:
+        result = meanwhile()
+        rc = proc.wait(timeout=TOOLS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 16 (chip_smoke.py --tools): rc {rc}")
+    print(f"tools: phase 16's process took {seconds:.1f} s", flush=True)
+    return result
+
+
+def run_tools(dev, card: str) -> dict:
+    """Phase 16: the pad study's ten products, the conv study's six convs,
+    the conv formulations at level 0 (each within the tool's TOL of cuDNN),
+    the strip study's four heights (finite, A, B and C launched at each)
+    and the chain slope of the level-0 score_pad128 product (finite, above
+    0). Every check is of a result; the times are printed."""
+    from rcdms_tpu_torch.tools import (
+        chainbench,
+        conv_study,
+        conv_variants_study,
+        mxu_pad_study,
+        print_rows,
+        strip_efficiency,
+    )
+
+    print(f"tools on {card}", flush=True)
+    t0 = time.perf_counter()
+    out = dict(card=card)
+    out["mxu_pad"] = mxu_pad_study.run(dev, TOOLS_REPS)
+    print_rows(out["mxu_pad"])
+    out["mxu_pad_ratios"] = mxu_pad_study.print_ratios(out["mxu_pad"])
+    out["conv"] = conv_study.run(dev, TOOLS_REPS)
+    conv_study.print_conv_rows(out["conv"])
+    out["conv_variants"] = conv_variants_study.run(0, dev, TOOLS_REPS)
+    print_rows(out["conv_variants"])
+    off = [r["row"] for r in out["conv_variants"]
+           if r["rel_err"] is not None
+           and not r["rel_err"] <= conv_variants_study.TOL]
+    if off:
+        raise AssertionError(f"conv formulations off cudnn_conv beyond "
+                             f"{conv_variants_study.TOL}: {off}")
+    # event time alone: on an H100 host under load the profiler dropped
+    # records of the forward's ~2,500 kernels a call in all of
+    # `device_us`'s tries (`strip_efficiency.run`)
+    out["strip"] = strip_efficiency.run(dev, reps=2, device_time=False)
+    strip_efficiency.print_strip_rows(out["strip"])
+    bad = [r["h"] for r in out["strip"]
+           if not (r["finite"] and all(r["launches"].values()))]
+    if bad:
+        raise AssertionError(f"strip heights {bad}: outputs not finite or "
+                             f"one of A, B, C not launched")
+    name, m, k, n, b = mxu_pad_study.ROWS[0]
+    x, w = mxu_pad_study.operands(m, k, n, b, dev)
+    slope = chainbench.slope_ms(chainbench.bmm, x, w, reps=2)
+    del x, w
+    row = out["mxu_pad"][0]
+    out["slope"] = dict(row=name, slope_ms=slope, device_ms=row["device_ms"],
+                        event_ms=row["ms"])
+    print(f"chain slope of {name}: {slope:.4f} ms a call (device "
+          f"{row['device_ms']:.4f} ms, event {row['ms']:.4f} ms)",
+          flush=True)
+    if not (math.isfinite(slope) and slope > 0):
+        raise AssertionError(f"the chain slope of {name} is {slope} ms")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tools: phase 16 took {out['seconds']:.1f} s (its budget is "
+          f"120 s)", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_tools.json"), "w") as fh:
+        json.dump(out, fh, indent=1, default=str)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3877,6 +4078,9 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--tools"]:
+        run_tools(dev, card)
         return 0
     if sys.argv[1:] == ["--int8-faults"]:
         rows = int8_faults(dev, card)
@@ -3949,6 +4153,10 @@ def main() -> int:
         "one_rank": serve_shard["one_rank"]["launches"],
         **{f"rank{x['rank']}": x["launches"]
            for x in serve_shard["ranks"]["ranks"]}}
+    _after_phase("phase 15")
+    # phase 12 (b)'s dry audits on the host while phase 16 runs on the card
+    dry = run_tools_process(lambda: shard_dry_audits(*SHARD_RUNS["b"]))
+    check_shard_comm("b", shard["b"]["ranks"], dry)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

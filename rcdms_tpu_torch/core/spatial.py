@@ -24,6 +24,17 @@ ranks that hold the layer's whole input (`spatial(whole=group)`, by
 default the row plan's). Outside the context every layer runs as it does
 alone. The context is a module global, as the JAX package's `_SPMD_MESH`
 (`rcdms_tpu/ops/attention.py`).
+
+Every collective of the sharded paths goes through `collective`: these
+helpers' three sites and the data-parallel sites of `train/sharding.py`
+and `train/distributed.py`. Within `recording()` each one appends a
+`Collective` (its site, kind, dtype, the bytes this rank puts in, its
+group's size, and whether a sampler's step loop issued it, `step_loop`)
+to the recording's list; outside it the collective runs as it is.
+`recording(layout=(rank, world))` is a dry run: the process plays rank
+`rank` of `world` with no process group, and the recorder stands in for
+every collective (none is issued; outputs keep what their buffers hold,
+nothing on the meta device). `tools/comm_audit.py` reads both.
 """
 
 from __future__ import annotations
@@ -51,7 +62,79 @@ class RowGroup(NamedTuple):
 ONE_RANK = RowGroup(None, 1, 0)
 
 
+class Collective(NamedTuple):
+    """One collective as `recording` keeps it: `site` the function that
+    issued it, `kind` "all_gather", "all_reduce" or "all_to_all", `dtype`
+    its tensor's (torch's name without "torch."), `nbytes` what this rank
+    puts in (its input tensor; an all_to_all's whole send buffer, its own
+    piece included), `group` the group's size, `in_loop` whether a
+    sampler's step loop issued it."""
+
+    site: str
+    kind: str
+    dtype: str
+    nbytes: int
+    group: int
+    in_loop: bool
+
+
+# the list of the enclosing `recording` (None outside), the (rank, world)
+# of its dry run (None: the collectives run), and whether a sampler's
+# step loop is running (`step_loop`)
+_RECORD: Optional[List[Collective]] = None
+_LAYOUT: Optional[Tuple[int, int]] = None
+_IN_LOOP = False
+
+
+@contextlib.contextmanager
+def recording(layout: Optional[Tuple[int, int]] = None):
+    """Yields a list that every collective issued within the block is
+    appended to (`Collective`). `layout` (rank, world) makes the block a
+    dry run: no collective is issued, and `dry_layout` (read by
+    `train/distributed.py::rank_and_size`) gives this process that place
+    in a world of `world` ranks."""
+    global _RECORD, _LAYOUT
+    before = _RECORD, _LAYOUT
+    _RECORD, _LAYOUT = [], layout
+    try:
+        yield _RECORD
+    finally:
+        _RECORD, _LAYOUT = before
+
+
+def dry_layout() -> Optional[Tuple[int, int]]:
+    """The (rank, world) of the enclosing dry `recording` (None outside)."""
+    return _LAYOUT
+
+
+@contextlib.contextmanager
+def step_loop():
+    """Marks the collectives issued within the block as a sampler's step
+    loop's (`Collective.in_loop`)."""
+    global _IN_LOOP
+    before, _IN_LOOP = _IN_LOOP, True
+    try:
+        yield
+    finally:
+        _IN_LOOP = before
+
+
+def collective(site: str, kind: str, x: torch.Tensor, group: int,
+               issue) -> None:
+    """Runs `issue()`, the collective of kind `kind` on this rank's input
+    `x` over a group of `group` ranks; within `recording` it is appended
+    to the record first, and in a dry run it is not issued."""
+    if _RECORD is not None:
+        _RECORD.append(Collective(site, kind, str(x.dtype)[6:],
+                                  x.numel() * x.element_size(), group,
+                                  _IN_LOOP))
+    if _LAYOUT is None:
+        issue()
+
+
 def _world_size() -> int:
+    if _LAYOUT is not None:
+        return _LAYOUT[1]
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
@@ -137,13 +220,16 @@ def narrow(x: torch.Tensor, axis: int, group: RowGroup,
     return x.narrow(axis, *table[group.index])
 
 
-def gather_list(x: torch.Tensor, group: RowGroup) -> List[torch.Tensor]:
-    """Every rank's `x` (of one shape on every rank), in rank order."""
+def gather_list(x: torch.Tensor, group: RowGroup,
+                site: str = "gather_list") -> List[torch.Tensor]:
+    """Every rank's `x` (of one shape on every rank), in rank order;
+    `site` names the caller to `recording`."""
     if not _active(group):
         return [x]
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(group.size)]
-    dist.all_gather(parts, x, group=group.handle)
+    collective(site, "all_gather", x, group.size,
+               lambda: dist.all_gather(parts, x, group=group.handle))
     return parts
 
 
@@ -161,7 +247,7 @@ def gather(x: torch.Tensor, axis: int, group: RowGroup,
         shape = list(x.shape)
         shape[axis] = most - x.shape[axis]
         x = torch.cat([x, x.new_zeros(shape)], dim=axis)
-    parts = gather_list(x, group)
+    parts = gather_list(x, group, "gather")
     return torch.cat([p.narrow(axis, 0, n) for p, n in zip(parts, sizes)],
                      dim=axis)
 
@@ -191,7 +277,7 @@ def halo(x: torch.Tensor, axis: int, above: int, below: int,
     last = x.narrow(axis, n - min(above, n), min(above, n))
     edges = torch.cat([first, zeros(below - first.shape[axis]),
                        zeros(above - last.shape[axis]), last], dim=axis)
-    parts = gather_list(edges, plan.group)
+    parts = gather_list(edges, plan.group, "halo")
     total = table[-1][0] + table[-1][1]
 
     def row(j):
@@ -212,20 +298,21 @@ def all_reduce_sum(x: torch.Tensor,
                    group: Optional[RowGroup]) -> torch.Tensor:
     """The sum of `x` over the group's ranks, a new tensor (`x` itself
     with no group or one rank)."""
-    return _all_reduce(x, group, dist.ReduceOp.SUM)
+    return _all_reduce(x, group, dist.ReduceOp.SUM, "all_reduce_sum")
 
 
 def all_reduce_max(x: torch.Tensor,
                    group: Optional[RowGroup]) -> torch.Tensor:
     """The elementwise maximum of `x` over the group's ranks."""
-    return _all_reduce(x, group, dist.ReduceOp.MAX)
+    return _all_reduce(x, group, dist.ReduceOp.MAX, "all_reduce_max")
 
 
-def _all_reduce(x, group, op) -> torch.Tensor:
+def _all_reduce(x, group, op, site: str) -> torch.Tensor:
     if not _active(group):
         return x
     x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x, op=op, group=group.handle)
+    collective(site, "all_reduce", x, group.size,
+               lambda: dist.all_reduce(x, op=op, group=group.handle))
     return x
 
 
@@ -242,8 +329,10 @@ def _all_to_all(pieces: List[torch.Tensor], counts: List[int],
     rank, of `counts` elements (one all_to_all_single, uneven splits)."""
     send = torch.cat([p.reshape(-1) for p in pieces])
     recv = send.new_empty(sum(counts))
-    dist.all_to_all_single(recv, send, counts, [p.numel() for p in pieces],
-                           group=group.handle)
+    collective("all_to_all", "all_to_all", send, group.size,
+               lambda: dist.all_to_all_single(
+                   recv, send, counts, [p.numel() for p in pieces],
+                   group=group.handle))
     return list(recv.split(counts))
 
 

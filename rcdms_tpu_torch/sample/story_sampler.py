@@ -146,24 +146,26 @@ class StorySampler:
         k = self.encoder_propagation
         ts = self.schedule.timesteps(self.num_steps)
         prev_ts = self.schedule.prev_timesteps(self.num_steps)
-        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
-            lat = torch.cat([latents, latents]) if batched else latents
-            x = torch.cat([lat, side], dim=-1).to(dtype)
-            preds = []
-            with spatial.spatial(rows, split, whole):
-                for j, ctx in enumerate(contexts):
-                    pred, caches[j] = self._unet(x, t, ctx, caches[j],
-                                                 k < 2 or i % k == 0)
-                    preds.append(pred)
-            if batched:
-                preds = list(preds[0].chunk(2))
-            elif split_cfg:
-                preds = spatial.gather_list(preds[0], mesh.cfg_group)
-            pred = (cfg_combine(preds[0], preds[1], self.guidance_scale)
-                    if do_cfg else preds[0])
-            noise = step_noise[i].float() if self.eta > 0.0 else None
-            latents = self.schedule.step(pred, t, prev_t, latents,
-                                         eta=self.eta, noise=noise)
+        with spatial.step_loop():
+            for i, (t, prev_t) in enumerate(zip(ts.tolist(),
+                                                prev_ts.tolist())):
+                lat = torch.cat([latents, latents]) if batched else latents
+                x = torch.cat([lat, side], dim=-1).to(dtype)
+                preds = []
+                with spatial.spatial(rows, split, whole):
+                    for j, ctx in enumerate(contexts):
+                        pred, caches[j] = self._unet(x, t, ctx, caches[j],
+                                                     k < 2 or i % k == 0)
+                        preds.append(pred)
+                if batched:
+                    preds = list(preds[0].chunk(2))
+                elif split_cfg:
+                    preds = spatial.gather_list(preds[0], mesh.cfg_group)
+                pred = (cfg_combine(preds[0], preds[1], self.guidance_scale)
+                        if do_cfg else preds[0])
+                noise = step_noise[i].float() if self.eta > 0.0 else None
+                latents = self.schedule.step(pred, t, prev_t, latents,
+                                             eta=self.eta, noise=noise)
         latents = spatial.gather(latents, 2, space, row_table)
         return spatial.gather(latents, 1, frames, frame_table)
 

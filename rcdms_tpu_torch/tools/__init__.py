@@ -22,6 +22,20 @@ products) time each row both ways, device time first (`device_row`):
     python -m rcdms_tpu_torch.tools.qkv_fusion_study
     python -m rcdms_tpu_torch.tools.int8_study
 
+The root tools of the JAX package that ask the card a question too: the
+head-dim pads of the tensor cores, cuDNN's convs and the conv written as
+cuBLAS products, a UNet forward on strips of rows, and the chain slope
+(`chainbench.slope_ms`, over CUDA graphs); `comm_audit` counts the
+collectives of the sharded paths on the CPU, in dry runs on the meta
+device:
+
+    python -m rcdms_tpu_torch.tools.mxu_pad_study
+    python -m rcdms_tpu_torch.tools.conv_study
+    python -m rcdms_tpu_torch.tools.conv_variants_study --level 0
+    python -m rcdms_tpu_torch.tools.strip_efficiency
+    python -m rcdms_tpu_torch.tools.chainbench
+    python -m rcdms_tpu_torch.tools.comm_audit [--full | --train]
+
 `conv_device_times` prints the conv kernel's device time by kernel beside
 cuDNN's, `smallk_device_times` kernel E's at the studies' seven rows
 beside SDPA's (a parent checkout's in turns with `--parent`),
@@ -181,23 +195,41 @@ def median_ms(fn, reps: int = 10) -> float:
 MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
 
 
+def _read_calls(kernels: list, reps: int):
+    """(`per_call_us`'s times or None, why not: None or a description)."""
+    kernels = sorted(kernels, key=lambda k: k[1])
+    marks = [i for i, k in enumerate(kernels) if MARKER in k[0]]
+    if len(marks) != 1:
+        return None, (f"{len(marks)} markers among {len(kernels)} "
+                      f"kernels")
+    times, counts = collections.Counter(), collections.Counter()
+    for name, _, us in kernels[marks[0] + 1:]:
+        times[name] += us / reps
+        counts[name] += 1
+    if not times:
+        return None, "no kernel after the marker"
+    off = {name: n for name, n in counts.items() if n % reps}
+    if off:
+        return None, (f"counts after the marker no multiple of {reps}: "
+                      f"{off}")
+    return dict(times), None
+
+
 def per_call_us(kernels: list, reps: int) -> dict[str, float] | None:
     """Microseconds a call by kernel name from a profile's kernels, (name,
     start, duration in us) each, that ran warm-up calls, one marker kernel
     (`MARKER`) and then `reps` calls: the kernels that start after the
     marker, over reps. None where the marker is not seen once, or a
-    kernel is seen a number of times that is no multiple of reps."""
-    kernels = sorted(kernels, key=lambda k: k[1])
-    marks = [i for i, k in enumerate(kernels) if MARKER in k[0]]
-    if len(marks) != 1:
-        return None
-    times, counts = collections.Counter(), collections.Counter()
-    for name, _, us in kernels[marks[0] + 1:]:
-        times[name] += us / reps
-        counts[name] += 1
-    if not times or any(n % reps for n in counts.values()):
-        return None
-    return dict(times)
+    kernel is seen a number of times that is no multiple of reps
+    (`profile_fault` says which)."""
+    return _read_calls(kernels, reps)[0]
+
+
+def profile_fault(kernels: list, reps: int) -> str | None:
+    """Why `per_call_us` refuses these kernels: the markers seen and the
+    kernels in all, or the kernels whose counts after the marker are no
+    multiple of reps. None where it reads them."""
+    return _read_calls(kernels, reps)[1]
 
 
 def device_us(fn, reps: int = 20, tries: int = 3,
@@ -208,10 +240,12 @@ def device_us(fn, reps: int = 20, tries: int = 3,
     were unseen in some profiles on the H100), so each profile runs `warm`
     calls, a marker kernel and then the `reps` calls it reads
     (`per_call_us`). A profile without the marker or with a partial call
-    is taken again, up to `tries` times, then this raises."""
+    is taken again, up to `tries` times, then this raises with each try's
+    fault (`profile_fault`)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    faults = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(warm):
@@ -220,13 +254,15 @@ def device_us(fn, reps: int = 20, tries: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = per_call_us([(e.key, e.time_range.start, e.device_time_total)
-                             for e in prof.events()
-                             if e.device_type == DeviceType.CUDA], reps)
+        times, fault = _read_calls(
+            [(e.key, e.time_range.start, e.device_time_total)
+             for e in prof.events() if e.device_type == DeviceType.CUDA],
+            reps)
         if times is not None:
             return times
+        faults.append(fault)
     raise RuntimeError(f"the profiler saw no marker or not every call's "
-                       f"kernels in {tries} tries")
+                       f"kernels in {tries} tries: {'; '.join(faults)}")
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -249,17 +285,19 @@ def timed_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
 
 def device_row(study: str, name: str, dtype: torch.dtype, shape: str, fn,
                ref, flops: float, nbytes: float = 0.0, reps: int = 10,
-               **extra) -> dict:
+               kernels: dict | None = None, **extra) -> dict:
     """A study row timed two ways: `device_ms`, the profiler's device time
     of one call summed over its kernels (`kernels`: us a call by kernel
-    name), and `ms`, its event time (`median_ms`: the wrapper's host time
-    included). The rate (TFLOP/s of `flops`) and the share of the bound
-    (`bound_ms` of flops and nbytes) are by device time. fn's output is
-    held against ref first (`rel_err`; ref None: timed only), so a wrong
-    result cannot pass for a time; a device time under the bound raises."""
+    name, `device_us(fn, 2 * reps)`'s unless the caller took it), and
+    `ms`, its event time (`median_ms`: the wrapper's host time included).
+    The rate (TFLOP/s of `flops`) and the share of the bound (`bound_ms`
+    of flops and nbytes) are by device time. fn's output is held against
+    ref first (`rel_err`; ref None: timed only), so a wrong result cannot
+    pass for a time; a device time under the bound raises."""
     err = None if ref is None else rel_err(fn(), ref)
     bound, bound_by = bound_ms(flops, 0.0, nbytes, dtype)
-    kernels = device_us(fn, reps=2 * reps)
+    if kernels is None:
+        kernels = device_us(fn, reps=2 * reps)
     device_ms = sum(kernels.values()) / 1e3
     if device_ms < bound:
         raise RuntimeError(f"{study} {name}: device time {device_ms:.4f} ms "

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from rcdms_tpu_torch.core import spatial
+
 logger = logging.getLogger("rcdms_tpu_torch.distributed")
 
 # the gloo group of host-side flags; it lives and dies with the default
@@ -93,15 +95,20 @@ def shutdown() -> None:
 
 
 def rank_and_size() -> Tuple[int, int]:
-    """(this process's rank, the world size): (0, 1) with no group."""
+    """(this process's rank, the world size): (0, 1) with no group, the
+    layout of a dry run within `core.spatial.recording(layout)`."""
+    if spatial.dry_layout() is not None:
+        return spatial.dry_layout()
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
 def active() -> bool:
-    """Whether a process group exists (of any size, one rank included)."""
-    return dist.is_available() and dist.is_initialized()
+    """Whether a process group exists (of any size, one rank included), or
+    a dry run plays one (`rank_and_size`)."""
+    return (spatial.dry_layout() is not None
+            or dist.is_available() and dist.is_initialized())
 
 
 def host_group():
@@ -117,8 +124,9 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     if not active():
         return x
     x = x.clone()
-    dist.all_reduce(x)
-    return x / dist.get_world_size()
+    spatial.collective("mean_over_ranks", "all_reduce", x,
+                       rank_and_size()[1], lambda: dist.all_reduce(x))
+    return x / rank_and_size()[1]
 
 
 def keep_rows(draw, local_shape: tuple) -> torch.Tensor:

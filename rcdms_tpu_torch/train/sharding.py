@@ -34,7 +34,13 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from rcdms_tpu_torch.core.spatial import ONE_RANK, RowGroup, gather_list
+from rcdms_tpu_torch.core import spatial
+from rcdms_tpu_torch.core.spatial import (
+    ONE_RANK,
+    RowGroup,
+    collective,
+    gather_list,
+)
 from rcdms_tpu_torch.train import distributed
 
 CHUNK = 1 << 27  # elements of a foreach list or a flat bucket (0.5 GB fp32)
@@ -118,7 +124,8 @@ class Shards:
         for run in chunks(list(tensors), tensors):
             part = [tensors[n] for n in run]
             flat = _flat(part)
-            dist.all_reduce(flat)
+            collective("all_reduce_mean_", "all_reduce", flat, self.world,
+                       lambda: dist.all_reduce(flat))
             flat /= self.world
             _unflatten_into(flat, part)
 
@@ -132,7 +139,8 @@ class Shards:
         for run in chunks(list(mine), mine, CHUNK // self.world):
             flat = _flat([mine[n] for n in run])
             parts = [torch.empty_like(flat) for _ in range(self.world)]
-            dist.all_gather(parts, flat)
+            collective("all_gather_", "all_gather", flat, self.world,
+                       lambda: dist.all_gather(parts, flat))
             for r, part in enumerate(parts):
                 _unflatten_into(part, [self.cut(n, full[n], r) for n in run])
 
@@ -146,7 +154,9 @@ class Shards:
         if axis is None:
             return cut.cpu() if self.rank == 0 else None
         parts = [torch.empty_like(cut) for _ in range(self.world)]
-        dist.all_gather(parts, cut.contiguous())
+        cut = cut.contiguous()
+        collective("gather_to_host", "all_gather", cut, self.world,
+                   lambda: dist.all_gather(parts, cut))
         if self.rank != 0:
             return None
         shape = list(cut.shape)
@@ -166,7 +176,8 @@ class Shards:
         table = torch.zeros((self.world, len(names)), dtype=norms.dtype,
                             device=norms.device)
         table[self.rank] = norms
-        dist.all_reduce(table)
+        collective("global_norm", "all_reduce", table, self.world,
+                   lambda: dist.all_reduce(table))
         cut = torch.tensor([self.axis[n] is not None for n in names],
                            device=norms.device)
         full = torch.where(cut, torch.linalg.vector_norm(table, dim=0),
@@ -220,8 +231,11 @@ def inference_mesh(frame: int = 1) -> StoryMesh:
     """The mesh of sharded single-story inference over the process group
     (`distributed.maybe_initialize`), or over this process alone (a
     one-rank mesh) with no group; `frame` as `mesh_shape`'s. Every rank
-    makes every group in the same order, as `dist.new_group` needs."""
+    makes every group in the same order, as `dist.new_group` needs. In a
+    dry run (`core.spatial.recording(layout)`) the layout places this
+    process, no group is made and the groups have no handle."""
     rank, world = distributed.rank_and_size()
+    dry = spatial.dry_layout() is not None
     cfg, frame, space = mesh_shape(world, frame)
     c, rest = divmod(rank, frame * space)
     fr, s = divmod(rest, space)
@@ -237,7 +251,7 @@ def inference_mesh(frame: int = 1) -> StoryMesh:
             ranks = members(key)
             if len(ranks) == 1:
                 continue
-            handle = dist.new_group(ranks)
+            handle = None if dry else dist.new_group(ranks)
             if key == mine:
                 found = RowGroup(handle, len(ranks), ranks.index(rank))
         return found

@@ -979,3 +979,41 @@ def test_cuda_train_stage2_run_matches_the_cpu(cuda, tmp_path, monkeypatch):
     assert len(losses["cpu"]) == 3
     for a, b in zip(losses["cpu"], losses["cuda"]):
         assert abs(a - b) <= 1e-4 * abs(a), losses
+
+
+# ---- the measuring tools ported last (rcdms_tpu_torch/tools/) ---------------
+
+@pytest.mark.gpu
+def test_cuda_slope_ms_refuses_a_callable_it_cannot_capture(cuda):
+    """A call that reads the card's result on the host cannot be captured
+    in a CUDA graph: `slope_ms` raises, and a capturable call still gives
+    a slope above 0 after it."""
+    from rcdms_tpu_torch.tools import chainbench
+
+    x = torch.randn(64, 64, device=cuda)
+
+    def reads_the_host(t, w):
+        return t @ w * float(t.abs().max())
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        chainbench.slope_ms(reads_the_host, x, x, n1=2, n2=4, reps=1)
+    torch.cuda.synchronize()
+    assert chainbench.slope_ms(torch.matmul, x, x, n1=2, n2=6, reps=2) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_conv_formulations_level1_match_cudnn(cuda):
+    """Every formulation of `conv_variants_study` at level 1 (10 x 32 x 32,
+    640 -> 640, bf16) within 2e-2 of cuDNN's conv."""
+    from rcdms_tpu_torch.tools import conv_variants_study as cv
+
+    x, w = cv.operands(1, cuda)
+    ref = cv.cudnn_conv(x, w)
+    for name, fn in cv.FORMULATIONS.items():
+        if name == "taps9_cm":
+            out = fn(x.permute(0, 3, 1, 2).contiguous(), w).permute(
+                0, 2, 3, 1)
+        else:
+            out = fn(x, w)
+        assert out.shape == ref.shape, name
+        assert _rel(out, ref) <= TOL[torch.bfloat16], name

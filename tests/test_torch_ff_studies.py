@@ -250,6 +250,25 @@ def test_per_call_us_refuses_a_partial_profile(drop):
     assert tools.per_call_us(kernels, reps) is None
 
 
+@pytest.mark.parametrize("drop", ["marker", "a call's kernel", "calls"])
+def test_profile_fault_names_what_the_profile_missed(drop):
+    """`tools.profile_fault`, which `device_us` raises with: the markers
+    seen, the kernels whose counts are off, or no kernel after the
+    marker; None on a whole profile."""
+    reps = 4
+    timed = [(n, 30 + 2 * i + j, 1.0) for i in range(reps)
+             for j, n in enumerate("ab")]
+    marker = [(tools.MARKER, 20, 0.5)]
+    assert tools.profile_fault(marker + timed, reps) is None
+    kernels = {"marker": timed, "a call's kernel": marker + timed[1:],
+               "calls": marker}[drop]
+    assert tools.profile_fault(kernels, reps) == {
+        "marker": "0 markers among 8 kernels",
+        "a call's kernel": "counts after the marker no multiple of 4: "
+                           "{'a': 3}",
+        "calls": "no kernel after the marker"}[drop]
+
+
 # --- prior_ff_study -------------------------------------------------------
 
 
