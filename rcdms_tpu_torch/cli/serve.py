@@ -12,15 +12,24 @@ those that arrive within --max-wait-ms (up to --max-batch) into one
 `generate` call, and answers each. Handler threads decode and encode PNGs
 and build inputs on the CPU; they never touch the device.
 
-API (the JAX server's):
+API (the JAX server's; the keys after `avg_latency_s` are the port's):
   GET  /healthz   -> {"status": "ok", "num_frames": f, "image_size": px,
                       "compiled": [batch sizes run so far], "served": N,
-                      "pending": N, "avg_latency_s": s}
+                      "pending": N, "avg_latency_s": s,
+                      "avg_queue_wait_s": s, "max_queue_wait_s": s,
+                      "batches_by_size": {"size": served batches},
+                      "cond_cache": {"hits": N, "misses": N,
+                                     "uncached": batches}}
   POST /generate  -> body {"captions": [str x f],
                            "reference_frames": [base64 image, ...],  # 0..f
                            "negative_prompt": str, "seed": int}
                   -> {"frames": [base64 PNG x f], "latency_s": float,
                       "batch_size": int}
+The means are over the served requests: from submit to the answer, and to
+the dispatch thread's take off the queue. `batches_by_size` counts the
+served batches by size; `cond_cache` the CondCache lookups that hit and
+missed, and the batches that ran uncached (their negative prompts
+differ).
 Errors: 400 for a malformed request (wrong caption count, a seed outside
 [0, 2**64), a reference frame that `sample/eval.py::decode_png` does not
 read or of more than `MAX_REFERENCE_PIXELS` pixels: it reads every PNG
@@ -84,6 +93,7 @@ import argparse
 import base64
 import collections
 import hashlib
+import itertools
 import json
 import queue
 import threading
@@ -100,6 +110,7 @@ from rcdms_tpu_torch.cli.evaluate import parse_args as eval_parse_args
 from rcdms_tpu_torch.sample.eval import decode_png, encode_png
 from rcdms_tpu_torch.sample.pipeline import StoryInputs, StoryNoise
 from rcdms_tpu_torch.train import distributed
+from rcdms_tpu_torch.utils.logging import span
 
 COND_CACHES = 8  # negative prompts whose CondCache stays warm
 # the most pixels a reference frame may have: 8x the side of the dataset's
@@ -111,6 +122,7 @@ MAX_REFERENCE_PIXELS = 4096 * 4096
 # default), which a follower waiting for its next batch would otherwise
 # run out
 HEARTBEAT_S = 60.0
+_REQUEST_IDS = itertools.count(1)  # this process's requests
 
 
 def parse_args(argv=None):
@@ -143,7 +155,7 @@ def _decode_b64_image(data: str) -> np.ndarray:
 
 class _Request:
     __slots__ = ("inputs", "seed", "done", "frames", "error", "batch_size",
-                 "t0")
+                 "t0", "t_taken", "id")
 
     def __init__(self, inputs: StoryInputs, seed: int):
         self.inputs = inputs  # batch-1 StoryInputs on the CPU
@@ -153,6 +165,15 @@ class _Request:
         self.error = None
         self.batch_size = 0
         self.t0 = time.monotonic()
+        # when the dispatch thread took it off the queue (a request run
+        # without the queue waited none)
+        self.t_taken = self.t0
+        self.id = next(_REQUEST_IDS)  # in its batch's spans
+
+
+def _ids(batch) -> dict:
+    """The request ids of a batch, as its spans carry them."""
+    return {"requests": ",".join(str(r.id) for r in batch)}
 
 
 def _digest(noise: StoryNoise) -> str:
@@ -195,6 +216,12 @@ class StoryServer:
             maxsize=max(1, max_queue))
         self.served = 0
         self.total_latency_s = 0.0
+        # seconds from submit to the dispatch thread's take, of the served
+        self.queue_wait_s = 0.0
+        self.queue_wait_max_s = 0.0
+        self.batches_by_size = {}  # served batches: size -> count
+        self.cond_cache_hits = self.cond_cache_misses = 0
+        self.uncached_batches = 0  # uncond rows differ: no CondCache
         self._stop = threading.Event()
         self.worker = threading.Thread(target=self._loop, daemon=True)
 
@@ -252,16 +279,19 @@ class StoryServer:
             first = self.queue.get(timeout=0.2)
         except queue.Empty:
             return []
+        first.t_taken = time.monotonic()
         batch = [first]
-        deadline = time.monotonic() + self.max_wait_s
+        deadline = first.t_taken + self.max_wait_s
         while len(batch) < self.max_batch:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
             try:
-                batch.append(self.queue.get(timeout=remaining))
+                r = self.queue.get(timeout=remaining)
             except queue.Empty:
                 break
+            r.t_taken = time.monotonic()
+            batch.append(r)
         return batch
 
     def _loop(self):
@@ -320,7 +350,9 @@ class StoryServer:
         key = row.numpy().tobytes()
         if key in self._cond_caches:
             self._cond_caches.move_to_end(key)
+            self.cond_cache_hits += 1
         else:
+            self.cond_cache_misses += 1
             self._cond_caches[key] = common.cond_cache_from_row(
                 self.pipeline, self.ds_cfg, row, row)
             if len(self._cond_caches) > COND_CACHES:
@@ -329,24 +361,30 @@ class StoryServer:
 
     def _generate(self, batch) -> torch.Tensor:
         """One `generate` call over the batch's requests, each with its own
-        generator; returns the (b, f, H, W, 3) fp32 frames on the CPU."""
+        generator; returns the (b, f, H, W, 3) fp32 frames on the
+        pipeline's device."""
         with torch.no_grad():
-            stacked = StoryInputs(*(torch.cat(parts) for parts in
-                                    zip(*(r.inputs for r in batch))))
-            rows = stacked.tokens_s1_u.reshape(-1,
-                                               stacked.tokens_s1_u.shape[-1])
-            cache = (self._cond_cache(rows[0]) if (rows == rows[0]).all()
-                     else None)
-            noise = StoryNoise.cat(
-                StoryNoise.draw(self.pipeline, 1, torch.Generator(
-                    self.device).manual_seed(r.seed), self.ds_cfg.image_size)
-                for r in batch)
-            inputs = StoryInputs(*(t.to(self.device) for t in stacked))
+            with span("serve.assemble", _ids(batch)):
+                stacked = StoryInputs(*(torch.cat(parts) for parts in
+                                        zip(*(r.inputs for r in batch))))
+                rows = stacked.tokens_s1_u.reshape(
+                    -1, stacked.tokens_s1_u.shape[-1])
+                if (rows == rows[0]).all():
+                    cache = self._cond_cache(rows[0])
+                else:
+                    cache = None
+                    self.uncached_batches += 1
+                noise = StoryNoise.cat(
+                    StoryNoise.draw(self.pipeline, 1, torch.Generator(
+                        self.device).manual_seed(r.seed),
+                        self.ds_cfg.image_size)
+                    for r in batch)
+                inputs = StoryInputs(*(t.to(self.device) for t in stacked))
             frames, _ = self.pipeline.generate(inputs, cache, noise=noise)
             if self.world > 1:
                 self._agree(_digest(noise))
             self.compiled_batches.add(len(batch))
-            return frames.float().cpu()
+            return frames
 
     def _agree(self, digest: str) -> None:
         """Every rank's noise digest against rank 0's, after a batch: a
@@ -367,14 +405,22 @@ class StoryServer:
         if self.world > 1:
             self._tell(("batch", [(r.inputs, r.seed) for r in batch]))
         frames = self._generate(batch)
-        u8 = (frames * 255.0).round().clamp(0, 255).to(torch.uint8).numpy()
+        with span("serve.copy_out", _ids(batch)):
+            frames = frames.float().cpu()
+            u8 = (frames * 255.0).round().clamp(0, 255).to(
+                torch.uint8).numpy()
         # stats change only here, on the dispatch thread
         for i, r in enumerate(batch):
             r.frames = u8[i]
             r.batch_size = len(batch)
             self.total_latency_s += time.monotonic() - r.t0
+            wait = r.t_taken - r.t0
+            self.queue_wait_s += wait
+            self.queue_wait_max_s = max(self.queue_wait_max_s, wait)
             r.done.set()
         self.served += len(batch)
+        self.batches_by_size[len(batch)] = \
+            self.batches_by_size.get(len(batch), 0) + 1
         return frames
 
 
@@ -408,6 +454,14 @@ class Handler(BaseHTTPRequestHandler):
             "pending": server.queue.qsize(),
             "avg_latency_s": round(
                 server.total_latency_s / max(1, server.served), 4),
+            "avg_queue_wait_s": round(
+                server.queue_wait_s / max(1, server.served), 4),
+            "max_queue_wait_s": round(server.queue_wait_max_s, 4),
+            "batches_by_size": {str(k): v for k, v in
+                                sorted(server.batches_by_size.items())},
+            "cond_cache": {"hits": server.cond_cache_hits,
+                           "misses": server.cond_cache_misses,
+                           "uncached": server.uncached_batches},
         })
 
     def do_POST(self):

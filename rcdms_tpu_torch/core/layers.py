@@ -35,6 +35,7 @@ from rcdms_tpu_torch.ops.quant import (
     int8_conv3x3,
     int8_enabled,
 )
+from rcdms_tpu_torch.utils.logging import recording, span
 
 # flax's lecun_normal: a normal truncated at 2 sigma, rescaled to keep the
 # variance 1 / fan_in (stddev of the unit normal truncated at +-2)
@@ -123,6 +124,12 @@ class GroupNorm(_Fp32Params, nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not recording():  # cheaper than a span that records nothing
+            return self._norm(x)
+        with span("norm"):
+            return self._norm(x)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         c, g = x.shape[-1], self.num_groups
         xf = x.float()
         plan = spatial.row_plan()
@@ -152,6 +159,12 @@ class LayerNorm(_Fp32Params, nn.LayerNorm):
     and bias stay fp32 in any model dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not recording():  # cheaper than a span that records nothing
+            return self._norm(x)
+        with span("norm"):
+            return self._norm(x)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(x.dtype)
@@ -189,8 +202,9 @@ class FeedForward(nn.Module):
             fn = geglu_ff_plain if geglu else gelu_ff_plain
         proj_in, proj_out = self.net[0].proj, self.net[2]
         # the JAX package's FF casts its input to the model dtype
-        return fn(x.to(proj_in.weight.dtype), proj_in.weight, proj_in.bias,
-                  proj_out.weight, proj_out.bias)
+        with span("ff"):
+            return fn(x.to(proj_in.weight.dtype), proj_in.weight,
+                      proj_in.bias, proj_out.weight, proj_out.bias)
 
 
 class Conv(nn.Conv2d):

@@ -30,6 +30,7 @@ from rcdms_tpu_torch.core.layers import (
     sinusoidal_time_embedding,
 )
 from rcdms_tpu_torch.core.temporal import TemporalModule
+from rcdms_tpu_torch.utils.logging import span
 
 NEG_INF = -10000.0  # the reference's additive-mask value
 
@@ -69,35 +70,37 @@ class FramePrior(nn.Module):
 
     def forward(self, x_t, timesteps, text_embed, text_hidden, image_embed,
                 mask_embed, text_mask):
-        cfg = self.cfg
-        b, f, _ = x_t.shape
-        inner, seq = cfg.inner_dim, cfg.seq_len
-        dtype = x_t.dtype
+        with span("prior"):
+            cfg = self.cfg
+            b, f, _ = x_t.shape
+            inner, seq = cfg.inner_dim, cfg.seq_len
+            dtype = x_t.dtype
 
-        # the time MLP is fp32, so h (and with it the residual stream of
-        # every block) is fp32 in a bf16 model, as jnp's promotion makes it
-        t_emb = sinusoidal_time_embedding(timesteps.reshape(b * f), inner)
-        t_emb = self.time_embedding(t_emb.to(dtype)).reshape(b, f, 1, inner)
-        h = torch.cat([
-            self.encoder_hidden_states_proj(text_hidden),
-            self.embedding_proj(text_embed)[:, :, None],
-            self.embedding_proj1(image_embed)[:, :, None],
-            self.embedding_proj2(mask_embed)[:, :, None],
-            t_emb,
-            self.proj_in(x_t)[:, :, None],
-            self.prd_embedding.to(dtype).expand(b, f, 1, inner),
-        ], dim=2) + self.positional_embedding.to(dtype)
+            # the time MLP is fp32, so h (and with it the residual stream of
+            # every block) is fp32 in a bf16 model, as jnp's promotion makes it
+            t_emb = sinusoidal_time_embedding(timesteps.reshape(b * f), inner)
+            t_emb = self.time_embedding(t_emb.to(dtype)).reshape(b, f, 1,
+                                                                 inner)
+            h = torch.cat([
+                self.encoder_hidden_states_proj(text_hidden),
+                self.embedding_proj(text_embed)[:, :, None],
+                self.embedding_proj1(image_embed)[:, :, None],
+                self.embedding_proj2(mask_embed)[:, :, None],
+                t_emb,
+                self.proj_in(x_t)[:, :, None],
+                self.prd_embedding.to(dtype).expand(b, f, 1, inner),
+            ], dim=2) + self.positional_embedding.to(dtype)
 
-        causal = torch.full((seq, seq), NEG_INF, device=h.device).triu(1)
-        pad = (1.0 - text_mask.float()) * NEG_INF  # (b, f, T)
-        pad = nn.functional.pad(pad, (0, seq - cfg.num_text_tokens))
-        mask = pad[:, :, None, None, :] + causal   # (b, f, 1, seq, seq)
+            causal = torch.full((seq, seq), NEG_INF, device=h.device).triu(1)
+            pad = (1.0 - text_mask.float()) * NEG_INF  # (b, f, T)
+            pad = nn.functional.pad(pad, (0, seq - cfg.num_text_tokens))
+            mask = pad[:, :, None, None, :] + causal   # (b, f, 1, seq, seq)
 
-        for i in range(0, len(self.transformer_blocks), 2):
-            h = self.transformer_blocks[i](h, mask=mask)
-            h = self.transformer_blocks[i + 1](h)
-        out = self.proj_to_clip_embeddings
-        return out(self.norm_out(h)[:, :, -1].to(out.weight.dtype))
+            for i in range(0, len(self.transformer_blocks), 2):
+                h = self.transformer_blocks[i](h, mask=mask)
+                h = self.transformer_blocks[i + 1](h)
+            out = self.proj_to_clip_embeddings
+            return out(self.norm_out(h)[:, :, -1].to(out.weight.dtype))
 
     def normalize(self, emb: torch.Tensor) -> torch.Tensor:
         """The training target: (emb - clip_mean) / clip_std."""

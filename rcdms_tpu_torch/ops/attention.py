@@ -26,6 +26,7 @@ import torch
 from rcdms_tpu_torch.ops import impl
 from rcdms_tpu_torch.ops.flash import MAX_HEAD_DIM, _split_heads, \
     flash_attention
+from rcdms_tpu_torch.utils.logging import span
 
 MIN_KERNEL_QUERIES = 256
 
@@ -67,10 +68,13 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     calls `flash_attention_nt` (`core/attention.py`), "fp32" where it calls
     `ops.attention.dot_product_attention` (CLIP, the VAE). `queries`: the
     site's whole query count where q holds a block of it (default q's)."""
-    dh = q.shape[-1] // heads
-    if uses_kernel(q.dtype, dh, queries or q.shape[-2], mask is not None) \
-            and impl.routes_to_wrapper("flash_attention", q.device):
-        return flash_attention(q, k, v, heads, row_sum=row_sum)
-    o = dot_product_attention(_split_heads(q, heads), _split_heads(k, heads),
-                              _split_heads(v, heads), mask)
-    return o.transpose(-3, -2).reshape(q.shape[:-1] + (heads * dh,))
+    with span("attention"):
+        dh = q.shape[-1] // heads
+        if uses_kernel(q.dtype, dh, queries or q.shape[-2],
+                       mask is not None) \
+                and impl.routes_to_wrapper("flash_attention", q.device):
+            return flash_attention(q, k, v, heads, row_sum=row_sum)
+        o = dot_product_attention(_split_heads(q, heads),
+                                  _split_heads(k, heads),
+                                  _split_heads(v, heads), mask)
+        return o.transpose(-3, -2).reshape(q.shape[:-1] + (heads * dh,))

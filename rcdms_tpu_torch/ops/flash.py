@@ -41,6 +41,7 @@ import torch
 
 from rcdms_tpu_torch.ops import _build
 from rcdms_tpu_torch.ops._grad import differentiable
+from rcdms_tpu_torch.utils.logging import recording, span
 
 MAX_HEAD_DIM = 256
 ROW_SUMS = ("rounded", "fp32")
@@ -184,6 +185,15 @@ def _attention(q, k, v, heads: int, scale: float,
     """A's forward: the plain version on the CPU, the kernel on a card."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, heads, scale, row_sum=row_sum)
+    # an empty block of a split map launches nothing, in no span
+    if not (q.numel() and recording()):
+        return _launch(q, k, v, heads, scale, row_sum)
+    with span("launch.flash_attention"):
+        return _launch(q, k, v, heads, scale, row_sum)
+
+
+def _launch(q, k, v, heads: int, scale: float, row_sum: str) -> torch.Tensor:
+    """A's kernel on a card, from its operand checks to its launch."""
     dh = q.shape[-1] // heads
     dtype = _build.cuda_operands("flash_attention", q, k, v)
     if q.numel() == 0:  # an empty block of a split map: nothing to launch

@@ -30,6 +30,7 @@ import torch
 
 from rcdms_tpu_torch.ops import _build
 from rcdms_tpu_torch.ops._grad import differentiable
+from rcdms_tpu_torch.utils.logging import recording, span
 
 MAX_FRAMES = 8
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -183,6 +184,15 @@ def _frame_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     """B's forward: the plain version on the CPU, a kernel on a card."""
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads, scale)
+    # an empty block of a split story launches nothing, in no span
+    if not (q.numel() and recording()):
+        return _launch(q, k, v, heads, scale)
+    with span("launch.frame_attention"):
+        return _launch(q, k, v, heads, scale)
+
+
+def _launch(q, k, v, heads: int, scale: float) -> torch.Tensor:
+    """B's kernel on a card, from its operand checks to its launch."""
     b, f, n, c = q.shape
     dtype = _build.cuda_operands("frame_attention", q, k, v)
     if q.numel() == 0:  # an empty block of a split story: nothing to launch

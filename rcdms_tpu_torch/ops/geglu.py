@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from rcdms_tpu_torch.ops import _build
 from rcdms_tpu_torch.ops._grad import differentiable
+from rcdms_tpu_torch.utils.logging import recording, span
 
 BM, BK, STAGES = 128, 64, 4  # rows a block, K a stage, depth of the ring
 SMS = 132                    # an H100 SXM's multiprocessors: one wave
@@ -202,6 +203,16 @@ def _forward(geglu: bool, x, w1, b1, w2, b2) -> torch.Tensor:
         plain = geglu_ff_plain if geglu else gelu_ff_plain
         return plain(x, w1, b1, w2, b2)
     op = geglu_ff if geglu else gelu_ff
+    # an empty block of a split story launches nothing, in no span
+    if not (x.numel() and recording()):
+        return _launch(op, geglu, x, w1, b1, w2, b2)
+    with span("launch." + op.__name__):
+        return _launch(op, geglu, x, w1, b1, w2, b2)
+
+
+def _launch(op, geglu: bool, x, w1, b1, w2, b2) -> torch.Tensor:
+    """C's or D's kernels on a card, from the operand checks to the last
+    launch, counted in `op.launches`."""
     out = _ff(op.__name__, geglu, x, w1, b1, w2, b2)
     if x.numel():  # an empty block of a split story launches nothing
         op.launches += 1

@@ -31,6 +31,7 @@ every rank.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Mapping, NamedTuple, Optional
 
 import torch
@@ -62,6 +63,7 @@ from rcdms_tpu_torch.sample.story_sampler import (
     StoryConditioning,
     StorySampler,
 )
+from rcdms_tpu_torch.utils.logging import span
 
 
 class StoryInputs(NamedTuple):
@@ -196,6 +198,9 @@ def padding_mask(tokens: torch.Tensor, eos_token_id: int) -> torch.Tensor:
                        torch.ones_like(mask))
 
 
+# `generate`'s calls in this process, numbered in its span
+_CALLS = itertools.count(1)
+
 # the towers of a pipeline: attribute (the JAX package's parameter key) ->
 # module class, built from the config of the same name
 _TOWERS = {"text_s1": CLIPTextEncoder, "text_s2": CLIPTextEncoder,
@@ -308,6 +313,12 @@ class StoryPipeline(nn.Module):
         `data/protocol.py::build_story_example`). The mask of the stage-1
         uncond states still comes from `inputs.tokens_s1_u`, as the
         reference builds it."""
+        b = inputs.frame_known.shape[0]
+        with span("generate", {"call": next(_CALLS), "batch": b}):
+            return self._stages(inputs, cond_cache, generator, noise)
+
+    def _stages(self, inputs, cond_cache, generator, noise):
+        """`generate`'s five stages, each in its span."""
         b, f = inputs.frame_known.shape
         if noise is None:
             noise = StoryNoise.draw(self, b, generator,
@@ -316,61 +327,73 @@ class StoryPipeline(nn.Module):
         eos1 = self.configs.text_s1.eos_token_id
 
         # ---- stage 1 --------------------------------------------------------
-        th_c, te_c = self._encode_text(self.text_s1, inputs.tokens_s1)
-        src_tokens, src_embed = self._encode_images(inputs.source_clip)
-        if cond_cache is None:
-            th_u, te_u = self._encode_text(self.text_s1, inputs.tokens_s1_u)
-            _, mask_embed = self._encode_images(inputs.mask_clip)
-            th2_u, _ = self._encode_text(self.text_s2, inputs.tokens_s2_u)
-        else:
-            th_u = cond_cache.s1_hidden_u.expand((b, f) + th_c.shape[2:])
-            te_u = cond_cache.s1_embed_u.expand(te_c.shape)
-            mask_embed = torch.where(known[..., None], cond_cache.white_embed,
-                                     cond_cache.black_embed)
-            th2_u = None
-        cond1 = PriorConditioning(
-            text_embed=te_c, text_hidden=th_c,
-            text_mask=padding_mask(inputs.tokens_s1, eos1),
-            text_embed_u=te_u, text_hidden_u=th_u,
-            text_mask_u=padding_mask(inputs.tokens_s1_u, eos1),
-            image_embed=src_embed, mask_embed=mask_embed)
-        pred_embeds = self.prior_sampler(cond1, noise.prior_init,
-                                         noise.prior_steps)
-        image_proj = torch.where(known[..., None], src_embed,
-                                 pred_embeds.to(src_embed.dtype))
+        with span("stage1.encode"):
+            th_c, te_c = self._encode_text(self.text_s1, inputs.tokens_s1)
+            src_tokens, src_embed = self._encode_images(inputs.source_clip)
+            if cond_cache is None:
+                th_u, te_u = self._encode_text(self.text_s1,
+                                               inputs.tokens_s1_u)
+                _, mask_embed = self._encode_images(inputs.mask_clip)
+                th2_u, _ = self._encode_text(self.text_s2,
+                                             inputs.tokens_s2_u)
+            else:
+                th_u = cond_cache.s1_hidden_u.expand((b, f)
+                                                     + th_c.shape[2:])
+                te_u = cond_cache.s1_embed_u.expand(te_c.shape)
+                mask_embed = torch.where(known[..., None],
+                                         cond_cache.white_embed,
+                                         cond_cache.black_embed)
+                th2_u = None
+            cond1 = PriorConditioning(
+                text_embed=te_c, text_hidden=th_c,
+                text_mask=padding_mask(inputs.tokens_s1, eos1),
+                text_embed_u=te_u, text_hidden_u=th_u,
+                text_mask_u=padding_mask(inputs.tokens_s1_u, eos1),
+                image_embed=src_embed, mask_embed=mask_embed)
+        with span("stage1.prior_loop"):
+            pred_embeds = self.prior_sampler(cond1, noise.prior_init,
+                                             noise.prior_steps)
 
         # ---- stage 2 --------------------------------------------------------
-        th2_c, _ = self._encode_text(self.text_s2, inputs.tokens_s2)
-        if th2_u is None:
-            th2_u = cond_cache.s2_hidden_u.expand(th2_c.shape)
-        px = inputs.source_pixels
-        mean, logvar = self._encode_pixels(
-            px.reshape((b * f,) + px.shape[2:]).to(self.dtype))
-        masked = VAE.sample_latent(mean.float(), logvar.float(),
-                                   noise.vae.float()) * self.vae_scale
-        masked = masked.reshape((b, f) + masked.shape[1:])
-        h8, w8 = masked.shape[2:4]
-        mask_label = known[:, :, None, None, None].float().expand(
-            b, f, h8, w8, 1)
-        cond2 = StoryConditioning(
-            text_hidden=th2_c, text_hidden_u=th2_u, image_tokens=src_tokens,
-            image_proj=image_proj, frame_known=known,
-            masked_latents=masked, mask_label=mask_label)
-        latents = self.story_sampler(cond2, noise.story_init,
-                                     step_noise=noise.story_steps)
+        with span("stage2.encode"):
+            image_proj = torch.where(known[..., None], src_embed,
+                                     pred_embeds.to(src_embed.dtype))
+            th2_c, _ = self._encode_text(self.text_s2, inputs.tokens_s2)
+            if th2_u is None:
+                th2_u = cond_cache.s2_hidden_u.expand(th2_c.shape)
+            px = inputs.source_pixels
+            mean, logvar = self._encode_pixels(
+                px.reshape((b * f,) + px.shape[2:]).to(self.dtype))
+            masked = VAE.sample_latent(mean.float(), logvar.float(),
+                                       noise.vae.float()) * self.vae_scale
+            masked = masked.reshape((b, f) + masked.shape[1:])
+            h8, w8 = masked.shape[2:4]
+            mask_label = known[:, :, None, None, None].float().expand(
+                b, f, h8, w8, 1)
+            cond2 = StoryConditioning(
+                text_hidden=th2_c, text_hidden_u=th2_u,
+                image_tokens=src_tokens, image_proj=image_proj,
+                frame_known=known, masked_latents=masked,
+                mask_label=mask_label)
+        with span("stage2.unet_loop"):
+            latents = self.story_sampler(cond2, noise.story_init,
+                                         step_noise=noise.story_steps)
 
         # ---- decode one frame at a time (bounds the decoder's memory) -------
-        z = (latents / self.vae_scale).reshape((b * f,) + latents.shape[2:])
-        plan = self._vae_plan(z.shape[1], z.shape[2], 1,
-                              len(self.configs.vae.block_channels) - 1)
-        z = spatial.narrow(z, 1, plan.group, plan.blocks(z.shape[2]))
-        with spatial.spatial(plan):
-            frames = torch.cat([self.vae.decode(zi[None].to(self.dtype))
-                                .float() for zi in z])
-        frames = spatial.gather(frames, 1, plan.group,
-                                plan.blocks(frames.shape[2]))
-        frames = frames.reshape((b, f) + frames.shape[1:])
-        return (frames / 2 + 0.5).clamp(0.0, 1.0), pred_embeds
+        with span("stage2.decode"):
+            z = (latents / self.vae_scale).reshape((b * f,)
+                                                   + latents.shape[2:])
+            plan = self._vae_plan(z.shape[1], z.shape[2], 1,
+                                  len(self.configs.vae.block_channels) - 1)
+            z = spatial.narrow(z, 1, plan.group, plan.blocks(z.shape[2]))
+            with spatial.spatial(plan):
+                frames = torch.cat([self.vae.decode(zi[None].to(self.dtype))
+                                    .float() for zi in z])
+            frames = spatial.gather(frames, 1, plan.group,
+                                    plan.blocks(frames.shape[2]))
+            frames = frames.reshape((b, f) + frames.shape[1:])
+            frames = (frames / 2 + 0.5).clamp(0.0, 1.0)
+        return frames, pred_embeds
 
     def _everyone(self) -> spatial.RowGroup:
         """Every rank of the mesh (one rank without a mesh)."""

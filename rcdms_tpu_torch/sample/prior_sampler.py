@@ -32,6 +32,7 @@ import torch
 from rcdms_tpu_torch.core import spatial
 from rcdms_tpu_torch.core.schedulers import UnCLIPSchedule, cfg_combine
 from rcdms_tpu_torch.models.prior import FramePrior
+from rcdms_tpu_torch.utils.logging import span
 
 
 class PriorConditioning(NamedTuple):
@@ -107,18 +108,21 @@ class PriorSampler:
         with spatial.step_loop():
             for i, (t, prev_t) in enumerate(zip(ts.tolist(),
                                                 prev_ts.tolist())):
-                x = pair(latents, latents).to(dtype)
-                tb = torch.full(x.shape[:2], t, dtype=torch.int64, device=dev)
-                with spatial.spatial(frames=frames):
-                    pred = self.model(x, tb, args[0], args[1], args[2],
-                                      args[3], text_mask).float()
-                if split_cfg:
-                    pred = cfg_combine(*spatial.gather_list(
-                        pred, self.mesh.cfg_group), self.guidance_scale)
-                elif do_cfg:
-                    pred = cfg_combine(*pred.chunk(2), self.guidance_scale)
-                latents = self.schedule.step(pred, t, prev_t, latents,
-                                             step_noise[i].float())
+                with span("prior.step"):
+                    x = pair(latents, latents).to(dtype)
+                    tb = torch.full(x.shape[:2], t, dtype=torch.int64,
+                                    device=dev)
+                    with spatial.spatial(frames=frames):
+                        pred = self.model(x, tb, args[0], args[1], args[2],
+                                          args[3], text_mask).float()
+                    if split_cfg:
+                        pred = cfg_combine(*spatial.gather_list(
+                            pred, self.mesh.cfg_group), self.guidance_scale)
+                    elif do_cfg:
+                        pred = cfg_combine(*pred.chunk(2),
+                                           self.guidance_scale)
+                    latents = self.schedule.step(pred, t, prev_t, latents,
+                                                 step_noise[i].float())
         return self.model.denormalize(spatial.gather(latents, 1, branch,
                                                      table))
 

@@ -47,6 +47,7 @@ from rcdms_tpu_torch.core.schedulers import DDIMSchedule, cfg_combine
 from rcdms_tpu_torch.models.fusion import FusionModule
 from rcdms_tpu_torch.models.unet3d import StoryUNet
 from rcdms_tpu_torch.sample.prior_sampler import draw_noise
+from rcdms_tpu_torch.utils.logging import span
 
 
 class StoryConditioning(NamedTuple):
@@ -77,12 +78,15 @@ class StorySampler:
         encoder propagation the down path runs only when `is_key`, else
         the cached encoding is decoded under this step's embedding."""
         tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        if self.encoder_propagation < 2:
-            return self.unet(x, tb, ctx).float(), cache
-        temb = self.unet.time_embed(tb, x.dtype)
-        if is_key:
-            cache = self.unet.encode(x, temb, ctx)
-        return self.unet.decode(*cache, temb, ctx).float(), cache
+        with span("unet"):
+            if self.encoder_propagation < 2:
+                pred = self.unet(x, tb, ctx)
+            else:
+                temb = self.unet.time_embed(tb, x.dtype)
+                if is_key:
+                    cache = self.unet.encode(x, temb, ctx)
+                pred = self.unet.decode(*cache, temb, ctx)
+        return pred.float(), cache
 
     @torch.no_grad()
     def __call__(self, cond: StoryConditioning,
@@ -149,23 +153,26 @@ class StorySampler:
         with spatial.step_loop():
             for i, (t, prev_t) in enumerate(zip(ts.tolist(),
                                                 prev_ts.tolist())):
-                lat = torch.cat([latents, latents]) if batched else latents
-                x = torch.cat([lat, side], dim=-1).to(dtype)
-                preds = []
-                with spatial.spatial(rows, split, whole):
-                    for j, ctx in enumerate(contexts):
-                        pred, caches[j] = self._unet(x, t, ctx, caches[j],
-                                                     k < 2 or i % k == 0)
-                        preds.append(pred)
-                if batched:
-                    preds = list(preds[0].chunk(2))
-                elif split_cfg:
-                    preds = spatial.gather_list(preds[0], mesh.cfg_group)
-                pred = (cfg_combine(preds[0], preds[1], self.guidance_scale)
-                        if do_cfg else preds[0])
-                noise = step_noise[i].float() if self.eta > 0.0 else None
-                latents = self.schedule.step(pred, t, prev_t, latents,
-                                             eta=self.eta, noise=noise)
+                with span("story.step"):
+                    lat = (torch.cat([latents, latents]) if batched
+                           else latents)
+                    x = torch.cat([lat, side], dim=-1).to(dtype)
+                    preds = []
+                    with spatial.spatial(rows, split, whole):
+                        for j, ctx in enumerate(contexts):
+                            pred, caches[j] = self._unet(
+                                x, t, ctx, caches[j], k < 2 or i % k == 0)
+                            preds.append(pred)
+                    if batched:
+                        preds = list(preds[0].chunk(2))
+                    elif split_cfg:
+                        preds = spatial.gather_list(preds[0], mesh.cfg_group)
+                    pred = (cfg_combine(preds[0], preds[1],
+                                        self.guidance_scale)
+                            if do_cfg else preds[0])
+                    noise = step_noise[i].float() if self.eta > 0.0 else None
+                    latents = self.schedule.step(pred, t, prev_t, latents,
+                                                 eta=self.eta, noise=noise)
         latents = spatial.gather(latents, 2, space, row_table)
         return spatial.gather(latents, 1, frames, frame_table)
 

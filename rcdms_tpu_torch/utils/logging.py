@@ -1,21 +1,30 @@
-"""Metrics and tracing for the training CLIs, the port's counterpart of
+"""Metrics and tracing, the port's counterpart of
 `rcdms_tpu/utils/logging.py`: step timing, a scalar logger (JSONL always;
-TensorBoard, Weights & Biases and Comet where asked for and installed)
-and `torch.profiler` trace windows written as Chrome traces.
+TensorBoard, Weights & Biases and Comet where asked for and installed),
+the training CLIs' `torch.profiler` trace windows written as Chrome
+traces, and the port's own spans (`span`).
 
 A trace holds the host's operators, and the card's kernels when CUDA is
 available (`torch.profiler.ProfilerActivity.CUDA`); open the JSON in
-Perfetto or `chrome://tracing`."""
+Perfetto or `chrome://tracing`.
+
+`span(name)` marks a region of the program as a profiler range
+"rcdms.<name>", which any `torch.profiler` recording the calling thread
+holds (a training CLI's `--profile` window, `tools.profile_call`, a
+benchmark's traced run), on the clock of the card's kernels; elsewhere
+it is a shared no-op. Counters are plain attributes of the object that
+owns them (`StoryServer.served`, an op's `.launches`)."""
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+import torch
 
 logger = logging.getLogger("rcdms_tpu_torch")
 
@@ -116,8 +125,44 @@ class StepTimer:
         return self.step_time, self.data_time
 
 
+SPAN = "rcdms."
+# True where a profiler records the calling thread: one C call, which the
+# hottest spans' sites make before they build a span
+recording = torch.autograd._profiler_enabled
+
+
+class _NoSpan:
+    """The context `span` returns where no profiler records the thread."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str, args: Optional[Dict[str, object]] = None):
+    """A profiler range "rcdms.<name>" around a `with` block, where a
+    profiler records the calling thread; else `NO_SPAN`. `args` (str, int
+    or float values) are recorded with the range where the profiler
+    records shapes (`record_shapes=True`). The range is a function-scope
+    record (`_RecordFunctionFast`), not a `record_function` user
+    annotation: the profiler gives a kernel the device range of the
+    innermost user annotation open at its launch only, so a user
+    annotation here would take the kernels out of an enclosing one's."""
+    if not recording():
+        return NO_SPAN
+    if args is None:
+        return torch._C._profiler._RecordFunctionFast(SPAN + name)
+    return torch._C._profiler._RecordFunctionFast(SPAN + name, (), args)
+
+
 def _start_profiler():
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -130,8 +175,6 @@ def _start_profiler():
 
 def _stop_profiler(prof, trace_dir: str, name: str) -> str:
     """Stop `prof` and write its Chrome trace; returns the file's path."""
-    import torch
-
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
@@ -139,20 +182,6 @@ def _stop_profiler(prof, trace_dir: str, name: str) -> str:
     path = os.path.join(trace_dir, f"{name}.pt.trace.json")
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: Optional[str]):
-    """A `torch.profiler` trace of the region, written into `log_dir`;
-    nothing when `log_dir` is None."""
-    if log_dir is None:
-        yield
-        return
-    prof = _start_profiler()
-    try:
-        yield
-    finally:
-        _stop_profiler(prof, log_dir, f"trace_{os.getpid()}_{time.time_ns()}")
 
 
 class ProfileWindow:

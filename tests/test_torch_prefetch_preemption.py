@@ -24,7 +24,6 @@ from rcdms_tpu_torch.utils.logging import (
     MetricLogger,
     ProfileWindow,
     StepTimer,
-    profile_trace,
 )
 from rcdms_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -168,15 +167,6 @@ def test_profile_window_closes_a_trace_when_the_loop_ends_inside(tmp_path):
     off.tick(0)
     off.close()
     assert not off.active
-
-
-def test_profile_trace_context(tmp_path):
-    with profile_trace(str(tmp_path)):
-        _traced_work()
-    (name,) = os.listdir(tmp_path)
-    assert name.endswith(".pt.trace.json")
-    with profile_trace(None):
-        _traced_work()
 
 
 # ---- SIGTERM to a training CLI -------------------------------------------

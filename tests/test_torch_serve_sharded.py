@@ -35,7 +35,7 @@ HEARTBEAT_S in the pool) and its stop; the 400 and the 503 reach no
 follower; a stop ends every rank with rc 0; a fault on
 rank 1 gets 500 from rank 0 and ends every rank non-zero within TIMEOUT;
 `--precompile` exits 0 on 2 ranks and binds no port; `/healthz` has the
-JAX server's keys.
+JAX server's keys and the port's counters.
 """
 
 import ast
@@ -89,6 +89,9 @@ with open(os.path.join(REPO, "rcdms_tpu", "cli", "serve.py")) as _fh:
         == "_reply" and isinstance(node.args[1], ast.Dict)
         and any(getattr(k, "value", "") == "status"
                 for k in node.args[1].keys))
+# the counters the port's /healthz adds to the JAX server's keys
+PORT_HEALTHZ_KEYS = ["avg_queue_wait_s", "batches_by_size", "cond_cache",
+                     "max_queue_wait_s"]
 GENERATE_KEYS = ["batch_size", "frames", "latency_s"]
 
 
@@ -626,6 +629,8 @@ def test_precompile_on_two_ranks_binds_no_port(pool):
 @pytest.mark.parametrize("tag", SERVED)
 def test_healthz_has_the_one_process_keys(pool, tag):
     health = pool.client[tag]["healthz"]
-    assert sorted(health) == HEALTHZ_KEYS
+    assert sorted(health) == sorted(HEALTHZ_KEYS + PORT_HEALTHZ_KEYS)
     assert health["status"] == "ok" and health["num_frames"] == 5
     assert health["served"] == (7 if tag == "w2" else 3)
+    assert sum(int(k) * n for k, n in health["batches_by_size"].items()) \
+        == health["served"]
